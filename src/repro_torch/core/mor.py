@@ -1,0 +1,181 @@
+"""The MoR recipes' real-quantization entry point (port of the serving
+part of ``repro.core.mor``).
+
+:func:`quantize_for_gemm` real-quantizes one 2-D operand view into the
+mixed block layout and returns the STATS_WIDTH stats vector. The
+sub-tensor recipes (sub2/sub3/sub4) are one pass: the pack-emitting
+selection (``kernels.ops.quantize_pack``) makes every per-block
+decision and writes the payload lanes. The fake-quantization entry
+(``mor_quantize``) and the 'tensor'/'e4m3' recipes need the
+``gam_quant`` kernel and belong to the training slice.
+
+Stats layout v4 (14 f32 lanes) is the reference's; index it through the
+``STAT_*`` constants.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels import ref as _kref
+from repro_torch.kernels.ref import TAG_NVFP4, MixedOperand
+
+from .formats import true_divide
+from .partition import Partition
+from .policy import MoRPolicy
+
+__all__ = [
+    "STATS_WIDTH", "STAT_DECISION", "STAT_REL_ERR", "STAT_AMAX",
+    "STAT_FRAC_E4M3", "STAT_FRAC_E5M2", "STAT_FRAC_BF16",
+    "STAT_NONZERO_FRAC", "STAT_GROUP_MANTISSA", "STAT_FRAC_NVFP4",
+    "STAT_MICRO_SCALE_BPE", "STAT_EVENT_KIND", "STAT_PAYLOAD_BPE",
+    "STAT_GUARD_FLAGS", "STAT_FALLBACK_COUNT", "GUARD_OK",
+    "GUARD_NONFINITE_AMAX", "GUARD_BLOCK_FALLBACK", "GUARD_STALE_SCALE",
+    "EVENT_GEMM", "EVENT_GRAD", "EVENT_MOMENT_M", "EVENT_MOMENT_V",
+    "quantize_for_gemm", "partition_of",
+]
+
+STATS_WIDTH = 14
+
+STAT_DECISION = 0
+STAT_REL_ERR = 1
+STAT_AMAX = 2
+STAT_FRAC_E4M3 = 3
+STAT_FRAC_E5M2 = 4
+STAT_FRAC_BF16 = 5
+STAT_NONZERO_FRAC = 6
+STAT_GROUP_MANTISSA = 7
+STAT_FRAC_NVFP4 = 8
+STAT_MICRO_SCALE_BPE = 9
+STAT_EVENT_KIND = 10
+STAT_PAYLOAD_BPE = 11
+STAT_GUARD_FLAGS = 12
+STAT_FALLBACK_COUNT = 13
+
+GUARD_OK = 0.0
+GUARD_NONFINITE_AMAX = 1.0
+GUARD_BLOCK_FALLBACK = 2.0
+GUARD_STALE_SCALE = 4.0
+
+EVENT_GEMM = 0.0
+EVENT_GRAD = 1.0
+EVENT_MOMENT_M = 2.0
+EVENT_MOMENT_V = 3.0
+
+
+def partition_of(policy: MoRPolicy) -> Partition:
+    # sub4 blocks pair rows (nibble packing) and 16-divide the
+    # contraction axis (micro scales).
+    align = (2, 16) if policy.recipe == "sub4" else (1, 1)
+    return Partition(kind=policy.partition, block_shape=policy.block_shape,
+                     sub=policy.sub, align=align)
+
+
+def _f32(v, device) -> torch.Tensor:
+    return torch.as_tensor(v, dtype=torch.float32, device=device)
+
+
+def _stats(decision, rel_err, amax, f_e4, f_e5, f_bf, nz_frac, m_g,
+           f_nv=0.0, micro_bpe=0.0, guard_flags=0.0, fallback_count=0.0,
+           device=None) -> torch.Tensor:
+    lanes = [decision, rel_err, amax, f_e4, f_e5, f_bf, nz_frac, m_g,
+             f_nv, micro_bpe, EVENT_GEMM]
+    v = [_f32(x, device) for x in lanes]
+    # [11] payload_bpe from the tag mixture: fp8 1 B/elt, BF16 2,
+    # NVFP4 half a byte plus one micro-scale byte per 16 elements.
+    payload_bpe = (v[STAT_FRAC_E4M3] + v[STAT_FRAC_E5M2]
+                   + 2.0 * v[STAT_FRAC_BF16]
+                   + (0.5 + 1.0 / _kref.NVFP4_MICRO) * v[STAT_FRAC_NVFP4])
+    v += [payload_bpe, _f32(guard_flags, device),
+          _f32(fallback_count, device)]
+    return torch.stack(v)
+
+
+def _guard_lanes(group_amax, block_err_sums=None):
+    """Guard lanes [12]/[13] from the group amax and the per-block error
+    sums the event already computed (a NaN/Inf element makes its
+    block's error sum nonfinite)."""
+    amax_bad = ~torch.isfinite(group_amax.to(torch.float32))
+    flags = torch.where(amax_bad, GUARD_NONFINITE_AMAX, GUARD_OK)
+    if block_err_sums is None:
+        return flags, 0.0
+    fallback = (~torch.isfinite(block_err_sums)).to(torch.float32).sum()
+    flags = flags + torch.where(fallback > 0, GUARD_BLOCK_FALLBACK,
+                                GUARD_OK)
+    return flags, fallback
+
+
+def _sub_tensor_stats(r, policy: MoRPolicy, x_size: int) -> torch.Tensor:
+    """Aggregate one sub-tensor selection event into the stats vector."""
+    dev = r.sel.device
+    nblocks = float(r.sel.numel())
+    cnt = r.counts.sum()
+    nz = true_divide(cnt, float(x_size))
+    tot_n = torch.clamp_min(cnt, 1.0)
+    global_e4_err = r.e4_sums.sum() / tot_n
+
+    def frac(tag):
+        return true_divide((r.sel == tag).to(torch.float32).sum(), nblocks)
+
+    f4 = frac(0)
+    gf, fb = _guard_lanes(r.group_amax, r.e4_sums)
+    if policy.recipe == "sub2":
+        return _stats(f4, global_e4_err, r.group_amax, f4, 0.0, 1.0 - f4,
+                      nz, r.group_mantissa, guard_flags=gf,
+                      fallback_count=fb, device=dev)
+    f5 = frac(1)
+    if policy.recipe == "sub3":
+        return _stats(f4, global_e4_err, r.group_amax, f4, f5,
+                      1.0 - f4 - f5, nz, r.group_mantissa, guard_flags=gf,
+                      fallback_count=fb, device=dev)
+    f_nv = frac(TAG_NVFP4)
+    return _stats(f_nv, global_e4_err, r.group_amax, f4, f5,
+                  1.0 - f4 - f5 - f_nv, nz, r.group_mantissa, f_nv,
+                  true_divide(f_nv, float(_kref.NVFP4_MICRO)), guard_flags=gf,
+                  fallback_count=fb, device=dev)
+
+
+def _off_stats(x2d: torch.Tensor) -> torch.Tensor:
+    """Stats of a disabled event: decision = -1.0 (the sentinel that
+    aggregation consumers filter on)."""
+    nz = true_divide((x2d != 0).to(torch.float32).sum(), float(x2d.numel()))
+    amax = torch.amax(x2d.to(torch.float32).abs())
+    gf, _ = _guard_lanes(amax)
+    return _stats(-1.0, 0.0, amax, 0.0, 0.0, 1.0, nz, 1.0, guard_flags=gf,
+                  device=x2d.device)
+
+
+def quantize_for_gemm(x2d: torch.Tensor,
+                      policy: MoRPolicy) -> Tuple[MixedOperand, torch.Tensor]:
+    """Real-quantize one (R, K) operand view (contraction last) into the
+    mixed block layout. Returns (MixedOperand, stats vector)."""
+    if not policy.enabled:
+        part = Partition("block", policy.block_shape)
+        return (_kref.passthrough_mixed(x2d, part.resolve(tuple(x2d.shape))),
+                _off_stats(x2d))
+    if policy.partition != "block":
+        raise ValueError(
+            "quantize_for_gemm requires partition='block' (got "
+            f"{policy.partition!r})"
+        )
+    part = partition_of(policy)
+    block = part.resolve(tuple(x2d.shape))
+    if policy.recipe == "sub4" and not _kref.nvfp4_block_capable(block):
+        raise ValueError(
+            f"sub4 packing needs an even-row, 16-divisible-column block; "
+            f"policy block_shape {policy.block_shape} resolved to {block} "
+            f"for operand {tuple(x2d.shape)}"
+        )
+    if policy.recipe in ("sub2", "sub3", "sub4"):
+        mo, r = kops.quantize_pack(x2d, part, mode=policy.recipe,
+                                   algo=policy.algo,
+                                   backend=policy.backend)
+        return mo, _sub_tensor_stats(r, policy, x2d.numel())
+    if policy.recipe in ("tensor", "e4m3"):
+        raise NotImplementedError(
+            f"recipe {policy.recipe!r} needs the gam_quant kernel, which "
+            "is ported with the training slice (ROADMAP Queue 1)"
+        )
+    raise ValueError(f"unknown recipe: {policy.recipe}")

@@ -1,0 +1,94 @@
+"""MoR recipe / policy configuration (port of ``repro.core.policy``).
+
+``backend`` selects the lowering of a policy's quantization events and
+GEMMs: ``'auto'`` launches the CUDA kernel for a CUDA tensor and runs
+the plain PyTorch version for a CPU tensor; ``'torch'`` always runs the
+plain version; ``'cuda'`` insists on the kernel (a CPU tensor raises).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+__all__ = ["MoRPolicy", "MoRDotPolicy", "TENSOR_MOR", "SUBTENSOR2_MOR",
+           "SUBTENSOR3_MOR", "SUBTENSOR4_MOR", "BF16_BASELINE",
+           "paper_default", "BACKENDS"]
+
+BACKENDS = ("auto", "torch", "cuda")
+
+
+@dataclasses.dataclass(frozen=True)
+class MoRPolicy:
+    """Policy for one quantization event.
+
+    recipe: 'off' | 'tensor' | 'sub2' | 'sub3' | 'sub4' | 'e4m3' (see
+    the reference for the semantics of each). This slice ports 'off'
+    and the sub-tensor recipes; 'tensor' and 'e4m3' need the
+    ``gam_quant`` kernel of the training slice, which also brings back
+    the reference's 'tensor'-recipe ``threshold``.
+    """
+
+    recipe: str = "tensor"
+    partition: str = "block"
+    block_shape: Tuple[int, int] = (128, 128)
+    sub: int = 128
+    algo: str = "gam"  # 'gam' | 'e8m0' | 'fp32_amax'
+    backend: str = "auto"  # 'auto' | 'torch' | 'cuda'
+    mesh_axes: Tuple[str, ...] = ()
+
+    def __post_init__(self):
+        object.__setattr__(self, "mesh_axes", tuple(self.mesh_axes))
+        object.__setattr__(self, "block_shape", tuple(self.block_shape))
+        if self.backend not in BACKENDS:
+            raise ValueError(
+                f"unknown backend {self.backend!r} (want one of {BACKENDS})"
+            )
+        if self.mesh_axes:
+            raise NotImplementedError(
+                "mesh_axes: multi-device quantization is not ported yet "
+                "(ROADMAP Queue 1 item 11)"
+            )
+
+    @property
+    def enabled(self) -> bool:
+        return self.recipe != "off"
+
+    def replace(self, **kw) -> "MoRPolicy":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclasses.dataclass(frozen=True)
+class MoRDotPolicy:
+    """Per-operand policies for one mor_dot GEMM (the reference's
+    backward, fusion and decision-cache switches come with the training
+    slice)."""
+
+    act: MoRPolicy = MoRPolicy()
+    weight: MoRPolicy = MoRPolicy()
+    grad: MoRPolicy = MoRPolicy()
+
+    @property
+    def enabled(self) -> bool:
+        return self.act.enabled or self.weight.enabled or self.grad.enabled
+
+    def replace(self, **kw) -> "MoRDotPolicy":
+        return dataclasses.replace(self, **kw)
+
+
+def paper_default(recipe: str = "tensor", partition: str = "block",
+                  block_shape: Tuple[int, int] = (128, 128),
+                  algo: str = "gam") -> MoRDotPolicy:
+    p = MoRPolicy(recipe=recipe, partition=partition,
+                  block_shape=block_shape, algo=algo)
+    return MoRDotPolicy(act=p, weight=p, grad=p)
+
+
+TENSOR_MOR = paper_default("tensor")
+SUBTENSOR2_MOR = paper_default("sub2")
+SUBTENSOR3_MOR = paper_default("sub3")
+SUBTENSOR4_MOR = paper_default("sub4")
+BF16_BASELINE = MoRDotPolicy(
+    act=MoRPolicy(recipe="off"),
+    weight=MoRPolicy(recipe="off"),
+    grad=MoRPolicy(recipe="off"),
+)

@@ -1,0 +1,94 @@
+// Shared device helpers for the MoR CUDA kernels: bf16/fp8 conversions
+// with the reference's rounding (RNE, saturating fp8 after an explicit
+// clip), NaN-propagating min/max (jnp.max/jnp.min semantics), the
+// Alg. 1 bit arithmetic and the E2M1 grid snap.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#define TAG_E4M3 0
+#define TAG_E5M2 1
+#define TAG_BF16 2
+#define TAG_NVFP4 3
+#define NVFP4_MICRO 16
+
+__device__ __forceinline__ float bf2f(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+__device__ __forceinline__ __nv_bfloat16 f2bf(float v) {
+  return __float2bfloat16_rn(v);
+}
+
+// Stored-value rounding (Fig. 4): round to bf16 and back.
+__device__ __forceinline__ float round_bf16(float v) {
+  return bf2f(f2bf(v));
+}
+
+__device__ __forceinline__ float fp8_to_float(uint8_t b, __nv_fp8_interpretation_t fmt) {
+  __half_raw hr = __nv_cvt_fp8_to_halfraw((__nv_fp8_storage_t)b, fmt);
+  return __half2float(__half(hr));
+}
+
+// max/min that propagate NaN like jnp.max / jnp.min (fmaxf drops NaN).
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return (isnan(a) || isnan(b)) ? __int_as_float(0x7fc00000) : fmaxf(a, b);
+}
+
+__device__ __forceinline__ float nan_min(float a, float b) {
+  return (isnan(a) || isnan(b)) ? __int_as_float(0x7fc00000) : fminf(a, b);
+}
+
+// jnp.clip(x, -q, q): NaN stays NaN.
+__device__ __forceinline__ float clip_sym(float x, float q) {
+  return isnan(x) ? x : fminf(fmaxf(x, -q), q);
+}
+
+// Clip, then a saturating RNE cast to fp8 (the clip makes SATFINITE a
+// no-op on finite values; torch and ml_dtypes disagree on overflow).
+__device__ __forceinline__ uint8_t to_fp8(float x, float q_amax, __nv_fp8_interpretation_t fmt) {
+  return (uint8_t)__nv_cvt_float_to_fp8(clip_sym(x, q_amax), __NV_SATFINITE, fmt);
+}
+
+// Exact 2^e for e clamped to the full E8M0 domain [-126, 127].
+__device__ __forceinline__ float exp2i(int e) {
+  e = e < -126 ? -126 : (e > 127 ? 127 : e);
+  return __int_as_float((e + 127) << 23);
+}
+
+// E2M1 grid spacing at |a| in [0, 6]: 2^(floor(log2(max(a, 1))) - 1).
+__device__ __forceinline__ float e2m1_ulp(float a) {
+  float a1 = nan_max(a, 1.0f);
+  int e = ((__float_as_int(a1) >> 23) & 0xFF) - 127;
+  return __int_as_float((e - 1 + 127) << 23);
+}
+
+// RNE snap to the E2M1 grid, saturating at +-6 (rintf is half-to-even;
+// roundf would round half away from zero).
+__device__ __forceinline__ float round_e2m1(float x) {
+  float a = nan_min(fabsf(x), 6.0f);
+  float ulp = e2m1_ulp(a);
+  float mag = rintf(a / ulp) * ulp;
+  return x < 0.0f ? -mag : mag;
+}
+
+// E2M1 grid value -> 4-bit code (sign << 3 | magnitude code).
+__device__ __forceinline__ int encode_e2m1(float v) {
+  float m = fabsf(v);
+  float ulp = e2m1_ulp(m);
+  int e = ((__float_as_int(nan_max(m, 1.0f)) >> 23) & 0xFF) - 127;
+  int hi = 4 + 2 * (e - 1) + (int)(m / ulp) - 2;
+  int code = m < 2.0f ? (int)(m * 2.0f) : hi;
+  return code | ((v < 0.0f ? 1 : 0) << 3);
+}
+
+__device__ __forceinline__ float decode_e2m1(int code) {
+  const int m = code & 7;
+  float mag = m < 4 ? 0.5f * (float)m
+                    : (1.0f + 0.5f * (float)(m & 1)) * (m >= 6 ? 4.0f : 2.0f);
+  return (code >> 3) ? -mag : mag;
+}

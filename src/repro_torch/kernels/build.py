@@ -1,0 +1,97 @@
+"""Build the CUDA kernels with ``nvcc`` at first use and load them with
+``ctypes``.
+
+Each ``csrc/<name>.cu`` compiles into its own shared library with a
+plain C interface (no PyTorch headers, so a build takes seconds), for
+``sm_90a`` and without fast-math: payload bytes must be bit-exact, and
+fast-math changes IEEE division and flushes denormals. Libraries are
+cached in ``build/kernels/`` at the repository root (listed in
+``.gitignore``) under a SHA-256 digest of the sources and flags, so an
+edited source rebuilds. :func:`build_all` starts one ``nvcc`` per source
+at once.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import Dict, List
+
+__all__ = ["CSRC", "BUILD_DIR", "SOURCES", "build_all", "load"]
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+
+_COMMON = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# Per-source flags. The selection kernel's payload bytes and error sums
+# follow the reference op by op, so no multiply-add contraction there.
+SOURCES: Dict[str, List[str]] = {
+    "mor_select": ["-fmad=false"],
+    "mixed_gemm": [],
+}
+
+_LOADED: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(found):
+        raise RuntimeError(
+            "nvcc not found: the CUDA kernels build on a machine with the "
+            "CUDA toolkit (PATH or /usr/local/cuda/bin)"
+        )
+    return found
+
+
+def _target(name: str) -> Path:
+    flags = _COMMON + SOURCES[name]
+    h = hashlib.sha256(" ".join(flags).encode())
+    for src in sorted(CSRC.glob("*.cuh")) + [CSRC / f"{name}.cu"]:
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
+
+
+def _build(names) -> Dict[str, str]:
+    """Build the named libraries not yet cached, one nvcc per source, all
+    started together; returns each fresh build's compiler log."""
+    started = {}
+    for name in names:
+        so = _target(name)
+        if so.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *_COMMON, *SOURCES[name], "-I", str(CSRC), "-o",
+               str(tmp), str(CSRC / f"{name}.cu")]
+        started[name] = (subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True), tmp, so)
+    logs = {}
+    for name, (proc, tmp, so) in started.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {name}.cu:\n{log}")
+        (BUILD_DIR / f"{so.stem}.log").write_text(log)
+        os.replace(tmp, so)  # atomic: a concurrent loader sees all or nothing
+        logs[name] = log
+    return logs
+
+
+def build_all() -> Dict[str, str]:
+    """Build every kernel library not yet cached (register and
+    shared-memory use from ``-Xptxas -v`` in the returned logs)."""
+    return _build(SOURCES)
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built if needed."""
+    lib = _LOADED.get(name)
+    if lib is None:
+        _build([name])
+        lib = ctypes.CDLL(str(_target(name)))
+        _LOADED[name] = lib
+    return lib

@@ -1,0 +1,112 @@
+"""Wrapper of the pack-emitting MoR selection kernel
+(``csrc/mor_select.cu``), the Hopper port of
+``repro/kernels/mor_select.py:mor_select_blocks(emit='pack')``.
+
+The plain PyTorch version of the same function is
+``kernels.ref.quantize_pack_ref``; ``kernels.ops.quantize_pack`` routes a
+CPU tensor there and a CUDA tensor here.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Tuple
+
+import torch
+
+from repro_torch.core.formats import NVFP4_MICRO
+from repro_torch.core.metrics import E5M2_RANGE_RATIO, NVFP4_RANGE_RATIO
+
+from . import build
+
+__all__ = ["mor_select_pack"]
+
+_MODES = {"sub2": 2, "sub3": 3, "sub4": 4}
+_ALGOS = {"gam": 0, "e8m0": 1, "fp32_amax": 2}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+
+def _fn():
+    f = build.load("mor_select").mor_select_pack_launch
+    f.argtypes = [_P] * 12 + [_I] * 6 + [_F, _F, _P]
+    f.restype = _I
+    return f
+
+
+def _check(t: torch.Tensor, name: str, dtype, shape):
+    if not t.is_cuda:
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} must be {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def mor_select_pack(xp: torch.Tensor, mg: torch.Tensor, *,
+                    block: Tuple[int, int], mode: str = "sub3",
+                    algo: str = "gam") -> Dict[str, torch.Tensor]:
+    """Launch the kernel on a padded (Mp, Kp) bf16 operand.
+
+    ``mg``: (4,) f32 on the device -- the E4M3, E5M2 and NVFP4 group
+    mantissas and the guarded group amax. Returns the MixedOperand lanes
+    (``payload_q``, ``payload_bf16``, ``payload_nib`` and
+    ``micro_scales`` for sub4) and the (nm, nk) ``sel``, ``scales``,
+    ``e4_sums``, ``e5_sums``, ``counts`` (and sub4 ``nv_sums``) grids.
+    """
+    if mode not in _MODES or algo not in _ALGOS:
+        raise ValueError(f"unknown mode/algo {mode!r}/{algo!r}")
+    Mp, Kp = xp.shape
+    bm, bk = block
+    if Mp % bm or Kp % bk:
+        raise ValueError(f"operand {(Mp, Kp)} is not padded to {block}")
+    if mode == "sub4" and (bm % 2 or bk % NVFP4_MICRO):
+        raise ValueError(f"sub4 needs an even-row, 16-divisible block, "
+                         f"got {block}")
+    _check(xp, "x", torch.bfloat16, (Mp, Kp))
+    _check(mg, "mg", torch.float32, (4,))
+    if mg.device != xp.device:
+        raise ValueError("x and mg must share a device")
+    nm, nk = Mp // bm, Kp // bk
+    dev = xp.device
+
+    def empty(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    out = {
+        "payload_q": empty((Mp, Kp), torch.uint8),
+        "payload_bf16": empty((Mp, Kp), torch.bfloat16),
+        "sel": empty((nm, nk), torch.int32),
+        "scales": empty((nm, nk), torch.float32),
+        "e4_sums": empty((nm, nk), torch.float32),
+        "e5_sums": empty((nm, nk), torch.float32),
+        "counts": empty((nm, nk), torch.float32),
+    }
+    if mode == "sub4":
+        out["nv_sums"] = empty((nm, nk), torch.float32)
+        out["payload_nib"] = empty((Mp // 2, Kp), torch.uint8)
+        out["micro_scales"] = empty((Mp, Kp // NVFP4_MICRO), torch.uint8)
+
+    def ptr(key):
+        return out[key].data_ptr() if key in out else None
+
+    fn = _fn()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(xp.data_ptr(), mg.data_ptr(), ptr("payload_q"),
+                 ptr("payload_bf16"), ptr("sel"), ptr("scales"),
+                 ptr("e4_sums"), ptr("e5_sums"), ptr("counts"),
+                 ptr("nv_sums"), ptr("payload_nib"), ptr("micro_scales"),
+                 Mp, Kp, bm, bk, _MODES[mode], _ALGOS[algo],
+                 E5M2_RANGE_RATIO, NVFP4_RANGE_RATIO, stream)
+    if err != 0:
+        raise RuntimeError(f"mor_select_pack launch failed: CUDA error {err}")
+    mor_select_pack.launches += 1
+    return out
+
+
+mor_select_pack.launches = 0

@@ -1,0 +1,142 @@
+"""Public kernel entry points with backend dispatch (port of the serving
+part of ``repro.kernels.ops``).
+
+``backend='auto'`` launches the CUDA kernel for a CUDA tensor and runs
+the plain PyTorch version (:mod:`repro_torch.kernels.ref`) for a CPU
+tensor; ``'torch'`` is an explicit request for the plain version;
+``'cuda'`` insists on the kernel. A CUDA tensor never falls back to the
+plain version: the kernel launches or the call raises.
+
+The reference's ``GemmTile`` / ``decode_cache`` / ``bn_mult`` tiling
+knobs are TPU VMEM choices and have no counterpart here.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.formats import (
+    E4M3,
+    E5M2,
+    NVFP4,
+    NVFP4_MICRO,
+    FormatSpec,
+    true_divide,
+)
+from repro_torch.core.gam import split_mantissa_exponent
+from repro_torch.core.partition import Partition, _pad2d
+
+from . import ref as _ref
+from .mixed_gemm import mixed_gemm_blocks
+from .mor_select import mor_select_pack
+from .ref import MixedOperand, MorSelect
+
+__all__ = ["resolve_backend", "quantize_pack", "mixed_gemm", "mixed_dot",
+           "MixedOperand", "MorSelect"]
+
+
+def resolve_backend(backend: str, x: torch.Tensor) -> str:
+    """'torch' (plain version) or 'cuda' (kernel) for tensor ``x``."""
+    if backend == "torch":
+        return "torch"
+    if backend == "auto":
+        return "cuda" if x.is_cuda else "torch"
+    if backend == "cuda":
+        if not x.is_cuda:
+            raise ValueError(
+                "backend='cuda' needs CUDA tensors, got one on "
+                f"{x.device}"
+            )
+        return "cuda"
+    raise ValueError(
+        f"unknown backend: {backend!r} (want 'auto', 'torch' or 'cuda')"
+    )
+
+
+def _group_amax(x: torch.Tensor):
+    """(g_amax, guarded g_amax): zero guard AND nonfinite guard -- an
+    Inf amax would otherwise poison the Alg. 1 mantissa of every block;
+    the raw value is returned first so the stats guard lanes see it."""
+    g_amax = torch.amax(x.to(torch.float32).abs())
+    safe = torch.where((g_amax > 0) & torch.isfinite(g_amax), g_amax,
+                       torch.ones_like(g_amax))
+    return g_amax, safe
+
+
+def _group_mantissa(safe_g: torch.Tensor, fmt: FormatSpec, algo: str):
+    """The Alg. 1 shared mantissa m_g (1.0 for the ablation algos)."""
+    if algo != "gam":
+        return torch.ones((), dtype=torch.float32, device=safe_g.device)
+    m_g, _ = split_mantissa_exponent(true_divide(fmt.amax, safe_g))
+    return m_g
+
+
+def quantize_pack(x: torch.Tensor, part: Partition, mode: str = "sub3",
+                  algo: str = "gam", *, backend: str = "auto"):
+    """One-pass sub-tensor selection *and* real packing of a 2-D
+    operand: returns ``(MixedOperand, MorSelect)`` with ``y=None``.
+
+    The kernel path pads the operand to the block grid, computes the
+    group amax and the three Alg. 1 group mantissas outside the kernel
+    (as the reference does), and launches ``mor_select_pack`` once.
+    """
+    be = resolve_backend(backend, x)
+    M, K = x.shape
+    bm, bk = part.resolve((M, K))
+    if be == "torch":
+        return _ref.quantize_pack_ref(x, part, mode, algo)
+    if part.kind != "block":
+        raise ValueError(f"the pack kernel tiles 'block' partitions, got "
+                         f"{part.kind!r}")
+    if mode == "sub4" and not _ref.nvfp4_block_capable((bm, bk)):
+        raise ValueError(
+            f"sub4 packing needs an even-row, {NVFP4_MICRO}-divisible-"
+            f"column block, got {(bm, bk)}"
+        )
+    xp = _pad2d(x, bm, bk).contiguous()
+    g_amax, safe_g = _group_amax(x)
+    mg = torch.stack([
+        _group_mantissa(safe_g, E4M3, algo),
+        _group_mantissa(safe_g, E5M2, algo),
+        _group_mantissa(safe_g, NVFP4, algo),
+        safe_g,
+    ]).to(torch.float32)
+    out = mor_select_pack(xp, mg, block=(bm, bk), mode=mode, algo=algo)
+    mo = MixedOperand(
+        payload_q=out["payload_q"],
+        payload_bf16=out["payload_bf16"],
+        tags=out["sel"],
+        scales=out["scales"],
+        block=(bm, bk),
+        shape=(M, K),
+        payload_nib=out.get("payload_nib"),
+        micro_scales=out.get("micro_scales"),
+        has_nvfp4=(mode == "sub4"),
+    )
+    r = MorSelect(
+        y=None, sel=out["sel"], e4_sums=out["e4_sums"],
+        e5_sums=out["e5_sums"], counts=out["counts"], group_amax=g_amax,
+        group_mantissa=mg[0], nv_sums=out.get("nv_sums"),
+    )
+    return mo, r
+
+
+def mixed_gemm(a: MixedOperand, b: MixedOperand, *,
+               out_dtype=torch.bfloat16, backend: str = "auto"):
+    """C = A @ B^T over two mixed operands, unpadded (M, N): every block
+    decoded per its tag to its stored value, f32 accumulation."""
+    be = resolve_backend(backend, b.tags)
+    if be == "torch":
+        return _ref.mixed_gemm_ref(a, b, out_dtype)
+    return mixed_gemm_blocks(a, b, out_dtype=out_dtype)
+
+
+def mixed_dot(x2: torch.Tensor, mo: MixedOperand, *,
+              out_dtype=torch.bfloat16, backend: str = "auto"):
+    """x2 @ W^T for an unquantized (M, K) activation against a mixed
+    (N, K)-view weight: the activation becomes an all-BF16 pack with a
+    row block sized to it (decode steps have a handful of rows)."""
+    bk = mo.block[1]
+    a = _ref.passthrough_mixed(
+        x2, (_ref.activation_row_block(x2.shape[0], bk), bk)
+    )
+    return mixed_gemm(a, mo, out_dtype=out_dtype, backend=backend)

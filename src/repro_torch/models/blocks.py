@@ -1,0 +1,86 @@
+"""Transformer sublayers with MoR-quantized linears (port of the dense
+decode path of ``repro.models.blocks``).
+
+Block functions share the signature
+    f(p, x, policy, cfg, mode, cache, cur_index) -> (x, cache, stats)
+where ``p`` and ``cache`` are this layer's slices. Decode mode writes the
+incoming tokens' K/V into ``cache`` in place (the engine hands each
+step a freshly gathered cache) and returns it.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core.linear import mor_dot
+from repro_torch.core.policy import MoRDotPolicy
+
+from .attention import decode_attention
+from .common import activation, apply_rope, glu_split, layer_norm, rms_norm
+
+__all__ = ["norm", "attn_sublayer", "mlp_sublayer", "dense_block"]
+
+
+def norm(p_norm, x, cfg: ArchConfig):
+    if cfg.norm == "ln":
+        return layer_norm(x, p_norm["scale"], p_norm["bias"])
+    return rms_norm(x, p_norm["scale"])
+
+
+def _split_qkv(qkv, cfg: ArchConfig):
+    B, S = qkv.shape[:2]
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
+    q, k, v = torch.split(qkv, [hq * hd, hkv * hd, hkv * hd], dim=-1)
+    return (q.reshape(B, S, hq, hd), k.reshape(B, S, hkv, hd),
+            v.reshape(B, S, hkv, hd))
+
+
+def attn_sublayer(p, xn, policy: MoRDotPolicy, cfg: ArchConfig, mode: str,
+                  cache: Optional[Dict[str, torch.Tensor]], cur_index, *,
+                  kind: str = "causal", prefix_len: int = 0,
+                  window: int = 0, use_rope: bool = True):
+    """GQA self-attention with RoPE against the KV cache (decode mode:
+    S == 1 for a decode step, S > 1 for a prefill chunk)."""
+    if mode != "decode":
+        raise NotImplementedError(
+            f"attention mode {mode!r}: only decode (and chunked prefill "
+            "through it) is ported; full prefill and training need the "
+            "flash attention of a later slice"
+        )
+    B, S, _ = xn.shape
+    qkv, st_qkv = mor_dot(xn, p["wqkv"], policy)
+    q, k, v = _split_qkv(qkv, cfg)
+    cur = torch.as_tensor(cur_index, dtype=torch.int64,
+                          device=xn.device).reshape(-1).expand(B)
+    pos = cur[:, None] - (S - 1) + torch.arange(S, device=xn.device)[None]
+    if use_rope:
+        q = apply_rope(q, pos, cfg.rope_theta)
+        k = apply_rope(k, pos, cfg.rope_theta)
+    rows = torch.arange(B, device=xn.device)[:, None]
+    cache["k"][rows, pos] = k.to(cache["k"].dtype)
+    cache["v"][rows, pos] = v.to(cache["v"].dtype)
+    out = decode_attention(q, cache["k"], cache["v"], cur, window=window)
+    out = out.reshape(B, S, cfg.n_heads * cfg.head_dim)
+    y, st_proj = mor_dot(out, p["wo"], policy)
+    return y, cache, {"qkv": st_qkv, "proj": st_proj}
+
+
+def mlp_sublayer(p, xn, policy: MoRDotPolicy, cfg: ArchConfig):
+    gated = cfg.act in ("swiglu", "geglu")
+    h, st1 = mor_dot(xn, p["wi"], policy)
+    h = glu_split(h, gated, activation(cfg.act))
+    y, st2 = mor_dot(h, p["wo"], policy)
+    return y, {"fc1": st1, "fc2": st2}
+
+
+def dense_block(p, x, policy, cfg, mode, cache, cur_index, **attn_kw):
+    xn = norm(p["ln1"], x, cfg)
+    a, new_cache, st_a = attn_sublayer(p, xn, policy, cfg, mode, cache,
+                                       cur_index, **attn_kw)
+    x = x + a
+    xn2 = norm(p["ln2"], x, cfg)
+    m, st_m = mlp_sublayer(p["mlp"], xn2, policy, cfg)
+    x = x + m
+    return x, new_cache, {**st_a, **st_m}

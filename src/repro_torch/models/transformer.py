@@ -1,0 +1,178 @@
+"""Model assembly for the dense decoder family (port of the decode path
+of ``repro.models.transformer``).
+
+Parameters are nested dicts with the reference's key paths
+(``blocks/dense/wqkv``, ``blocks/dense/mlp/wi``, ``lm_head``, ``embed``,
+``blocks/dense/ln1/scale``, ...); per-layer leaves are stacked on a
+leading layer axis. Embeddings are padded to a multiple of 128 rows and
+the padded logit columns are masked to -1e30.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core.policy import MoRDotPolicy
+from repro_torch.kernels import ops as kops
+
+from . import blocks as B
+
+__all__ = ["init_params", "cache_specs", "init_cache", "forward",
+           "padded_vocab", "resolve_device"]
+
+
+def padded_vocab(cfg: ArchConfig) -> int:
+    return -(-cfg.vocab // 128) * 128
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on: CUDA unless the caller asks for
+    the CPU; asking for CUDA on a machine without it raises."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' to run the plain "
+            "PyTorch versions on the CPU"
+        )
+    return dev
+
+
+def _check_family(cfg: ArchConfig):
+    if cfg.family != "dense" or tuple(cfg.unit) != ("dense",):
+        raise NotImplementedError(
+            f"family {cfg.family!r} / unit {cfg.unit}: only the dense "
+            "decoder family is ported (MoE, recurrent and enc-dec "
+            "families are ROADMAP Queue 1 item 6)"
+        )
+
+
+def init_params(cfg: ArchConfig, seed: int = 0,
+                device="cuda") -> Dict[str, Any]:
+    """Random dense-family parameters from a seeded ``torch.Generator``
+    on ``device`` (the reference's structure, scales and dtypes; torch
+    cannot replay ``jax.random``, so the values differ -- tests carry
+    the JAX draw across with ``repro_torch.convert``)."""
+    _check_family(cfg)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    L, d, f = cfg.n_units, cfg.d_model, cfg.d_ff
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
+    Vp = padded_vocab(cfg)
+    depth_std = 0.02 / max(1.0, (2 * cfg.n_layers) ** 0.5)
+    ffin = 2 * f if cfg.act in ("swiglu", "geglu") else f
+
+    def normal(shape, std):
+        return (torch.randn(shape, generator=gen, device=dev,
+                            dtype=torch.float32) * std).to(torch.bfloat16)
+
+    def stacked(shape, std):
+        # One layer at a time: the f32 draw of a whole stack would not
+        # fit beside the model at full width.
+        out = torch.empty((L, *shape), dtype=torch.bfloat16, device=dev)
+        for l in range(L):
+            out[l] = normal(shape, std)
+        return out
+
+    embed = normal((Vp, d), 0.02)
+    embed[cfg.vocab:] = 0
+    params: Dict[str, Any] = {
+        "embed": embed,
+        "final_norm": {"scale": torch.zeros(d, device=dev)},
+    }
+    if not cfg.tie_embed:
+        params["lm_head"] = normal((d, Vp), 0.02)
+    params["blocks"] = {"dense": {
+        "wqkv": stacked((d, (hq + 2 * hkv) * hd), 0.02),
+        "wo": stacked((hq * hd, d), depth_std),
+        "mlp": {"wi": stacked((d, ffin), 0.02),
+                "wo": stacked((f, d), depth_std)},
+        "ln1": {"scale": torch.zeros((L, d), device=dev)},
+        "ln2": {"scale": torch.zeros((L, d), device=dev)},
+    }}
+    return params
+
+
+def cache_specs(cfg: ArchConfig, batch: int, seq: int,
+                kv_fp8: bool = False, kv_mor: bool = False):
+    """{unit type: {leaf: (shape, dtype)}} of the decode cache, stacked
+    over layers (bf16 K/V only in this slice)."""
+    _check_family(cfg)
+    if kv_fp8 or kv_mor:
+        raise NotImplementedError(
+            "kv_fp8 / kv_mor cache tiers are not ported yet")
+    shape = (cfg.n_units, batch, seq, cfg.n_kv, cfg.head_dim)
+    return {"dense": {"k": (shape, torch.bfloat16),
+                      "v": (shape, torch.bfloat16)}}
+
+
+def init_cache(cfg: ArchConfig, batch: int, seq: int, device="cuda"):
+    dev = resolve_device(device)
+    return {t: {k: torch.zeros(s, dtype=dt, device=dev)
+                for k, (s, dt) in leaves.items()}
+            for t, leaves in cache_specs(cfg, batch, seq).items()}
+
+
+def _is_quantized(w) -> bool:
+    """A real-quantized weight (``serve.quantized.QTensor``)."""
+    return hasattr(w, "as_mixed_operand")
+
+
+def _layer(tree, l: int):
+    """Layer ``l`` of a stacked params tree (QTensors slice their lanes)."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out[k] = _layer(v, l)
+        elif _is_quantized(v):
+            out[k] = v.layer(l)
+        else:
+            out[k] = v[l]
+    return out
+
+
+def forward(cfg: ArchConfig, policy: MoRDotPolicy, params, batch, *,
+            mode: str = "decode", cache=None, cur_index=None):
+    """Returns (logits f32 (B, S, Vp), cache, stats).
+
+    Decode mode: ``batch['token']`` (B, S) against ``cache`` -- S == 1
+    for a decode step, S > 1 for a prefill chunk -- with ``cur_index``
+    (scalar or (B,)) the position of each row's last incoming token.
+    The cache is updated in place and returned.
+    """
+    _check_family(cfg)
+    if mode != "decode":
+        raise NotImplementedError(
+            f"mode {mode!r}: only decode (and chunked prefill through it) "
+            "is ported")
+    ids = batch["token"]
+    x = params["embed"][ids]
+    if cfg.tie_embed:
+        x = x * torch.tensor(cfg.d_model**0.5, dtype=x.dtype)
+
+    rows = []
+    blocks = params["blocks"]["dense"]
+    for l in range(cfg.n_units):
+        c_l = {k: v[l] for k, v in cache["dense"].items()}
+        x, _, st = B.dense_block(_layer(blocks, l), x, policy, cfg, mode,
+                                 c_l, cur_index, kind="causal")
+        rows.append(st)
+    stats = {"blocks": {"dense": {
+        k: torch.stack([r[k] for r in rows]) for k in rows[0]}}}
+
+    x = B.norm(params["final_norm"], x, cfg)
+    head = params["embed"].T if cfg.tie_embed else params["lm_head"]
+    bsz, seq = x.shape[0], x.shape[1]
+    if _is_quantized(head):
+        logits = kops.mixed_dot(
+            x.reshape(-1, x.shape[-1]), head.as_mixed_operand(),
+            out_dtype=torch.float32, backend=policy.weight.backend,
+        ).reshape(bsz, seq, head.shape[1])
+    else:
+        logits = x.to(torch.float32) @ head.to(torch.float32)
+    Vp = logits.shape[-1]
+    col = torch.arange(Vp, device=logits.device)
+    logits = torch.where(col < cfg.vocab, logits, -1e30)
+    return logits, cache, stats

@@ -1,0 +1,322 @@
+"""Continuous-batching serving engine over a paged KV pool (port of
+``repro.serve.engine``).
+
+Every slot advances at its own position. Each engine step admits
+queued requests (reserving their worst-case page span), runs one
+fixed-size prompt chunk per prefilling slot and one batched decode step
+over the decoding slots. Sampling is the reference's host-side numpy
+code, so greedy and seeded sampled tokens match it given equal logits.
+With ``quantize`` set, every GEMM weight becomes a QTensor and every
+prefill and decode matmul runs through the mixed GEMM kernel.
+
+Not ported yet (they raise): the fp8 / MoR KV tiers, the KV-page guard,
+tensor-parallel ``mesh`` serving and the recurrent families' one-shot
+prefill.
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+from typing import Deque, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core.policy import MoRDotPolicy, MoRPolicy
+from repro_torch.models import make_decode_fn
+from repro_torch.models.transformer import resolve_device
+
+from .paged import PagedKVPool
+from .quantized import quantize_params
+
+__all__ = ["Request", "ServeConfig", "Engine", "PromptTooLongError"]
+
+
+class PromptTooLongError(ValueError):
+    """Prompt has no room in the cache (P >= max_seq)."""
+
+
+@dataclasses.dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray  # (P,) int32
+    max_tokens: int = 16
+    # temperature <= 0 is greedy argmax; otherwise softmax sampling,
+    # optionally top_k-truncated, seeded per (seed, rid).
+    temperature: float = 0.0
+    top_k: int = 0
+    seed: int = 0
+    out: List[int] = dataclasses.field(default_factory=list)
+    done: bool = False
+    error: Optional[str] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeConfig:
+    slots: int = 4
+    max_seq: int = 512
+    page_size: Optional[int] = None
+    pool_pages: Optional[int] = None
+    prefill_chunk: int = 32
+    kv_fp8: bool = False
+    kv_mor: bool = False
+    kv_mor_cold: Optional[int] = None
+    on_long_prompt: str = "reject"  # 'reject' | 'truncate'
+    kv_guard: bool = False
+
+
+def _to_device(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+class Engine:
+    def __init__(self, cfg: ArchConfig, policy: MoRDotPolicy, params,
+                 scfg: ServeConfig = ServeConfig(),
+                 quantize: Optional[MoRPolicy] = None,
+                 quantize_min_size: int = 1 << 16, mesh=None,
+                 device="cuda"):
+        """``quantize``: ahead-of-time MoR storage decision -- weight
+        leaves become QTensors and every matmul against them runs
+        through the mixed GEMM. ``device``: CUDA unless the caller asks
+        for the CPU (then every kernel runs its plain version)."""
+        if mesh is not None:
+            raise NotImplementedError(
+                "tensor-parallel serving (mesh) is not ported yet")
+        if scfg.kv_fp8 or scfg.kv_mor or scfg.kv_mor_cold is not None \
+                or scfg.kv_guard:
+            raise NotImplementedError(
+                "kv_fp8 / kv_mor / kv_mor_cold / kv_guard are not ported "
+                "yet (ROADMAP Queue 1 item 9)")
+        if scfg.max_seq % scfg.prefill_chunk:
+            raise ValueError(
+                f"prefill_chunk {scfg.prefill_chunk} must divide "
+                f"max_seq {scfg.max_seq}")
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.scfg = scfg
+        self.qstats = None
+        params = _to_device(params, self.device)
+        if quantize is not None:
+            params, self.qstats = quantize_params(
+                params, quantize, min_size=quantize_min_size)
+        self.params = params
+        self.pool = PagedKVPool(cfg, scfg.slots, scfg.max_seq,
+                                page_size=scfg.page_size,
+                                n_pages=scfg.pool_pages, device=self.device)
+        # Every ported cache leaf is positional, so prefill is chunked.
+        self.chunked_prefill = True
+        self._decode = make_decode_fn(cfg, policy)
+
+        n = scfg.slots
+        self.slot_req: List[Optional[Request]] = [None] * n
+        self.slot_pos = np.zeros(n, np.int32)
+        self.slot_next = np.zeros(n, np.int32)
+        self.slot_state = ["idle"] * n  # idle | prefill | decode
+        self.slot_filled = np.zeros(n, np.int32)
+        self.queue: Deque[Request] = collections.deque()
+        self.unfinished: List[Request] = []
+        self.quarantined: List[Request] = []
+        self.rejected: List[Request] = []
+        self.steps = 0
+        self.decode_steps = 0
+        self.prefill_chunks = 0
+
+    # ------------------------------------------------------------- step --
+    def _step_fn(self, bt: torch.Tensor, toks: np.ndarray,
+                 cur: np.ndarray) -> torch.Tensor:
+        """One model call: gather the rows' pages, run the decode
+        function (writes the new K/V into the gathered cache), scatter
+        the written positions back. Returns the logits."""
+        cache = self.pool.gather(bt)
+        toks_t = torch.as_tensor(toks, dtype=torch.int64, device=self.device)
+        cur_t = torch.as_tensor(cur, dtype=torch.int64, device=self.device)
+        logits, cache, _ = self._decode(self.params, cache, toks_t, cur_t)
+        S = toks_t.shape[1]
+        positions = cur_t[:, None] - (S - 1) + torch.arange(
+            S, device=self.device)[None]
+        self.pool.scatter(cache, bt, positions)
+        return logits
+
+    # ------------------------------------------------------------ admin --
+    def submit(self, req: Request):
+        """Queue a request; P >= max_seq is rejected (PromptTooLongError)
+        or truncated per ``ServeConfig.on_long_prompt``."""
+        P = len(req.prompt)
+        if P < 1:
+            raise ValueError(f"request {req.rid}: empty prompt")
+        limit = self.scfg.max_seq - 1
+        if P > limit:
+            if self.scfg.on_long_prompt == "truncate":
+                req.prompt = np.asarray(req.prompt)[:limit]
+                req.error = (f"prompt truncated {P} -> {limit} tokens "
+                             f"(max_seq={self.scfg.max_seq})")
+            else:
+                raise PromptTooLongError(
+                    f"request {req.rid}: prompt of {P} tokens exceeds "
+                    f"the max_seq - 1 = {limit} limit (set "
+                    "on_long_prompt='truncate' to clip instead)")
+        self.queue.append(req)
+
+    def _horizon(self, req: Request) -> int:
+        """Highest cache position + 1 the request can touch."""
+        P = len(req.prompt)
+        C = self.scfg.prefill_chunk
+        span = -(-P // C) * C if self.chunked_prefill else P
+        return min(max(span, P + req.max_tokens - 1), self.scfg.max_seq)
+
+    def _admit(self):
+        free = [i for i, r in enumerate(self.slot_req) if r is None]
+        for slot in free:
+            req = None
+            while self.queue and req is None:
+                head = self.queue[0]
+                need = self.pool.pages_for(self._horizon(head))
+                if need > self.pool.n_pages:
+                    # Unsatisfiable: reject rather than starve the queue.
+                    self.queue.popleft()
+                    head.error = (
+                        f"rejected at admission: worst-case reservation "
+                        f"of {need} pages exceeds the pool's "
+                        f"{self.pool.n_pages} total pages (page_size="
+                        f"{self.pool.page_size}); shrink the prompt or "
+                        "max_tokens, or grow pool_pages")
+                    head.done = True
+                    self.rejected.append(head)
+                    continue
+                req = head
+            if req is None:
+                return
+            if not self.pool.alloc(slot, self._horizon(req)):
+                return  # wait for evictions to refill the free list
+            self.queue.popleft()
+            self.slot_req[slot] = req
+            self.slot_filled[slot] = 0
+            self.slot_state[slot] = "prefill"
+
+    # ---------------------------------------------------------- prefill --
+    def _prefill_chunk_step(self, slot: int, req: Request):
+        """Advance one prompt chunk for a prefilling slot (B=1)."""
+        C = self.scfg.prefill_chunk
+        start = int(self.slot_filled[slot])
+        P = len(req.prompt)
+        chunk = np.zeros(C, np.int32)
+        real = min(C, P - start)
+        chunk[:real] = np.asarray(req.prompt)[start:start + real]
+        logits = self._step_fn(self.pool.table_rows([slot]), chunk[None],
+                               np.asarray([start + C - 1], np.int32))
+        self.prefill_chunks += 1
+        self.slot_filled[slot] = start + real
+        if start + real >= P:
+            row = logits[0, real - 1].to(torch.float32).cpu().numpy()
+            self._start_decode(slot, req, P, row)
+
+    def _start_decode(self, slot: int, req: Request, P: int,
+                      logits_row: np.ndarray):
+        tok = self._sample(req, logits_row)
+        req.out.append(tok)
+        self.slot_pos[slot] = P
+        self.slot_next[slot] = tok
+        self.slot_state[slot] = "decode"
+        if len(req.out) >= req.max_tokens:
+            self._finish(slot)
+
+    # ----------------------------------------------------------- decode --
+    def _decode_batch(self, dec: List[int]):
+        n = self.scfg.slots
+        mask = np.zeros(n, bool)
+        mask[dec] = True
+        # Non-decoding slots ride along pointed at the trash page.
+        bt = np.where(mask[:, None], self.pool.block_table,
+                      self.pool.trash).astype(np.int64)
+        toks = np.where(mask, self.slot_next, 0).astype(np.int32)[:, None]
+        cur = np.where(mask, self.slot_pos, 0).astype(np.int32)
+        logits = self._step_fn(torch.as_tensor(bt, device=self.device),
+                               toks, cur)
+        self.decode_steps += 1
+        rows = logits[:, 0].to(torch.float32).cpu().numpy()
+        for i in dec:
+            r = self.slot_req[i]
+            # Slot quarantine: a poisoned slot finishes early with the
+            # condition surfaced instead of sampling garbage.
+            if not np.isfinite(rows[i][: self.cfg.vocab]).all():
+                self._quarantine(
+                    i, f"nonfinite logits at position "
+                       f"{int(self.slot_pos[i])}")
+                continue
+            tok = self._sample(r, rows[i])
+            r.out.append(tok)
+            self.slot_pos[i] += 1
+            self.slot_next[i] = tok
+            if len(r.out) >= r.max_tokens or \
+                    self.slot_pos[i] >= self.scfg.max_seq:
+                self._finish(i)
+
+    def _sample(self, req: Request, row: np.ndarray) -> int:
+        V = self.cfg.vocab
+        row = row[:V]
+        if req.temperature <= 0.0:
+            return int(row.argmax())
+        rng = getattr(req, "_rng", None)
+        if rng is None:
+            rng = np.random.default_rng((req.seed, req.rid))
+            req._rng = rng
+        z = row.astype(np.float64) / req.temperature
+        if req.top_k and req.top_k < V:
+            kth = np.partition(z, -req.top_k)[-req.top_k]
+            z = np.where(z >= kth, z, -np.inf)
+        z -= z.max()
+        p = np.exp(z)
+        p /= p.sum()
+        return int(rng.choice(V, p=p))
+
+    def _quarantine(self, slot: int, reason: str):
+        req = self.slot_req[slot]
+        note = f"quarantined: {reason}"
+        req.error = f"{req.error}; {note}" if req.error else note
+        self.quarantined.append(req)
+        self._finish(slot)
+
+    def _finish(self, slot: int):
+        self.slot_req[slot].done = True
+        self.slot_req[slot] = None
+        self.slot_state[slot] = "idle"
+        self.slot_pos[slot] = 0
+        self.slot_next[slot] = 0
+        self.slot_filled[slot] = 0
+        self.pool.release(slot)
+
+    # ------------------------------------------------------------- loop --
+    def step(self) -> bool:
+        """One scheduler tick; False once nothing is queued or in flight."""
+        self._admit()
+        worked = False
+        for i in range(self.scfg.slots):
+            if self.slot_state[i] == "prefill":
+                self._prefill_chunk_step(i, self.slot_req[i])
+                worked = True
+        dec = [i for i in range(self.scfg.slots)
+               if self.slot_state[i] == "decode"]
+        if dec:
+            self._decode_batch(dec)
+            worked = True
+        if worked:
+            self.steps += 1
+        return worked or bool(self.queue)
+
+    def run_to_completion(self, max_steps: int = 1024) -> int:
+        """Drive steps until drained (or ``max_steps``); requests still in
+        flight at exhaustion get ``error`` set and land on
+        ``self.unfinished``."""
+        steps = 0
+        while (self.queue or any(self.slot_req)) and steps < max_steps:
+            self.step()
+            steps += 1
+        self.unfinished = list(self.queue) + [
+            r for r in self.slot_req if r is not None]
+        for r in self.unfinished:
+            note = f"unfinished after {max_steps} engine steps"
+            r.error = f"{r.error}; {note}" if r.error else note
+        return steps

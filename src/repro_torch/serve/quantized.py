@@ -1,0 +1,244 @@
+"""Real-quantized serving weights (port of ``repro.serve.quantized``).
+
+Ahead of serving, every GEMM weight's per-block MoR decision becomes a
+per-block *storage* decision: a :class:`QTensor` holds the weight's
+(N, K) quantization view as a ``MixedOperand`` (fp8 bytes, BF16
+passthrough, NVFP4 nibbles per block), with every lane no tag uses
+compacted away, so a weight whose blocks all went fp8 stores ~1 byte per
+element. Every matmul against it runs through the mixed GEMM.
+Layer-stacked (L, K, N) weights quantize per layer and keep the layer
+axis on every lane; :meth:`QTensor.layer` gives one layer's 2-D view.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.formats import NVFP4_MICRO
+from repro_torch.core.mor import (
+    STAT_FRAC_BF16,
+    STAT_FRAC_E4M3,
+    STAT_FRAC_E5M2,
+    STAT_FRAC_NVFP4,
+    STAT_REL_ERR,
+    quantize_for_gemm,
+)
+from repro_torch.core.policy import MoRPolicy
+from repro_torch.kernels import ops as kops
+from repro_torch.kernels.ref import TAG_BF16, MixedOperand
+
+__all__ = ["QTensor", "quantize_weight", "quantize_weight_stacked", "qdot",
+           "quantize_params"]
+
+_LANES = ("payload_q", "payload_bf16", "payload_nib", "micro_scales",
+          "tags", "scales")
+
+
+@dataclasses.dataclass
+class QTensor:
+    """A real-quantized weight: ``mo`` is the (N, K) quantization view
+    (contraction last), ``shape`` the original (K, N), ``stats`` the
+    STATS_WIDTH stats vector (one row per layer when stacked)."""
+
+    mo: MixedOperand
+    stats: torch.Tensor
+    shape: Tuple[int, ...]
+
+    def as_mixed_operand(self) -> MixedOperand:
+        """The hook ``core.linear.mor_dot`` dispatches on."""
+        return self.mo
+
+    @property
+    def is_stacked(self) -> bool:
+        return self.mo.tags.ndim == 3
+
+    @property
+    def nbytes(self) -> int:
+        """Actual storage bytes (payloads + tags + scales + stats)."""
+        ts = [getattr(self.mo, lane) for lane in _LANES] + [self.stats]
+        return int(sum(t.numel() * t.element_size() for t in ts))
+
+    @property
+    def tags(self) -> torch.Tensor:
+        return self.mo.tags
+
+    @property
+    def frac_quantized(self) -> float:
+        return float((self.mo.tags.cpu().numpy() != TAG_BF16).mean())
+
+    def layer(self, l: int) -> "QTensor":
+        """Layer ``l`` of a stacked weight as a single-matrix QTensor
+        (views of the lanes; the counterpart of lax.scan slicing)."""
+        return QTensor(_layer_mo(self.mo, l), self.stats[l], self.shape)
+
+    def dequant(self) -> torch.Tensor:
+        """(K, N) -- or (L, K, N) if stacked -- bf16 reconstruction."""
+        if not self.is_stacked:
+            return self.mo.dequant().T.to(torch.bfloat16)
+        return torch.stack([
+            _layer_mo(self.mo, l).dequant().T
+            for l in range(self.mo.tags.shape[0])
+        ]).to(torch.bfloat16)
+
+
+def _layer_mo(mo: MixedOperand, l: int) -> MixedOperand:
+    return MixedOperand(
+        payload_q=mo.payload_q[l],
+        payload_bf16=mo.payload_bf16[l],
+        tags=mo.tags[l],
+        scales=mo.scales[l],
+        block=mo.block,
+        shape=mo.shape,
+        payload_nib=mo.payload_nib[l],
+        micro_scales=mo.micro_scales[l],
+        has_nvfp4=mo.has_nvfp4,
+    )
+
+
+def _block_policy(policy: MoRPolicy) -> MoRPolicy:
+    return policy if policy.partition == "block" else policy.replace(
+        partition="block")
+
+
+def _info(stats: torch.Tensor, qt: QTensor) -> Dict[str, float]:
+    """Decision summary; a stacked weight averages its layers' rows."""
+    s = stats.reshape(-1, stats.shape[-1]).cpu().numpy().mean(axis=0)
+    return {
+        "rel_err": float(s[STAT_REL_ERR]),
+        "quantized": float(qt.frac_quantized > 0),
+        "frac_e4m3": float(s[STAT_FRAC_E4M3]),
+        "frac_e5m2": float(s[STAT_FRAC_E5M2]),
+        "frac_bf16": float(s[STAT_FRAC_BF16]),
+        "frac_nvfp4": float(s[STAT_FRAC_NVFP4]),
+    }
+
+
+def quantize_weight(w: torch.Tensor,
+                    policy: MoRPolicy) -> Tuple[QTensor, Dict[str, float]]:
+    """Apply the MoR decision to one (K, N) weight matrix, per block,
+    on its (N, K) view."""
+    if w.ndim != 2:
+        raise ValueError(
+            f"quantize_weight wants a 2-D weight, got {tuple(w.shape)}")
+    mo, stats = quantize_for_gemm(w.T, _block_policy(policy))
+    qt = QTensor(mo.compact(), stats, tuple(w.shape))
+    return qt, _info(stats, qt)
+
+
+def _stack_lanes(mos) -> MixedOperand:
+    """Stack per-layer (already compacted) packs: a lane that any layer
+    keeps dense is dense for all (zeros where a layer's is compact) --
+    the same bytes as stacking the full packs and compacting after."""
+    first = mos[0]
+    Rp, Kp = first.padded_shape
+    full = {"payload_q": (Rp, Kp), "payload_bf16": (Rp, Kp),
+            "payload_nib": (Rp // 2, Kp),
+            "micro_scales": (Rp, Kp // NVFP4_MICRO)}
+    lanes = {}
+    for lane in _LANES:
+        ts = [getattr(m, lane) for m in mos]
+        if lane in full and len({tuple(t.shape) for t in ts}) > 1:
+            ts = [t if tuple(t.shape) == full[lane]
+                  else torch.zeros(full[lane], dtype=t.dtype,
+                                   device=t.device) for t in ts]
+        lanes[lane] = torch.stack(ts)
+    return MixedOperand(block=first.block, shape=first.shape,
+                        has_nvfp4=any(m.has_nvfp4 for m in mos), **lanes)
+
+
+def quantize_weight_stacked(w3: torch.Tensor, policy: MoRPolicy
+                            ) -> Tuple[QTensor, Dict[str, float]]:
+    """Per-block MoR decision for a layer-stacked (L, K, N) weight; each
+    layer quantizes independently (own group amax and decisions) and is
+    compacted before stacking to bound the transient memory."""
+    if w3.ndim != 3:
+        raise ValueError("quantize_weight_stacked wants a layer-stacked "
+                         f"(L, K, N) weight, got {tuple(w3.shape)}")
+    pol = _block_policy(policy)
+    mos, rows = [], []
+    for l in range(w3.shape[0]):
+        mo, st = quantize_for_gemm(w3[l].T, pol)
+        mos.append(mo.compact())
+        rows.append(st)
+    qt = QTensor(_stack_lanes(mos).compact(), torch.stack(rows),
+                 tuple(w3.shape[1:]))
+    return qt, _info(qt.stats, qt)
+
+
+def qdot(x: torch.Tensor, qw: QTensor, *, backend: str = "auto"):
+    """x @ W for a single-matrix QTensor weight."""
+    if qw.is_stacked:
+        raise ValueError("qdot takes a single-matrix QTensor; slice a "
+                         "stacked weight with QTensor.layer first")
+    x2, lead = x.reshape(-1, x.shape[-1]), tuple(x.shape[:-1])
+    y = kops.mixed_dot(x2, qw.mo, out_dtype=x.dtype, backend=backend)
+    return y.reshape(*lead, qw.shape[1])
+
+
+def _is_gemm_weight(name: str, leaf) -> bool:
+    """Leaves that feed a mor_dot / head GEMM as the weight: 2-D single
+    matrices and 3-D layer stacks, excluding embeddings, norm scales,
+    routers and biases by name segment."""
+    if not isinstance(leaf, torch.Tensor) or leaf.ndim not in (2, 3):
+        return False
+    for seg in name.split("/"):
+        if ("embed" in seg or "norm" in seg or seg.startswith("ln")
+                or seg in ("scale", "bias", "router")):
+            return False
+    return True
+
+
+def quantize_params(params, policy: MoRPolicy, min_size: int = 1 << 16):
+    """Quantize every GEMM-weight leaf of a params tree (nested dicts):
+    returns (new tree with QTensor leaves, per-leaf stats keyed by the
+    reference's ``/``-joined key paths). Leaves with fewer than
+    ``min_size`` elements per matrix stay dense."""
+    stats: Dict[str, Dict[str, float]] = {}
+
+    def visit(tree, prefix):
+        out = {}
+        for key, leaf in tree.items():
+            name = f"{prefix}/{key}" if prefix else str(key)
+            if isinstance(leaf, dict):
+                out[key] = visit(leaf, name)
+            elif (_is_gemm_weight(name, leaf)
+                  and leaf.shape[-2] * leaf.shape[-1] >= min_size):
+                qt, st = (quantize_weight(leaf, policy) if leaf.ndim == 2
+                          else quantize_weight_stacked(leaf, policy))
+                stats[name] = st
+                out[key] = qt
+            else:
+                out[key] = leaf
+        return out
+
+    return visit(params, ""), stats
+
+
+def param_bytes(params) -> int:
+    """Stored bytes of a params tree (QTensor leaves at their packed
+    size)."""
+    total = 0
+    for leaf in params.values():
+        if isinstance(leaf, dict):
+            total += param_bytes(leaf)
+        elif isinstance(leaf, QTensor):
+            total += leaf.nbytes
+        else:
+            total += leaf.numel() * leaf.element_size()
+    return total
+
+
+def tag_counts(params) -> np.ndarray:
+    """Blocks per tag (index = tag id) over every QTensor of a params
+    tree."""
+    counts = np.zeros(4, np.int64)
+    for leaf in params.values():
+        if isinstance(leaf, dict):
+            counts += tag_counts(leaf)
+        elif isinstance(leaf, QTensor):
+            counts += np.bincount(leaf.tags.reshape(-1).cpu().numpy(),
+                                  minlength=4)[:4]
+    return counts

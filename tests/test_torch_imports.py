@@ -1,0 +1,59 @@
+"""The PyTorch port stands alone: no module of ``src/repro_torch`` and
+not ``chip_smoke.py`` imports JAX or the JAX package (the machine with
+the card has no JAX), and importing the port leaves ``jax`` unloaded."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _port_files():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    return files + [ROOT / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0], node.lineno
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0], node.lineno
+
+
+def test_port_tree_is_present():
+    names = {p.relative_to(ROOT).as_posix() for p in _port_files()}
+    for must in ("src/repro_torch/kernels/ops.py",
+                 "src/repro_torch/serve/engine.py", "chip_smoke.py"):
+        assert must in names
+
+
+@pytest.mark.parametrize(
+    "path", _port_files(), ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_no_jax_or_reference_import(path):
+    bad = [(mod, line) for mod, line in _imported_roots(path)
+           if mod in FORBIDDEN]
+    assert not bad, f"{path}: imports {bad}"
+
+
+def test_import_leaves_jax_unloaded():
+    code = (
+        "import sys\n"
+        "import repro_torch.serve, repro_torch.models, repro_torch.convert\n"
+        "import repro_torch.kernels.ops\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro')]\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stdout + res.stderr

@@ -1,0 +1,238 @@
+"""The port's mixed-representation GEMM (``kernels.ops.mixed_gemm`` /
+``mixed_dot`` / ``serve.quantized.qdot``) and QTensor weights against the
+JAX reference (``backend='xla'``), for all four tags and compact lanes.
+
+Tolerance: decoding is exact (every block decodes to the same stored
+bf16 values, asserted bit for bit), and a bf16 x bf16 product is exact
+in f32, so the only possible difference is the order of the f32 sum:
+|C_port - C_ref| <= 1e-6 * sum_k |a_k b_k| for f32 output, plus one
+bf16 ulp (<= 2^-7 |C|) for bf16 output. (The plain version sums
+each K block in k order, which is what XLA does on the CPU, so in
+practice the results agree exactly.)
+
+The reference is compiled whole (``jit_ref``): run op by op, JAX
+compiles every primitive separately, which took most of the time."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.policy import MoRPolicy as JPolicy
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
+from repro.serve import quantized as jq
+from repro_torch.core.policy import MoRPolicy as TPolicy
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+from repro_torch.serve import quantized as tq
+
+LANES = ("payload_q", "payload_bf16", "payload_nib", "micro_scales",
+         "tags", "scales")
+
+
+def jit_ref(fn):
+    """``fn`` compiled by XLA with its excess precision off, so every
+    bf16 op rounds as written (as in the port)."""
+    return jax.jit(fn, compiler_options={"xla_allow_excess_precision": False})
+
+
+def to_torch(a) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(
+            torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
+def as_f32(a) -> np.ndarray:
+    if isinstance(a, torch.Tensor):
+        return a.float().numpy()
+    return np.asarray(a).astype(np.float32)
+
+
+def bits(a) -> np.ndarray:
+    if isinstance(a, torch.Tensor):
+        if a.dtype == torch.bfloat16:
+            return a.view(torch.int16).numpy().view(np.uint16)
+        a = a.numpy()
+    a = np.asarray(a)
+    return a.view(np.uint16) if a.dtype.name == "bfloat16" else a
+
+
+def mixed_tags(shape, seed=0):
+    """Blocks hitting every tag under sub4 (see test_torch_quantize_pack)."""
+    rng = np.random.default_rng(seed)
+    m, k = shape
+    x = rng.standard_normal((m, k))
+    q = max(m // 4, 1)
+    h = k // 2
+    x[q:2 * q, :h] *= np.exp2(rng.integers(-20, 20, (q, h)))
+    x[q:2 * q, h:] *= np.exp2(rng.integers(-12, 4, (q, k - h)))
+    grid = np.array([0.5, 1.0, 1.5, 2.0, 3.0, 4.0, 6.0])
+    mm = grid[rng.integers(0, 7, (q, k))] * np.exp2(
+        rng.integers(-9, 9, (q, k // 16))).repeat(16, axis=1)
+    x[2 * q:3 * q] = mm * np.where(rng.standard_normal((q, k)) > 0, 1, -1)
+    x[-max(m // 8, 1):] = 0.0
+    xj = jnp.asarray(x, jnp.bfloat16)
+    return xj, to_torch(xj)
+
+
+def packs(x_shape, recipe, seed, compact):
+    """The same operand packed by both packages (byte-identical lanes are
+    asserted in test_torch_quantize_pack)."""
+    xj, xt = mixed_tags(x_shape, seed)
+    from repro.core.mor import quantize_for_gemm as jqfg
+    from repro_torch.core.mor import quantize_for_gemm as tqfg
+    mo_j, _ = jit_ref(lambda x: jqfg(x, JPolicy(
+        recipe=recipe, block_shape=(64, 64), backend="xla")))(xj)
+    mo_t, _ = tqfg(xt, TPolicy(recipe=recipe, block_shape=(64, 64)))
+    if compact:
+        mo_j, mo_t = mo_j.compact(), mo_t.compact()
+    return mo_j, mo_t
+
+
+def assert_gemm_close(c_j, c_t, a_abs, b_abs, out_dtype):
+    cj, ct = as_f32(c_j), as_f32(c_t)
+    assert cj.shape == ct.shape
+    scale = a_abs.astype(np.float64) @ b_abs.astype(np.float64).T
+    tol = 1e-6 * scale
+    if out_dtype == "bf16":
+        tol = tol + 2.0**-7 * np.abs(cj)  # one bf16 ulp
+    assert np.all(np.abs(cj - ct) <= tol), np.abs(cj - ct).max()
+
+
+@pytest.mark.parametrize("compact", (False, True))
+@pytest.mark.parametrize("recipe", ("sub3", "sub4"))
+def test_decode_mixed_bit_exact(recipe, compact):
+    mo_j, mo_t = packs((256, 384), recipe, 1, compact)
+    np.testing.assert_array_equal(bits(jit_ref(jref.decode_mixed_ref)(mo_j)),
+                                  bits(tref.decode_mixed_ref(mo_t)))
+    np.testing.assert_array_equal(bits(jit_ref(lambda m: m.dequant())(mo_j)),
+                                  bits(mo_t.dequant()))
+
+
+@pytest.mark.parametrize("out_dtype", ("bf16", "f32"))
+@pytest.mark.parametrize("compact", (False, True))
+@pytest.mark.parametrize("M", (3, 70))
+def test_mixed_dot_passthrough_activation(M, compact, out_dtype):
+    """Serving shape: an unquantized activation against a weight pack
+    that mixes all four tags (sub4), compact lanes or not."""
+    mo_j, mo_t = packs((256, 384), "sub4", 2, compact)
+    rng = np.random.default_rng(M)
+    xj = jnp.asarray(rng.standard_normal((M, 384)), jnp.bfloat16)
+    xt = to_torch(xj)
+    jd = jnp.bfloat16 if out_dtype == "bf16" else jnp.float32
+    td = torch.bfloat16 if out_dtype == "bf16" else torch.float32
+    c_j = jit_ref(lambda x, m: jops.mixed_dot(x, m, out_dtype=jd,
+                                              backend="xla"))(xj, mo_j)
+    c_t = tops.mixed_dot(xt, mo_t, out_dtype=td)
+    assert c_t.dtype == td
+    assert_gemm_close(c_j, c_t, np.abs(as_f32(xt)),
+                      np.abs(as_f32(mo_t.dequant())), out_dtype)
+
+
+@pytest.mark.parametrize("out_dtype", ("bf16", "f32"))
+def test_mixed_gemm_both_operands_mixed(out_dtype):
+    """Training shape (both operands packed, sub4 x sub3)."""
+    a_j, a_t = packs((128, 384), "sub4", 3, False)
+    b_j, b_t = packs((192, 384), "sub3", 4, True)
+    jd = jnp.bfloat16 if out_dtype == "bf16" else jnp.float32
+    td = torch.bfloat16 if out_dtype == "bf16" else torch.float32
+    c_j = jit_ref(lambda a, b: jops.mixed_gemm(a, b, out_dtype=jd,
+                                               backend="xla"))(a_j, b_j)
+    c_t = tops.mixed_gemm(a_t, b_t, out_dtype=td)
+    assert_gemm_close(c_j, c_t, np.abs(as_f32(a_t.dequant())),
+                      np.abs(as_f32(b_t.dequant())), out_dtype)
+
+
+def test_qtensor_quantize_weight_and_qdot():
+    """QTensor of a (K, N) weight: the (N, K) view's compacted lanes,
+    stats and info match; qdot matches the reference's qdot."""
+    rng = np.random.default_rng(5)
+    wj = jnp.asarray(rng.standard_normal((384, 200)) * 0.02, jnp.bfloat16)
+    wj = wj.at[:, :64].multiply(jnp.bfloat16(1e3))  # a few hot columns
+    wt = to_torch(wj)
+    pol_j = JPolicy(recipe="sub3", block_shape=(64, 64), backend="xla")
+    pol_t = TPolicy(recipe="sub3", block_shape=(64, 64))
+    qj, info_j = jq.quantize_weight(wj, pol_j)
+    qt, info_t = tq.quantize_weight(wt, pol_t)
+    assert qt.shape == qj.shape and not qt.is_stacked
+    for lane in LANES:
+        np.testing.assert_array_equal(bits(getattr(qj.mo, lane)),
+                                      bits(getattr(qt.mo, lane)), lane)
+    assert set(info_j) == set(info_t)
+    for k in info_j:
+        assert info_t[k] == pytest.approx(info_j[k], rel=1e-5), k
+    assert qt.nbytes == qj.nbytes
+    assert qt.frac_quantized == qj.frac_quantized
+    x = jnp.asarray(rng.standard_normal((2, 5, 384)), jnp.bfloat16)
+    yj = jit_ref(lambda x, q: jq.qdot(x, q, backend="xla"))(x, qj)
+    yt = tq.qdot(to_torch(x), qt)
+    assert tuple(yt.shape) == (2, 5, 200)
+    assert_gemm_close(yj.reshape(10, 200), yt.reshape(10, 200),
+                      np.abs(as_f32(to_torch(x).reshape(10, 384))),
+                      np.abs(as_f32(qt.dequant().T)), "bf16")
+    np.testing.assert_array_equal(bits(jq.QTensor.dequant(qj)),
+                                  bits(qt.dequant()))
+
+
+def test_qtensor_stacked_layers_match():
+    """A layer-stacked (L, K, N) weight: layer l's lanes equal the
+    reference's stacked lanes [l]; stats rows and the info summary."""
+    rng = np.random.default_rng(6)
+    w = rng.standard_normal((3, 192, 128)) * 0.02
+    w[1, :, :64] *= np.exp2(rng.integers(-12, 4, (192, 64)))  # E5M2 blocks
+    wj = jnp.asarray(w, jnp.bfloat16)
+    wt = to_torch(wj)
+    pol_j = JPolicy(recipe="sub3", block_shape=(64, 64), backend="xla")
+    pol_t = TPolicy(recipe="sub3", block_shape=(64, 64))
+    qj, info_j = jq.quantize_weight_stacked(wj, pol_j)
+    qt, info_t = tq.quantize_weight_stacked(wt, pol_t)
+    assert qt.is_stacked and qt.shape == qj.shape
+    for lane in LANES:
+        np.testing.assert_array_equal(bits(getattr(qj.mo, lane)),
+                                      bits(getattr(qt.mo, lane)), lane)
+    for l in range(3):
+        mo_l = qt.layer(l).mo
+        for lane in LANES:
+            np.testing.assert_array_equal(
+                bits(getattr(qj.mo, lane)[l]), bits(getattr(mo_l, lane)))
+    np.testing.assert_allclose(qt.stats.numpy(), np.asarray(qj.stats),
+                               rtol=1e-5)
+    for k in info_j:
+        assert info_t[k] == pytest.approx(info_j[k], rel=1e-5), k
+
+
+def test_backend_choice_never_falls_back():
+    mo_j, mo_t = packs((64, 128), "sub3", 7, True)
+    x = torch.ones(2, 128, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="CUDA"):
+        tops.mixed_dot(x, mo_t, backend="cuda")
+    with pytest.raises(ValueError, match="unknown backend"):
+        tops.mixed_dot(x, mo_t, backend="xla")
+    calls = tref.mixed_gemm_ref.calls
+    tops.mixed_dot(x, mo_t, backend="torch")
+    assert tref.mixed_gemm_ref.calls == calls + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", (4, 33))
+def test_kernel_matches_plain_version_on_card(M, cuda_device):
+    _, mo_t = packs((256, 384), "sub4", 8, True)
+    mo = tref.MixedOperand(**{
+        **mo_t.__dict__,
+        **{lane: getattr(mo_t, lane).to(cuda_device) for lane in LANES}})
+    x = torch.randn(M, 384, device=cuda_device).to(torch.bfloat16)
+    ck = tops.mixed_dot(x, mo, out_dtype=torch.float32, backend="cuda")
+    ct = tops.mixed_dot(x, mo, out_dtype=torch.float32, backend="torch")
+    scale = x.double().abs() @ mo.dequant().double().abs().T
+    assert bool(torch.all((ck - ct).abs().double() <= 1e-5 * scale))
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU or "
+                    "interpret mode (chip_smoke.py runs them on the card)")
+    return torch.device("cuda")
