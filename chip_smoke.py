@@ -21,13 +21,27 @@
    the plain version on its real inputs at 1e-5 sum|a||b|; the kernel
    path's logits may be at most twice as far from the f64 path's as
    the plain path's are.
+6. Training: holds ``gam_quant`` and ``mor_select(emit='select')``
+   against their plain versions bit for bit (value lanes, exponents and
+   tags); times them on the wi view and ``mixed_gemm`` at the training
+   shapes (fwd, dgrad, wgrad of wi at 2048 tokens); trains 4-layer,
+   full-width llama3-8b for 3 AdamW steps under each of the tensor,
+   sub3 and fused-sub3 policies (2 x 1024 tokens a step), checking
+   through the launch counters that every quantization event and every
+   fused GEMM went through the kernels and none through a plain
+   version; profiles one tensor step and one fused step; and runs one
+   depth-2 step kernel path against plain path (``backend='torch'`` on
+   the same CUDA tensors), holding every fused GEMM against the plain
+   version on its real inputs.
 
-Prints JSON lines (the ``kernels`` and ``engine`` lines among them) and
-ends with ``{"ok": true, "device": ...}``. Exits non-zero on any failure,
-without a card, or without the rest of the repository beside it.
+Prints JSON lines (the ``kernels``, ``engine`` and ``train`` lines among
+them) and ends with ``{"ok": true, "device": ...}``. Exits non-zero on
+any failure, without a card, or without the rest of the repository
+beside it.
 """
 import contextlib
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -41,6 +55,13 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 BF16_FLOPS = 989e12           # H100 SXM dense bf16 tensor-core peak
 N_LAYERS = 32                 # llama3-8b depth; cut only if time forces it
+# Training: depth cut to 4 layers because the AdamW state (bf16 params,
+# f32 master and two f32 moments, bf16 grads, ~18 B/param) of all 32
+# layers (~135 GB) does not fit the 80 GB card; 4 layers and the
+# untied embedding and head are 1.92 B params, ~35 GB of state.
+TRAIN_LAYERS = 4
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 1024, 3
+ALGOS = ("gam", "e8m0", "fp32_amax")
 
 
 def emit(obj):
@@ -363,7 +384,10 @@ def phase_engine(cfg, n_layers):
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "launches": launches, "plain_calls": plain, "profile": profile,
     }
+    # The timing wrappers above close over eng's bound methods: a cycle
+    # that only the collector frees, and it holds the quantized weights.
     del eng
+    gc.collect()
     torch.cuda.empty_cache()
     return engine, launches
 
@@ -531,6 +555,441 @@ def phase_depth2(cfg, ops, ref):
     return res
 
 
+def bits16(t):
+    """bf16 / f32 / int tensor -> an integer view for exact comparison."""
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16)
+    if t.dtype == torch.float32:
+        return t.view(torch.int32)
+    return t
+
+
+def phase_quant_select(ops, Partition):
+    """Kernel vs plain version of ``gam_quant`` (E4M3 and E5M2, all three
+    algos) and of ``mor_select(emit='select')`` (sub2/3/4) on inputs that
+    hit every tag, with zero blocks, a NaN and an Inf, a ragged shape and
+    the 28672x4096 wi view: xq, block_exp, counts, y and sel bit for bit;
+    the error sums within 1e-6 relative (the kernel accumulates in f64,
+    the plain version in f32 in PyTorch's order)."""
+    from repro_torch.core.formats import E4M3, E5M2
+    cases = [((256, 384), (64, 64), 1), ((200, 136), (128, 128), 2),
+             ((28672, 4096), (128, 128), 3)]
+    want = {"sub2": {0, 2}, "sub3": {0, 1, 2}, "sub4": {0, 1, 2, 3}}
+    seen = {mode: set() for mode in want}
+    sum_rel = 0.0
+    for shape, block, seed in cases:
+        x = mixed_tags(shape, seed).cuda()
+        x[5, 7] = float("nan")
+        x[shape[0] // 2 + 3, shape[1] - 9] = float("inf")
+        for fmt in (E4M3, E5M2):
+            for algo in ALGOS:
+                k = ops.gam_quant(x, block=block, fmt=fmt, algo=algo,
+                                  backend="cuda")
+                t = ops.gam_quant(x, block=block, fmt=fmt, algo=algo,
+                                  backend="torch")
+                torch.cuda.synchronize()
+                what = f"gam_quant {shape} {fmt.name} {algo}"
+                for name, a, b in (("xq", k[0], t[0]), ("block_exp", k[1],
+                                   t[1]), ("counts", k[3], t[3])):
+                    check(a.shape == b.shape and torch.equal(bits16(a),
+                                                             bits16(b)),
+                          f"{what}: {name} differs from the plain version")
+                check(torch.equal(k[2].isnan(), t[2].isnan()),
+                      f"{what}: NaN error sums differ")
+                ok = ~t[2].isnan()
+                rel = ((k[2][ok] - t[2][ok]).abs()
+                       / t[2][ok].abs().clamp_min(1e-30))
+                r = float(rel.max()) if rel.numel() else 0.0
+                check(r <= 1e-6, f"{what}: error sums {r} beyond 1e-6")
+                sum_rel = max(sum_rel, r)
+        for mode in want:
+            align = (2, 16) if mode == "sub4" else (1, 1)
+            part = Partition("block", block, align=align)
+            k = ops.mor_select(x, part, mode, backend="cuda")
+            t = ops.mor_select(x, part, mode, backend="torch")
+            torch.cuda.synchronize()
+            what = f"mor_select_select {shape} {mode}"
+            check(torch.equal(bits16(k.y), bits16(t.y)),
+                  f"{what}: y differs from the plain version")
+            check(torch.equal(k.sel, t.sel), f"{what}: sel differs")
+            check(torch.equal(k.counts, t.counts), f"{what}: counts differ")
+            tags = set(np.unique(t.sel.cpu().numpy()).tolist())
+            seen[mode] |= tags
+        emit({"parity": "gam_quant+mor_select_select", "shape": list(shape),
+              "block": list(block), "identical": True})
+    for mode, tags in want.items():
+        check(tags <= seen[mode], f"mor_select_select {mode}: tags "
+              f"{sorted(seen[mode])} miss some of {sorted(tags)}")
+    return {"gam_quant_err_sums_max_rel": sum_rel}
+
+
+def phase_train_timing(ops, ref, Partition, cfg):
+    """Kernel, plain and library times at the training shapes: gam_quant
+    and mor_select_select on the wi view (28672x4096), and mixed_gemm for
+    the fwd (M = 2048 tokens), dgrad and wgrad GEMMs of wi on sub3 packs,
+    with the wgrad operands transposed packs as the fused backward makes
+    them."""
+    from repro_torch.core.formats import E4M3
+    from repro_torch.kernels.gam_quant import gam_quant_blocks
+    from repro_torch.kernels.mixed_gemm import mixed_gemm_blocks
+    from repro_torch.kernels.mor_select import mor_select_select
+    d, f = cfg.d_model, cfg.d_ff
+    M = TRAIN_BATCH * TRAIN_SEQ
+    part = Partition("block", (128, 128))
+    w = (torch.randn(2 * f, d, device="cuda") * 0.02).to(torch.bfloat16)
+    n, nblk = w.numel(), w.numel() // (128 * 128)
+    out = {}
+
+    _, safe_g = ops._group_amax(w)
+    mg2 = torch.stack([ops._group_mantissa(safe_g, E4M3, "gam"), safe_g])
+    k = ops.gam_quant(w, fmt=E4M3, backend="cuda")
+    t = ops.gam_quant(w, fmt=E4M3, backend="torch")
+    check(torch.equal(bits16(k[0]), bits16(t[0]))
+          and torch.equal(k[1], t[1]), "gam_quant timing shape differs")
+    # x read once; xq written; exponent, error sum and count per block.
+    b = bound(2 * n + 2 * n + 12 * nblk, 0.0)
+    out["gam_quant"] = dict(
+        ms=time_ms(lambda: gam_quant_blocks(w, mg2, block=(128, 128))),
+        plain_ms=time_ms(lambda: ref.gam_quant_ref(w, part, E4M3), iters=2),
+        bound_ms=b[0], bound_by=b[1], library_ms=None,
+        max_abs_err=float((k[0].float() - t[0].float()).abs().max()),
+        shape=list(w.shape))
+
+    xp, _, mg4 = ops._select_inputs(w, (128, 128), "gam")
+    k = ops.mor_select(w, part, "sub3", backend="cuda")
+    t = ops.mor_select(w, part, "sub3", backend="torch")
+    check(torch.equal(bits16(k.y), bits16(t.y)) and torch.equal(k.sel, t.sel),
+          "mor_select_select timing shape differs")
+    # x read once; y written; tag, scale, three sums, count per block.
+    b = bound(2 * n + 2 * n + 24 * nblk, 0.0)
+    out["mor_select_select"] = dict(
+        ms=time_ms(lambda: mor_select_select(xp, mg4, block=(128, 128),
+                                             mode="sub3")),
+        plain_ms=time_ms(lambda: ref.mor_select_ref(w, part, "sub3"),
+                         iters=2),
+        bound_ms=b[0], bound_by=b[1], library_ms=None,
+        max_abs_err=float((k.y.float() - t.y.float()).abs().max()),
+        shape=list(w.shape))
+
+    x = torch.randn(M, d, device="cuda").to(torch.bfloat16)
+    dy = (torch.randn(M, 2 * f, device="cuda") * 1e-3).to(torch.bfloat16)
+
+    def pack(a):
+        return ops.quantize_pack(a, part, "sub3", backend="cuda")[0]
+
+    x_mo, dy_mo = pack(x), pack(dy)
+    wt_mo, wkn_mo = pack(w), pack(w.T.contiguous())
+    gemms = {"fwd": (x_mo, wt_mo), "dgrad": (dy_mo, wkn_mo),
+             "wgrad": (x_mo.transpose(), dy_mo.transpose())}
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    for name, (a, bb) in gemms.items():
+        A = ref.decode_mixed_ref(a)[:a.shape[0]]
+        B = ref.decode_mixed_ref(bb)[:bb.shape[0]]
+        ck = mixed_gemm_blocks(a, bb)
+        ct = ref.mixed_gemm_ref(a, bb)
+        err = (ck.float() - ct.float()).abs()
+        check(bool(torch.all(err <= gemm_tol(A, B, ct, torch.bfloat16))),
+              f"mixed_gemm train {name}: max err {float(err.max())} beyond "
+              "1e-5 sum|a||b| + 1 bf16 ulp")
+        Mm, Nn, Kk = a.shape[0], bb.shape[0], a.shape[1]
+        b = bound(weight_bytes(a) + weight_bytes(bb) + 2 * Mm * Nn,
+                  2.0 * Mm * Nn * Kk)
+        out[f"mixed_gemm_{name}"] = dict(
+            ms=time_ms(lambda: mixed_gemm_blocks(a, bb), iters=3),
+            plain_ms=time_ms(lambda: ref.mixed_gemm_ref(a, bb), iters=1),
+            bound_ms=b[0], bound_by=b[1],
+            library_ms=time_ms(lambda: torch.matmul(A, B.T), iters=10),
+            max_abs_err=float(err.max()), shape=[Mm, Nn, Kk])
+        del A, B, ck, ct, err
+    return out
+
+
+def train_policies():
+    from repro_torch.core.policy import paper_default
+    return {"tensor": paper_default("tensor"),
+            "sub3": paper_default("sub3"),
+            "sub3_fused": paper_default("sub3").replace(fuse_gemm=True)}
+
+
+def with_backend(pol, backend):
+    return pol.replace(act=pol.act.replace(backend=backend),
+                       weight=pol.weight.replace(backend=backend),
+                       grad=pol.grad.replace(backend=backend))
+
+
+def train_counters():
+    """(kernel launch counters, plain-version call counters) by name."""
+    from repro_torch.kernels import gam_quant as gq_mod
+    from repro_torch.kernels import mixed_gemm as mg_mod
+    from repro_torch.kernels import mor_select as ms_mod
+    from repro_torch.kernels import ref
+    kernels = {"gam_quant": gq_mod.gam_quant_blocks,
+               "mor_select_select": ms_mod.mor_select_select,
+               "mor_select_pack": ms_mod.mor_select_pack,
+               "mixed_gemm": mg_mod.mixed_gemm_blocks}
+    plain = {"quant_err_ref": ref.quant_err_ref,
+             "gam_quant_ref": ref.gam_quant_ref,
+             "mor_select_ref": ref.mor_select_ref,
+             "quantize_pack_ref": ref.quantize_pack_ref,
+             "mixed_gemm_ref": ref.mixed_gemm_ref}
+    return kernels, plain
+
+
+def reset_counters():
+    kernels, plain = train_counters()
+    for fn in kernels.values():
+        fn.launches = 0
+    for fn in plain.values():
+        fn.calls = 0
+
+
+def read_counters():
+    kernels, plain = train_counters()
+    return ({k: fn.launches for k, fn in kernels.items()},
+            {k: fn.calls for k, fn in plain.items()})
+
+
+def train_batch(cfg, step):
+    from repro_torch.data import DataConfig, SyntheticLM
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                  global_batch=TRAIN_BATCH, seed=1234))
+    return {k: torch.from_numpy(v.astype(np.int64)).cuda()
+            for k, v in data.batch_at(step).items()}
+
+
+def phase_train(cfg):
+    """The training slice: 4-layer, full-width llama3-8b, TRAIN_STEPS AdamW
+    steps per policy from the same seeded weights, with the launch
+    counters zeroed just before each policy's steps and read just after.
+    Every mor_dot has 2 forward events, run twice under the layer remat,
+    and 3 backward events (the transposed dy event reuses dgrad's), so a
+    step of L layers quantizes 4L * 7 operands; the fused lowering packs
+    the same operands and runs 4 GEMMs per mor_dot (the forward twice,
+    dgrad, wgrad)."""
+    from repro_torch.models import init_params
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.train import TrainConfig, make_train_step
+    cfg = dataclasses.replace(cfg, n_layers=TRAIN_LAYERS)
+    L = cfg.n_units
+    tcfg = TrainConfig(optimizer=AdamWConfig(warmup_steps=1))
+    events = 4 * L * (2 * 2 + 3) * TRAIN_STEPS
+    expect = {
+        "tensor": {"gam_quant": events},
+        "sub3": {"mor_select_select": events},
+        "sub3_fused": {"mor_select_pack": events,
+                       "mixed_gemm": 4 * L * 4 * TRAIN_STEPS},
+    }
+    res, launches, profiles = {}, {}, {}
+    for name, pol in train_policies().items():
+        params = init_params(cfg, seed=0, device="cuda")
+        opt = init_opt_state(params)
+        step_fn = make_train_step(cfg, pol, tcfg)
+        batches = [train_batch(cfg, s) for s in range(TRAIN_STEPS)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counters()
+        rows = []
+        for s, batch in enumerate(batches):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, m = step_fn(params, opt, batch)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            row = {"policy": name, "step": s, "step_ms": dt * 1e3,
+                   "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / dt,
+                   **{k: float(m[k]) for k in (
+                       "loss", "fwd_frac_bf16", "bwd_frac_bf16",
+                       "fwd_rel_err", "bwd_rel_err", "grad_norm", "lr")},
+                   "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+            emit({"train_step": row})
+            # A finite global norm means every gradient element is finite.
+            check(np.isfinite(row["loss"]) and np.isfinite(row["grad_norm"]),
+                  f"train {name} step {s}: loss {row['loss']} grad_norm "
+                  f"{row['grad_norm']}")
+            rows.append(row)
+        k_counts, p_counts = read_counters()
+        for kern, n in expect[name].items():
+            check(k_counts[kern] == n, f"train {name}: {kern} launched "
+                  f"{k_counts[kern]} times, want {n} (every event)")
+        check(not any(p_counts.values()),
+              f"train {name}: plain versions ran on the main path: "
+              f"{p_counts}")
+        launches[name] = k_counts
+        if name in ("tensor", "sub3_fused"):
+            profiles[name] = profile_train_step(
+                step_fn, params, opt, batches[0],
+                "gam_quant" if name == "tensor" else "mixed_gemm")
+        res[name] = {"steps": rows,
+                     "step_ms_median": float(np.median(
+                         [r["step_ms"] for r in rows])),
+                     "launches": k_counts, "plain_calls": p_counts}
+        del params, opt, step_fn, batches
+        gc.collect()
+        torch.cuda.empty_cache()
+    res["config"] = {"arch": cfg.name, "layers": L, "d_model": cfg.d_model,
+                     "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+                     "n_heads": cfg.n_heads, "n_kv": cfg.n_kv,
+                     "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+                     "steps": TRAIN_STEPS, "warmup_steps": 1,
+                     "remat": True, "head_gemm": "f32"}
+    res["profile"] = profiles
+    total = {k: sum(launches[p][k] for p in launches)
+             for k in next(iter(launches.values()))}
+    return res, total
+
+
+def profile_train_step(step_fn, params, opt, batch, must, steps=1):
+    """Device time by kernel over one train step, from torch.profiler,
+    and the device's busy share of the host wall time (as
+    profile_decode). The step's results are dropped."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            out = step_fn(params, opt, batch)
+            del out
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for ev in prof.key_averages():
+        dev_us = ev.self_device_time_total
+        if ev.device_type == DeviceType.CUDA and dev_us > 0:
+            rows.append((dev_us, ev.key, ev.count))
+    rows.sort(reverse=True)
+    busy_ms = sum(r[0] for r in rows) / 1e3
+    check(any(must in k for _, k, _ in rows),
+          f"the train-step profile shows no {must} kernel: {rows[:8]}")
+    return {
+        "steps": steps, "wall_ms_per_step": wall_ms / steps,
+        "device_ms_per_step": busy_ms / steps,
+        "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
+        "top": [{"name": k[:60], "ms_per_step": us / 1e3 / steps,
+                 "count_per_step": c / steps} for us, k, c in rows[:10]],
+    }
+
+
+def step_grads(cfg, pol, params, batch):
+    """Loss, forward stats, parameter gradients and backward stats (the
+    tokens' gradients) of one loss evaluation."""
+    from repro_torch.models.api import make_loss_fn, make_tokens
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+    loss_fn = make_loss_fn(cfg, pol, remat=True)
+    p = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    toks = make_tokens(cfg, device="cuda")
+    total, aux = loss_fn(p, toks, batch)
+    pl, tl = tree_leaves(p), tree_leaves(toks)
+    g = torch.autograd.grad(total, pl + tl)
+    names = sorted(toks["blocks"]["dense"])
+    return (total.detach(), aux["mor_fwd"]["blocks"]["dense"],
+            list(g[:len(pl)]), dict(zip(names, g[len(pl):])))
+
+
+def compare_rows(a, b, what, flips=None):
+    """Stats rows of the kernel path (a) and the plain path (b): every
+    lane but the relative error bit for bit; the relative error (a ratio
+    of error sums the kernels add in another order) within 1e-6. With
+    ``flips`` a differing row is recorded there instead of failing."""
+    from repro_torch.core.mor import STAT_REL_ERR
+    for name in sorted(a):
+        ra, rb = a[name].reshape(-1, a[name].shape[-1]), \
+            b[name].reshape(-1, b[name].shape[-1])
+        lanes = [i for i in range(ra.shape[-1]) if i != STAT_REL_ERR]
+        same = (bits16(ra[:, lanes].contiguous())
+                == bits16(rb[:, lanes].contiguous())).all(dim=1)
+        rel = ((ra[:, STAT_REL_ERR] - rb[:, STAT_REL_ERR]).abs()
+               / rb[:, STAT_REL_ERR].abs().clamp_min(1e-30))
+        for i in range(ra.shape[0]):
+            if bool(same[i]) and float(rel[i]) <= 1e-6:
+                continue
+            if flips is None:
+                raise AssertionError(f"{what} {name} row {i}: kernel path "
+                                     f"{ra[i].tolist()} plain {rb[i].tolist()}")
+            flips.append(f"{name}[{i}]")
+
+
+def phase_train_depth2(cfg, ops, ref):
+    """One depth-2, full-width loss-and-gradient evaluation, kernel path
+    against plain path (``backend='torch'`` on the same CUDA tensors).
+    Tensor and sub3 fake-quant: loss bit for bit, forward stats rows bit
+    for bit but the relative-error lane (1e-6), backward stats the same
+    or the flipped events named, gradients within 2^-6 |g| + 2^-14
+    max|g| of a leaf (bit for bit where nothing flips; the embedding's
+    gather backward accumulates with atomics). Fused sub3: every
+    mixed_gemm of the step held against the plain version on its real
+    inputs at 1e-5 sum|a||b| + 1 bf16 ulp."""
+    from repro_torch.models import init_params
+    cfg = dataclasses.replace(cfg, n_layers=2)
+    params = init_params(cfg, seed=1, device="cuda")
+    batch = train_batch(cfg, 0)
+    pols = train_policies()
+    res = {}
+    for name in ("tensor", "sub3"):
+        k = step_grads(cfg, with_backend(pols[name], "auto"), params, batch)
+        t = step_grads(cfg, with_backend(pols[name], "torch"), params, batch)
+        check(torch.equal(k[0], t[0]),
+              f"depth-2 {name}: loss {float(k[0])} vs plain {float(t[0])}")
+        compare_rows(k[1], t[1], f"depth-2 {name} fwd stats")
+        flips = []
+        compare_rows(k[3], t[3], f"depth-2 {name} bwd stats", flips)
+        leaves = []
+        for i, (gk, gt) in enumerate(zip(k[2], t[2])):
+            d = (gk.float() - gt.float()).abs()
+            tol = 2.0**-6 * gt.float().abs() + 2.0**-14 * float(
+                gt.float().abs().max())
+            check(bool(torch.all(d <= tol)),
+                  f"depth-2 {name}: gradient leaf {i} differs by "
+                  f"{float(d.max())}")
+            leaves.append({"leaf": i, "identical": bool(torch.equal(
+                bits16(gk), bits16(gt))), "max_abs_diff": float(d.max())})
+        res[name] = {"loss": float(k[0]), "bwd_flipped_events": flips,
+                     "grad_leaves_identical": sum(l["identical"]
+                                                  for l in leaves),
+                     "grad_leaves": len(leaves),
+                     "grad_max_abs_diff": max(l["max_abs_diff"]
+                                              for l in leaves)}
+        del k, t
+    gemms = {}
+    orig = ops.mixed_gemm
+
+    def checked(a, b, *, out_dtype=torch.bfloat16, backend="auto"):
+        ck = orig(a, b, out_dtype=out_dtype, backend="cuda")
+        ct = orig(a, b, out_dtype=out_dtype, backend="torch")
+        A = ref.decode_mixed_ref(a)[:a.shape[0]]
+        B = ref.decode_mixed_ref(b)[:b.shape[0]]
+        err = (ck.float() - ct.float()).abs()
+        key = (a.shape[0], b.shape[0], a.shape[1])
+        check(bool(torch.all(err <= gemm_tol(A, B, ct, out_dtype))),
+              f"depth-2 fused mixed_gemm M,N,K={key}: max err "
+              f"{float(err.max())} beyond 1e-5 sum|a||b| + 1 bf16 ulp")
+        g = gemms.setdefault(key, {"calls": 0, "max_abs_err": 0.0})
+        g["calls"] += 1
+        g["max_abs_err"] = max(g["max_abs_err"], float(err.max()))
+        return ck
+
+    with patched(ops, "mixed_gemm", checked):
+        loss, _, g, _ = step_grads(cfg, pols["sub3_fused"], params, batch)
+    check(np.isfinite(float(loss)) and all(
+        bool(torch.isfinite(x).all()) for x in g), "depth-2 fused: nonfinite")
+    d, f, hd, M = cfg.d_model, cfg.d_ff, cfg.head_dim, TRAIN_BATCH * TRAIN_SEQ
+    qkv = (cfg.n_heads + 2 * cfg.n_kv) * hd
+    want = set()
+    for n, k in ((qkv, d), (d, cfg.n_heads * hd), (2 * f, d), (d, f)):
+        want |= {(M, n, k), (M, k, n), (k, n, M)}  # fwd, dgrad, wgrad
+    check(want <= set(gemms), f"depth-2 fused GEMM shapes {sorted(gemms)} "
+          f"miss some of {sorted(want)}")
+    check(sum(v["calls"] for v in gemms.values()) == 4 * 2 * 4,
+          f"depth-2 fused: {gemms} is not 4 GEMMs per mor_dot")
+    res["sub3_fused"] = {"loss": float(loss), "gemms": [
+        {"M": k[0], "N": k[1], "K": k[2], **v}
+        for k, v in sorted(gemms.items())]}
+    del params
+    torch.cuda.empty_cache()
+    return res
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -558,31 +1017,51 @@ def main():
 
     sel_err = phase_mor_select(ops, Partition)
     phase_mixed_gemm(ops, ref, Partition)
+    quant_parity = phase_quant_select(ops, Partition)
     cfg = get_config("llama3-8b")
     timing = phase_timing(ops, ref, Partition, cfg)
+    timing.update(phase_train_timing(ops, ref, Partition, cfg))
     engine, launches = phase_engine(cfg, N_LAYERS)
     depth2 = phase_depth2(cfg, ops, ref)
+    train, train_launches = phase_train(cfg)
+    train_depth2 = phase_train_depth2(cfg, ops, ref)
 
     kernels = []
     for name, src, replaces in (
         ("mor_select_pack", "src/repro_torch/csrc/mor_select.cu",
          "src/repro/kernels/mor_select.py:289"),
+        ("mor_select_select", "src/repro_torch/csrc/mor_select.cu",
+         "src/repro/kernels/mor_select.py:289"),
+        ("gam_quant", "src/repro_torch/csrc/gam_quant.cu",
+         "src/repro/kernels/gam_quant.py:96"),
         ("mixed_gemm", "src/repro_torch/csrc/mixed_gemm.cu",
          "src/repro/kernels/mixed_gemm.py:214"),
     ):
         t = timing[name]
-        kernels.append({
+        by_path = {"engine": launches.get(name, 0),
+                   "train": train_launches[name]}
+        check(sum(by_path.values()) > 0,
+              f"{name}: no launch on any main path")
+        entry = {
             "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": t["max_abs_err"], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "shape": t["shape"], "card": smi,
-        })
-    emit({"parity_max_abs_err": {"mor_select_pack": sel_err}})
+        }
+        if name == "mixed_gemm":
+            entry["train_shapes"] = {g: timing[f"mixed_gemm_{g}"]
+                                     for g in ("fwd", "dgrad", "wgrad")}
+        kernels.append(entry)
+    emit({"parity_max_abs_err": {"mor_select_pack": sel_err},
+          **quant_parity})
     emit({"timing_extra": timing["extra"], "card": smi})
     emit({"depth2": depth2, "card": smi})
     emit({"engine": engine, "card": smi})
+    emit({"train_depth2": train_depth2, "card": smi})
+    emit({"train": train, "card": smi})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {

@@ -1,7 +1,12 @@
 """MoR core of the port: formats, GAM scaling, partitions, policies, the
-real-quantization entry point and the serving forward of ``mor_dot``."""
-from .linear import N_FWD_EVENTS, mor_dot
-from .mor import STATS_WIDTH, quantize_for_gemm
+decision path (``mor``) and the quantized GEMM primitive (``linear``).
+
+``mor`` and ``linear`` dispatch through ``repro_torch.kernels``, whose
+modules import this package's formats and partitions; they load on
+first access here, so either package can be imported first.
+"""
+import importlib
+
 from .policy import (
     BF16_BASELINE,
     SUBTENSOR2_MOR,
@@ -10,10 +15,22 @@ from .policy import (
     TENSOR_MOR,
     MoRDotPolicy,
     MoRPolicy,
+    paper_default,
 )
 
-__all__ = [
-    "N_FWD_EVENTS", "mor_dot", "STATS_WIDTH", "quantize_for_gemm",
-    "BF16_BASELINE", "SUBTENSOR2_MOR", "SUBTENSOR3_MOR", "SUBTENSOR4_MOR",
-    "TENSOR_MOR", "MoRDotPolicy", "MoRPolicy",
-]
+_LAZY = {
+    "N_FWD_EVENTS": "linear", "N_BWD_EVENTS": "linear", "mor_dot": "linear",
+    "new_token": "linear", "STATS_WIDTH": "mor", "mor_quantize": "mor",
+    "quantize_for_gemm": "mor",
+}
+
+__all__ = [*_LAZY, "BF16_BASELINE", "SUBTENSOR2_MOR", "SUBTENSOR3_MOR",
+           "SUBTENSOR4_MOR", "TENSOR_MOR", "MoRDotPolicy", "MoRPolicy",
+           "paper_default"]
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        return getattr(importlib.import_module(f".{_LAZY[name]}", __name__),
+                       name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1,13 +1,17 @@
-"""The MoR recipes' real-quantization entry point (port of the serving
-part of ``repro.core.mor``).
+"""The MoR framework (Algorithm 2) and the paper's recipes (port of
+``repro.core.mor``).
 
-:func:`quantize_for_gemm` real-quantizes one 2-D operand view into the
-mixed block layout and returns the STATS_WIDTH stats vector. The
-sub-tensor recipes (sub2/sub3/sub4) are one pass: the pack-emitting
-selection (``kernels.ops.quantize_pack``) makes every per-block
-decision and writes the payload lanes. The fake-quantization entry
-(``mor_quantize``) and the 'tensor'/'e4m3' recipes need the
-``gam_quant`` kernel and belong to the training slice.
+:func:`mor_quantize` fake-quantizes one 2-D operand view (contraction
+last) under a :class:`~repro_torch.core.policy.MoRPolicy` and returns
+the STATS_WIDTH stats vector; :func:`quantize_for_gemm` makes the same
+decisions and real-quantizes into the mixed block layout instead. Both
+go through one decision path, :func:`_decide`, so they can never
+disagree on a block's representation or on a stats row. Every event
+runs through :mod:`repro_torch.kernels.ops`: ``quant_err`` (the
+``gam_quant`` kernel) for the 'tensor' and 'e4m3' recipes,
+``mor_select`` (the select kernel) for sub2/sub3/sub4, and
+``quantize_pack`` (the pack kernel) for the sub-tensor recipes' real
+packs.
 
 Stats layout v4 (14 f32 lanes) is the reference's; index it through the
 ``STAT_*`` constants.
@@ -22,7 +26,7 @@ from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as _kref
 from repro_torch.kernels.ref import TAG_NVFP4, MixedOperand
 
-from .formats import true_divide
+from .formats import E4M3, true_divide
 from .partition import Partition
 from .policy import MoRPolicy
 
@@ -34,7 +38,7 @@ __all__ = [
     "STAT_GUARD_FLAGS", "STAT_FALLBACK_COUNT", "GUARD_OK",
     "GUARD_NONFINITE_AMAX", "GUARD_BLOCK_FALLBACK", "GUARD_STALE_SCALE",
     "EVENT_GEMM", "EVENT_GRAD", "EVENT_MOMENT_M", "EVENT_MOMENT_V",
-    "quantize_for_gemm", "partition_of",
+    "mor_quantize", "quantize_for_gemm", "partition_of",
 ]
 
 STATS_WIDTH = 14
@@ -107,6 +111,45 @@ def _guard_lanes(group_amax, block_err_sums=None):
     return flags, fallback
 
 
+def _tensor_level(x2d: torch.Tensor, policy: MoRPolicy):
+    """Tensor-level MoR [E4M3, BF16] (paper §3.1): block-scaled E4M3
+    candidate, one global accept/reject of the mean relative error
+    against the Eq. 2 threshold. A nonfinite error rejects (NaN <
+    threshold is False), so a poisoned event stays BF16."""
+    q = kops.quant_err(x2d, partition_of(policy), E4M3, policy.algo,
+                       backend=policy.backend)
+    cnt = q.counts.sum()
+    err = q.err_sums.sum() / torch.clamp_min(cnt, 1.0)
+    ok = err < policy.threshold
+    y = torch.where(ok, q.y, x2d)
+    okf = ok.to(torch.float32)
+    nz = true_divide(cnt, float(x2d.numel()))
+    gf, fb = _guard_lanes(q.group_amax, q.err_sums)
+    stats = _stats(okf, err, q.group_amax, okf, 0.0, 1.0 - okf, nz,
+                   q.group_mantissa, guard_flags=gf, fallback_count=fb,
+                   device=x2d.device)
+    tags = torch.where(ok, _kref.TAG_E4M3, _kref.TAG_BF16).to(
+        torch.int32).expand(q.err_sums.shape).contiguous()
+    return y, stats, tags
+
+
+def _static_e4m3(x2d: torch.Tensor, policy: MoRPolicy):
+    """Always-E4M3 static recipe: no BF16 arm, so the guard lanes only
+    report poisoned blocks."""
+    q = kops.quant_err(x2d, partition_of(policy), E4M3, policy.algo,
+                       backend=policy.backend)
+    cnt = q.counts.sum()
+    err = q.err_sums.sum() / torch.clamp_min(cnt, 1.0)
+    nz = true_divide(cnt, float(x2d.numel()))
+    gf, fb = _guard_lanes(q.group_amax, q.err_sums)
+    stats = _stats(1.0, err, q.group_amax, 1.0, 0.0, 0.0, nz,
+                   q.group_mantissa, guard_flags=gf, fallback_count=fb,
+                   device=x2d.device)
+    tags = torch.full(tuple(q.err_sums.shape), _kref.TAG_E4M3,
+                      dtype=torch.int32, device=x2d.device)
+    return q.y, stats, tags
+
+
 def _sub_tensor_stats(r, policy: MoRPolicy, x_size: int) -> torch.Tensor:
     """Aggregate one sub-tensor selection event into the stats vector."""
     dev = r.sel.device
@@ -147,10 +190,47 @@ def _off_stats(x2d: torch.Tensor) -> torch.Tensor:
                   device=x2d.device)
 
 
+def _sub_tensor(x2d: torch.Tensor, policy: MoRPolicy):
+    """Sub-tensor MoR (§3.2 + sub4): one fused selection pass per block
+    (``kops.mor_select``); only the stats aggregation lives here."""
+    r = kops.mor_select(x2d, partition_of(policy), mode=policy.recipe,
+                        algo=policy.algo, backend=policy.backend)
+    return r.y, _sub_tensor_stats(r, policy, x2d.numel()), r.sel
+
+
+def _decide(x2d: torch.Tensor, policy: MoRPolicy):
+    """The shared recipe dispatch: (fake-quant y, stats, per-block
+    tags)."""
+    if policy.recipe == "tensor":
+        return _tensor_level(x2d, policy)
+    if policy.recipe in ("sub2", "sub3", "sub4"):
+        return _sub_tensor(x2d, policy)
+    if policy.recipe == "e4m3":
+        return _static_e4m3(x2d, policy)
+    raise ValueError(f"unknown recipe: {policy.recipe}")
+
+
+def mor_quantize(x2d: torch.Tensor,
+                 policy: MoRPolicy) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fake-quantize one 2-D operand view (contraction last) under
+    ``policy``: (y in x2d's dtype and shape, STATS_WIDTH stats)."""
+    if not policy.enabled:
+        return x2d, _off_stats(x2d)
+    y, stats, _ = _decide(x2d, policy)
+    # Row-major whatever the view or the backend: the GEMM that consumes
+    # y picks its summation order by layout, so kernel and plain paths
+    # must hand it the same one.
+    return y.to(x2d.dtype).contiguous(), stats
+
+
 def quantize_for_gemm(x2d: torch.Tensor,
                       policy: MoRPolicy) -> Tuple[MixedOperand, torch.Tensor]:
     """Real-quantize one (R, K) operand view (contraction last) into the
-    mixed block layout. Returns (MixedOperand, stats vector)."""
+    mixed block layout. Returns (MixedOperand, stats vector): the same
+    decisions and stats as :func:`mor_quantize`. The sub-tensor recipes
+    are one pass (the pack kernel writes the lanes); the 'tensor' and
+    'e4m3' recipes decide first (a global accept/reject no block pass
+    can make) and then pack under the decided tags."""
     if not policy.enabled:
         part = Partition("block", policy.block_shape)
         return (_kref.passthrough_mixed(x2d, part.resolve(tuple(x2d.shape))),
@@ -173,9 +253,9 @@ def quantize_for_gemm(x2d: torch.Tensor,
                                    algo=policy.algo,
                                    backend=policy.backend)
         return mo, _sub_tensor_stats(r, policy, x2d.numel())
-    if policy.recipe in ("tensor", "e4m3"):
-        raise NotImplementedError(
-            f"recipe {policy.recipe!r} needs the gam_quant kernel, which "
-            "is ported with the training slice (ROADMAP Queue 1)"
-        )
-    raise ValueError(f"unknown recipe: {policy.recipe}")
+    _, stats, tags = _decide(x2d, policy)
+    # The decision path's group amax, so the pack's Alg. 1 scales can
+    # never disagree with the decisions in `tags`.
+    mo = _kref.pack_mixed(x2d, tags, block, policy.algo,
+                          group_amax=stats[STAT_AMAX], with_nvfp4=False)
+    return mo, stats

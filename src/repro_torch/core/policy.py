@@ -22,16 +22,16 @@ class MoRPolicy:
     """Policy for one quantization event.
 
     recipe: 'off' | 'tensor' | 'sub2' | 'sub3' | 'sub4' | 'e4m3' (see
-    the reference for the semantics of each). This slice ports 'off'
-    and the sub-tensor recipes; 'tensor' and 'e4m3' need the
-    ``gam_quant`` kernel of the training slice, which also brings back
-    the reference's 'tensor'-recipe ``threshold``.
+    the reference for the semantics of each). ``threshold`` is the
+    'tensor' recipe's Eq. 2 acceptance bound on the global mean
+    relative error of the E4M3 candidate (th_E4M3, paper default 4.5%).
     """
 
     recipe: str = "tensor"
     partition: str = "block"
     block_shape: Tuple[int, int] = (128, 128)
     sub: int = 128
+    threshold: float = 0.045  # th_E4M3, paper default 4.5%
     algo: str = "gam"  # 'gam' | 'e8m0' | 'fp32_amax'
     backend: str = "auto"  # 'auto' | 'torch' | 'cuda'
     mesh_axes: Tuple[str, ...] = ()
@@ -59,13 +59,21 @@ class MoRPolicy:
 
 @dataclasses.dataclass(frozen=True)
 class MoRDotPolicy:
-    """Per-operand policies for one mor_dot GEMM (the reference's
-    backward, fusion and decision-cache switches come with the training
-    slice)."""
+    """Per-operand policies for one mor_dot GEMM (fwd + both bwd GEMMs).
+
+    ``quantize_bwd=False`` runs the backward GEMMs unquantized (an
+    ablation hook). ``fuse_gemm=True`` routes all three GEMMs through the
+    mixed-representation block GEMM on real packs instead of
+    dequantize-then-bf16-dot; every enabled operand policy must then be
+    'block'-partitioned with one shared block shape. (The reference's
+    ``decision_cache_steps`` is read by nothing and is not ported.)
+    """
 
     act: MoRPolicy = MoRPolicy()
     weight: MoRPolicy = MoRPolicy()
     grad: MoRPolicy = MoRPolicy()
+    quantize_bwd: bool = True
+    fuse_gemm: bool = False
 
     @property
     def enabled(self) -> bool:
@@ -77,9 +85,10 @@ class MoRDotPolicy:
 
 def paper_default(recipe: str = "tensor", partition: str = "block",
                   block_shape: Tuple[int, int] = (128, 128),
+                  threshold: float = 0.045,
                   algo: str = "gam") -> MoRDotPolicy:
     p = MoRPolicy(recipe=recipe, partition=partition,
-                  block_shape=block_shape, algo=algo)
+                  block_shape=block_shape, threshold=threshold, algo=algo)
     return MoRDotPolicy(act=p, weight=p, grad=p)
 
 

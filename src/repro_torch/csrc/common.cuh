@@ -1,7 +1,9 @@
 // Shared device helpers for the MoR CUDA kernels: bf16/fp8 conversions
 // with the reference's rounding (RNE, saturating fp8 after an explicit
 // clip), NaN-propagating min/max (jnp.max/jnp.min semantics), the
-// Alg. 1 bit arithmetic and the E2M1 grid snap.
+// Alg. 1 bit arithmetic (gam_scale), the stored value of an fp8
+// candidate, the E2M1 grid snap, and the fixed-order block reduction
+// of the one-block-per-thread-block quantization kernels.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -59,6 +61,77 @@ __device__ __forceinline__ float exp2i(int e) {
   e = e < -126 ? -126 : (e > 127 ? 127 : e);
   return __int_as_float((e + 127) << 23);
 }
+
+enum { ALGO_GAM = 0, ALGO_E8M0 = 1, ALGO_FP32_AMAX = 2 };
+
+// Alg. 1 per-block scale from the guarded block amax, by integer bit
+// arithmetic as in the Pallas kernels (no frexp). *e_out receives the
+// block's E8M0 exponent as the reference reports it: the Alg. 1 exponent
+// clamped to [-126, 127] for gam / e8m0, the raw exponent of the ideal
+// scale for fp32_amax.
+__device__ __forceinline__ float gam_scale(float q_amax, float m_g, float safe_b, int algo,
+                                           int* e_out = nullptr) {
+  const float s_b = q_amax / safe_b;
+  const int bits = __float_as_int(s_b);
+  int e_b = ((bits >> 23) & 0xFF) - 127;
+  const float m_b = __int_as_float((bits & 0x7FFFFF) | (127 << 23));
+  if (algo == ALGO_GAM) {
+    if (!(m_g <= m_b)) e_b -= 1;  // avoid saturation when m_g > m_b
+    e_b = e_b < -126 ? -126 : (e_b > 127 ? 127 : e_b);
+    if (e_out) *e_out = e_b;
+    return m_g * exp2i(e_b);
+  }
+  if (algo == ALGO_E8M0) {
+    e_b = e_b < -126 ? -126 : (e_b > 127 ? 127 : e_b);
+    if (e_out) *e_out = e_b;
+    return exp2i(e_b);
+  }
+  if (e_out) *e_out = e_b;
+  return s_b;
+}
+
+// Stored (bf16) value of one fp8 candidate of x under `scale`: clip,
+// saturating cast, IEEE division by the scale, RNE to bf16.
+__device__ __forceinline__ float fp8_candidate(float x, float scale, float q_amax,
+                                               __nv_fp8_interpretation_t fmt) {
+  uint8_t b = to_fp8(x * scale, q_amax, fmt);
+  return round_bf16(fp8_to_float(b, fmt) / scale);
+}
+
+// Eq. 1 relative error of one nonzero element against its stored value.
+__device__ __forceinline__ float rel_err(float x, float stored) {
+  return fabsf((x - stored) / x);
+}
+
+// Block-wide reduction in a fixed order for REDUCE_THREADS-thread
+// blocks: warp shuffles, then the eight warp results combined within
+// lanes 0..7 of warp 0 (xor offsets < 8 never mix lanes of different
+// groups of eight). `scratch` holds at least 8 values.
+#define REDUCE_THREADS 256
+
+template <typename T, typename Op>
+__device__ T block_reduce(T v, Op op, T* scratch) {
+  static_assert(REDUCE_THREADS == 256, "the second stage combines 8 warps");
+  for (int o = 16; o > 0; o >>= 1) v = op(v, __shfl_xor_sync(0xffffffffu, v, o));
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  __syncthreads();  // earlier readers of scratch[0] are done
+  if (lane == 0) scratch[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    v = scratch[lane & 7];
+    for (int o = 4; o > 0; o >>= 1) v = op(v, __shfl_xor_sync(0xffffffffu, v, o));
+    if (lane == 0) scratch[0] = v;
+  }
+  __syncthreads();
+  return scratch[0];
+}
+
+struct MaxOp { __device__ float operator()(float a, float b) const { return nan_max(a, b); } };
+struct MinOp { __device__ float operator()(float a, float b) const { return nan_min(a, b); } };
+struct FMinOp { __device__ float operator()(float a, float b) const { return fminf(a, b); } };
+struct SumOp { __device__ float operator()(float a, float b) const { return a + b; } };
+struct DSumOp { __device__ double operator()(double a, double b) const { return a + b; } };
+struct ISumOp { __device__ int operator()(int a, int b) const { return a + b; } };
 
 // E2M1 grid spacing at |a| in [0, 6]: 2^(floor(log2(max(a, 1))) - 1).
 __device__ __forceinline__ float e2m1_ulp(float a) {

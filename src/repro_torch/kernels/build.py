@@ -27,10 +27,12 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 
 _COMMON = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
            "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-# Per-source flags. The selection kernel's payload bytes and error sums
-# follow the reference op by op, so no multiply-add contraction there.
+# Per-source flags. The quantization kernels' bytes, stored values and
+# error sums follow the reference op by op, so no multiply-add
+# contraction there.
 SOURCES: Dict[str, List[str]] = {
     "mor_select": ["-fmad=false"],
+    "gam_quant": ["-fmad=false"],
     "mixed_gemm": [],
 }
 

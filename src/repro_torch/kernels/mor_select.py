@@ -1,10 +1,13 @@
-"""Wrapper of the pack-emitting MoR selection kernel
-(``csrc/mor_select.cu``), the Hopper port of
-``repro/kernels/mor_select.py:mor_select_blocks(emit='pack')``.
+"""Wrappers of the MoR selection kernel (``csrc/mor_select.cu``), the
+Hopper port of ``repro/kernels/mor_select.py:mor_select_blocks`` in both
+of its emit modes: :func:`mor_select_pack` (emit='pack', the real mixed
+layout) and :func:`mor_select_select` (emit='select', the fake-quant
+winner ``y``).
 
-The plain PyTorch version of the same function is
-``kernels.ref.quantize_pack_ref``; ``kernels.ops.quantize_pack`` routes a
-CPU tensor there and a CUDA tensor here.
+The plain PyTorch versions are ``kernels.ref.quantize_pack_ref`` and
+``kernels.ref.mor_select_ref``; ``kernels.ops.quantize_pack`` and
+``kernels.ops.mor_select`` route a CPU tensor there and a CUDA tensor
+here.
 """
 from __future__ import annotations
 
@@ -18,7 +21,7 @@ from repro_torch.core.metrics import E5M2_RANGE_RATIO, NVFP4_RANGE_RATIO
 
 from . import build
 
-__all__ = ["mor_select_pack"]
+__all__ = ["mor_select_pack", "mor_select_select"]
 
 _MODES = {"sub2": 2, "sub3": 3, "sub4": 4}
 _ALGOS = {"gam": 0, "e8m0": 1, "fp32_amax": 2}
@@ -35,6 +38,13 @@ def _fn():
     return f
 
 
+def _select_fn():
+    f = build.load("mor_select").mor_select_select_launch
+    f.argtypes = [_P] * 9 + [_I] * 6 + [_F, _F, _P]
+    f.restype = _I
+    return f
+
+
 def _check(t: torch.Tensor, name: str, dtype, shape):
     if not t.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
@@ -47,17 +57,7 @@ def _check(t: torch.Tensor, name: str, dtype, shape):
         raise ValueError(f"{name} must be contiguous")
 
 
-def mor_select_pack(xp: torch.Tensor, mg: torch.Tensor, *,
-                    block: Tuple[int, int], mode: str = "sub3",
-                    algo: str = "gam") -> Dict[str, torch.Tensor]:
-    """Launch the kernel on a padded (Mp, Kp) bf16 operand.
-
-    ``mg``: (4,) f32 on the device -- the E4M3, E5M2 and NVFP4 group
-    mantissas and the guarded group amax. Returns the MixedOperand lanes
-    (``payload_q``, ``payload_bf16``, ``payload_nib`` and
-    ``micro_scales`` for sub4) and the (nm, nk) ``sel``, ``scales``,
-    ``e4_sums``, ``e5_sums``, ``counts`` (and sub4 ``nv_sums``) grids.
-    """
+def _validate(xp, mg, block, mode, algo):
     if mode not in _MODES or algo not in _ALGOS:
         raise ValueError(f"unknown mode/algo {mode!r}/{algo!r}")
     Mp, Kp = xp.shape
@@ -71,7 +71,69 @@ def mor_select_pack(xp: torch.Tensor, mg: torch.Tensor, *,
     _check(mg, "mg", torch.float32, (4,))
     if mg.device != xp.device:
         raise ValueError("x and mg must share a device")
-    nm, nk = Mp // bm, Kp // bk
+    return Mp, Kp, Mp // bm, Kp // bk
+
+
+def mor_select_select(xp: torch.Tensor, mg: torch.Tensor, *,
+                      block: Tuple[int, int], mode: str = "sub3",
+                      algo: str = "gam") -> Dict[str, torch.Tensor]:
+    """Launch the select variant on a padded (Mp, Kp) bf16 operand.
+
+    ``mg`` as for :func:`mor_select_pack`. Returns the padded (Mp, Kp)
+    bf16 ``y`` (each block's winner as stored) and the (nm, nk)
+    ``sel``, ``scales``, ``e4_sums``, ``e5_sums``, ``counts`` (and sub4
+    ``nv_sums``) grids.
+    """
+    Mp, Kp, nm, nk = _validate(xp, mg, block, mode, algo)
+    bm, bk = block
+    dev = xp.device
+
+    def empty(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    out = {
+        "y": empty((Mp, Kp), torch.bfloat16),
+        "sel": empty((nm, nk), torch.int32),
+        "scales": empty((nm, nk), torch.float32),
+        "e4_sums": empty((nm, nk), torch.float32),
+        "e5_sums": empty((nm, nk), torch.float32),
+        "counts": empty((nm, nk), torch.float32),
+    }
+    if mode == "sub4":
+        out["nv_sums"] = empty((nm, nk), torch.float32)
+    fn = _select_fn()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = fn(xp.data_ptr(), mg.data_ptr(), out["y"].data_ptr(),
+                 out["sel"].data_ptr(), out["scales"].data_ptr(),
+                 out["e4_sums"].data_ptr(), out["e5_sums"].data_ptr(),
+                 out["counts"].data_ptr(),
+                 out["nv_sums"].data_ptr() if mode == "sub4" else None,
+                 Mp, Kp, bm, bk, _MODES[mode], _ALGOS[algo],
+                 E5M2_RANGE_RATIO, NVFP4_RANGE_RATIO, stream)
+    if err != 0:
+        raise RuntimeError(
+            f"mor_select_select launch failed: CUDA error {err}")
+    mor_select_select.launches += 1
+    return out
+
+
+mor_select_select.launches = 0
+
+
+def mor_select_pack(xp: torch.Tensor, mg: torch.Tensor, *,
+                    block: Tuple[int, int], mode: str = "sub3",
+                    algo: str = "gam") -> Dict[str, torch.Tensor]:
+    """Launch the kernel on a padded (Mp, Kp) bf16 operand.
+
+    ``mg``: (4,) f32 on the device -- the E4M3, E5M2 and NVFP4 group
+    mantissas and the guarded group amax. Returns the MixedOperand lanes
+    (``payload_q``, ``payload_bf16``, ``payload_nib`` and
+    ``micro_scales`` for sub4) and the (nm, nk) ``sel``, ``scales``,
+    ``e4_sums``, ``e5_sums``, ``counts`` (and sub4 ``nv_sums``) grids.
+    """
+    Mp, Kp, nm, nk = _validate(xp, mg, block, mode, algo)
+    bm, bk = block
     dev = xp.device
 
     def empty(shape, dtype):

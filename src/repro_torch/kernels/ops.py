@@ -1,11 +1,18 @@
-"""Public kernel entry points with backend dispatch (port of the serving
-part of ``repro.kernels.ops``).
+"""Public kernel entry points with backend dispatch (port of
+``repro.kernels.ops``).
 
 ``backend='auto'`` launches the CUDA kernel for a CUDA tensor and runs
 the plain PyTorch version (:mod:`repro_torch.kernels.ref`) for a CPU
 tensor; ``'torch'`` is an explicit request for the plain version;
 ``'cuda'`` insists on the kernel. A CUDA tensor never falls back to the
 plain version: the kernel launches or the call raises.
+
+One routing rule is the reference's own and is kept as it is
+(:func:`_kernel_backend`): recipe-level events on 'tensor', 'channel'
+and 'subchannel' partitions, and sub4 selection on a contraction block
+that is not a multiple of 16, take the plain version on any device --
+the reference sends them to its XLA lowering on the TPU too, since the
+kernels tile (bm, bk) blocks.
 
 The reference's ``GemmTile`` / ``decode_cache`` / ``bn_mult`` tiling
 knobs are TPU VMEM choices and have no counterpart here.
@@ -26,12 +33,14 @@ from repro_torch.core.gam import split_mantissa_exponent
 from repro_torch.core.partition import Partition, _pad2d
 
 from . import ref as _ref
+from .gam_quant import gam_quant_blocks
 from .mixed_gemm import mixed_gemm_blocks
-from .mor_select import mor_select_pack
-from .ref import MixedOperand, MorSelect
+from .mor_select import mor_select_pack, mor_select_select
+from .ref import MixedOperand, MorSelect, QuantErr
 
-__all__ = ["resolve_backend", "quantize_pack", "mixed_gemm", "mixed_dot",
-           "MixedOperand", "MorSelect"]
+__all__ = ["resolve_backend", "quant_err", "mor_select", "gam_quant",
+           "quantize_pack", "mixed_gemm", "mixed_dot", "MixedOperand",
+           "MorSelect", "QuantErr"]
 
 
 def resolve_backend(backend: str, x: torch.Tensor) -> str:
@@ -52,6 +61,20 @@ def resolve_backend(backend: str, x: torch.Tensor) -> str:
     )
 
 
+def _kernel_backend(backend: str, part: Partition, x: torch.Tensor) -> str:
+    """Backend of a recipe-level event: the reference's routing of
+    kernel-hostile layouts. 'channel' and 'subchannel' partitions resolve
+    to (1, k) rows and 'tensor' to one whole-operand block; the
+    reference's kernels do not take them and it lowers those events
+    through XLA on every device, so here they take the plain version
+    (on a CUDA tensor too). Every 'block' partition goes to the kernel
+    on a CUDA tensor."""
+    be = resolve_backend(backend, x)
+    if be == "cuda" and part.kind in ("tensor", "channel", "subchannel"):
+        return "torch"
+    return be
+
+
 def _group_amax(x: torch.Tensor):
     """(g_amax, guarded g_amax): zero guard AND nonfinite guard -- an
     Inf amax would otherwise poison the Alg. 1 mantissa of every block;
@@ -70,6 +93,86 @@ def _group_mantissa(safe_g: torch.Tensor, fmt: FormatSpec, algo: str):
     return m_g
 
 
+def quant_err(x: torch.Tensor, part: Partition, fmt: FormatSpec = E4M3,
+              algo: str = "gam", *, backend: str = "auto") -> QuantErr:
+    """Fused quantize + per-block error sums of a 2-D operand: the
+    event of the 'tensor' and 'e4m3' recipes. The kernel path pads to
+    the block grid (zeros quantize exactly and add nothing to the sums
+    or counts), computes the group amax and m_g outside the kernel (as
+    the reference does) and launches ``gam_quant`` once."""
+    be = _kernel_backend(backend, part, x)
+    if be == "torch":
+        return _ref.quant_err_ref(x, part, fmt, algo)
+    M, K = x.shape
+    bm, bk = part.resolve((M, K))
+    xp = _pad2d(x, bm, bk).contiguous()
+    g_amax, safe_g = _group_amax(x)
+    m_g = _group_mantissa(safe_g, fmt, algo)
+    xq, _, err_sums, counts = gam_quant_blocks(
+        xp, torch.stack([m_g, safe_g]).to(torch.float32), block=(bm, bk),
+        q_amax=fmt.amax, fmt_dtype=fmt.dtype, algo=algo)
+    return QuantErr(xq[:M, :K], err_sums, counts, g_amax, m_g)
+
+
+def gam_quant(x: torch.Tensor, *, block=(128, 128), fmt: FormatSpec = E4M3,
+              algo: str = "gam", backend: str = "auto"):
+    """Fused quantize of a 2-D operand: (xq, block_exp, err_sums,
+    counts), with ``block_exp`` the per-block E8M0 exponents."""
+    be = resolve_backend(backend, x)
+    part = Partition("block", tuple(block))
+    if be == "torch":
+        return _ref.gam_quant_ref(x, part, fmt, algo)
+    M, K = x.shape
+    bm, bk = part.resolve((M, K))
+    _, safe_g = _group_amax(x)
+    m_g = _group_mantissa(safe_g, fmt, algo)
+    xq, block_exp, err_sums, counts = gam_quant_blocks(
+        _pad2d(x, bm, bk).contiguous(),
+        torch.stack([m_g, safe_g]).to(torch.float32), block=(bm, bk),
+        q_amax=fmt.amax, fmt_dtype=fmt.dtype, algo=algo)
+    return xq[:M, :K], block_exp, err_sums, counts
+
+
+def _select_inputs(x: torch.Tensor, block, algo: str):
+    """Shared prologue of both selection kernels: the padded operand, the
+    raw group amax and the (4,) kernel scalars (E4M3, E5M2 and NVFP4
+    group mantissas and the guarded group amax)."""
+    bm, bk = block
+    xp = _pad2d(x, bm, bk).contiguous()
+    g_amax, safe_g = _group_amax(x)
+    mg = torch.stack([
+        _group_mantissa(safe_g, E4M3, algo),
+        _group_mantissa(safe_g, E5M2, algo),
+        _group_mantissa(safe_g, NVFP4, algo),
+        safe_g,
+    ]).to(torch.float32)
+    return xp, g_amax, mg
+
+
+def mor_select(x: torch.Tensor, part: Partition, mode: str = "sub3",
+               algo: str = "gam", *, backend: str = "auto") -> MorSelect:
+    """Fused sub-tensor MoR selection (sub2/sub3/sub4) of a 2-D operand
+    with the fake-quant output ``y``: one ``mor_select_select`` launch
+    on a CUDA tensor."""
+    be = _kernel_backend(backend, part, x)
+    M, K = x.shape
+    bm, bk = part.resolve((M, K))
+    if mode == "sub4" and bk % NVFP4_MICRO:
+        # Micro blocks need 16-divisible contraction blocks; the sub4
+        # recipe's aligned partition guarantees it, and the reference
+        # sends other callers to its XLA path.
+        be = "torch"
+    if be == "torch":
+        return _ref.mor_select_ref(x, part, mode, algo)
+    xp, g_amax, mg = _select_inputs(x, (bm, bk), algo)
+    out = mor_select_select(xp, mg, block=(bm, bk), mode=mode, algo=algo)
+    return MorSelect(
+        y=out["y"][:M, :K], sel=out["sel"], e4_sums=out["e4_sums"],
+        e5_sums=out["e5_sums"], counts=out["counts"], group_amax=g_amax,
+        group_mantissa=mg[0], nv_sums=out.get("nv_sums"),
+    )
+
+
 def quantize_pack(x: torch.Tensor, part: Partition, mode: str = "sub3",
                   algo: str = "gam", *, backend: str = "auto"):
     """One-pass sub-tensor selection *and* real packing of a 2-D
@@ -79,27 +182,17 @@ def quantize_pack(x: torch.Tensor, part: Partition, mode: str = "sub3",
     group amax and the three Alg. 1 group mantissas outside the kernel
     (as the reference does), and launches ``mor_select_pack`` once.
     """
-    be = resolve_backend(backend, x)
+    be = _kernel_backend(backend, part, x)
     M, K = x.shape
     bm, bk = part.resolve((M, K))
     if be == "torch":
         return _ref.quantize_pack_ref(x, part, mode, algo)
-    if part.kind != "block":
-        raise ValueError(f"the pack kernel tiles 'block' partitions, got "
-                         f"{part.kind!r}")
     if mode == "sub4" and not _ref.nvfp4_block_capable((bm, bk)):
         raise ValueError(
             f"sub4 packing needs an even-row, {NVFP4_MICRO}-divisible-"
             f"column block, got {(bm, bk)}"
         )
-    xp = _pad2d(x, bm, bk).contiguous()
-    g_amax, safe_g = _group_amax(x)
-    mg = torch.stack([
-        _group_mantissa(safe_g, E4M3, algo),
-        _group_mantissa(safe_g, E5M2, algo),
-        _group_mantissa(safe_g, NVFP4, algo),
-        safe_g,
-    ]).to(torch.float32)
+    xp, g_amax, mg = _select_inputs(x, (bm, bk), algo)
     out = mor_select_pack(xp, mg, block=(bm, bk), mode=mode, algo=algo)
     mo = MixedOperand(
         payload_q=out["payload_q"],

@@ -5,8 +5,10 @@ on a CUDA tensor; ``chip_smoke.py`` holds each CUDA kernel against them.
 They follow the JAX references op for op, so on the CPU they agree with
 ``repro.kernels.ref`` byte for byte on every decision and payload lane.
 
-``quantize_pack_ref.calls`` and ``mixed_gemm_ref.calls`` count the
-calls, so a run can show its main path never took a plain version.
+``quantize_pack_ref.calls``, ``mixed_gemm_ref.calls``,
+``mor_select_ref.calls``, ``quant_err_ref.calls`` and
+``gam_quant_ref.calls`` count the calls, so a run can show its main path
+never took a plain version.
 """
 from __future__ import annotations
 
@@ -28,15 +30,16 @@ from repro_torch.core.formats import (
     round_to_e2m1,
     true_divide,
 )
-from repro_torch.core.gam import scales_from_bmax
+from repro_torch.core.gam import compute_scales, scales_from_bmax
 from repro_torch.core.metrics import E5M2_RANGE_RATIO, NVFP4_RANGE_RATIO
 from repro_torch.core.partition import Partition, _pad2d, from_blocks, to_blocks
 
 __all__ = [
     "TAG_E4M3", "TAG_E5M2", "TAG_BF16", "TAG_NVFP4", "MorSelect",
-    "MixedOperand", "nvfp4_block_capable", "pack_mixed",
+    "QuantErr", "MixedOperand", "nvfp4_block_capable", "pack_mixed",
     "passthrough_mixed", "activation_row_block", "decode_mixed_ref",
     "mixed_gemm_ref", "mor_select_ref", "quantize_pack_ref",
+    "quant_err_ref", "gam_quant_ref",
 ]
 
 # Per-block representation tags (the contract between selection,
@@ -73,6 +76,19 @@ class MorSelect(NamedTuple):
     group_amax: torch.Tensor
     group_mantissa: torch.Tensor
     nv_sums: Optional[torch.Tensor] = None
+
+
+class QuantErr(NamedTuple):
+    """One fused quantize + error event (fields as in the reference):
+    ``y`` (M, K) fake-quantized in the input dtype, per-block ``err_sums``
+    and nonzero ``counts`` (nm, nk) f32, the group amax and the shared
+    mantissa m_g (1.0 for the ablation algos)."""
+
+    y: torch.Tensor
+    err_sums: torch.Tensor
+    counts: torch.Tensor
+    group_amax: torch.Tensor
+    group_mantissa: torch.Tensor
 
 
 @dataclasses.dataclass
@@ -149,6 +165,35 @@ class MixedOperand:
                     dtype=torch.uint8, device=dev),
             )
         return out
+
+    def transpose(self) -> "MixedOperand":
+        """The transposed quantization view: tags, scales and the fp8 and
+        BF16 lanes permute with the blocks (exact), made contiguous for
+        the GEMM kernel. NVFP4 blocks are not transpose-invariant (their
+        nibble pairing and 1x16 micro blocks follow the contraction
+        axis), so a pack with dense sub-byte lanes or an NVFP4 tag is
+        refused: re-quantize the transposed view instead."""
+        if self.tags.ndim != 2:
+            raise ValueError("transpose() is for single-matrix operands; "
+                             "slice a stacked operand per layer first")
+        nr, nk = self.tags.shape
+        dense_nib = (nr > 1 or nk > 1) and tuple(self.payload_nib.shape) \
+            == (self.padded_shape[0] // 2, self.padded_shape[1])
+        if dense_nib or bool((self.tags == TAG_NVFP4).any()):
+            raise ValueError(
+                "cannot transpose a pack with NVFP4 payload lanes: micro "
+                "scales are contraction-directed (re-quantize the "
+                "transposed view)")
+        block_t = (self.block[1], self.block[0])
+        return MixedOperand(
+            payload_q=self.payload_q.T.contiguous(),
+            payload_bf16=self.payload_bf16.T.contiguous(),
+            tags=self.tags.T.contiguous(),
+            scales=self.scales.T.contiguous(),
+            block=block_t,
+            shape=(self.shape[1], self.shape[0]),
+            has_nvfp4=False,
+        )
 
     def dequant(self) -> torch.Tensor:
         """Stored (Fig. 4: original-dtype) values, unpadded (R, K)."""
@@ -418,8 +463,51 @@ def _select(x: torch.Tensor, part: Partition, mode: str, algo: str,
 
 def mor_select_ref(x: torch.Tensor, part: Partition, mode: str = "sub3",
                    algo: str = "gam") -> MorSelect:
-    """Per-block sub2/sub3/sub4 selection with the fake-quant output."""
+    """Per-block sub2/sub3/sub4 selection with the fake-quant output
+    ``y``: each block's winning candidate as stored (bf16), the NVFP4
+    snap included under sub4; BF16 blocks keep their input values."""
+    mor_select_ref.calls += 1
     return _select(x, part, mode, algo, want_y=True)
+
+
+mor_select_ref.calls = 0
+
+
+def quant_err_ref(x: torch.Tensor, part: Partition, fmt: FormatSpec,
+                  algo: str = "gam") -> QuantErr:
+    """Plain version of the one-format event behind the 'tensor' and
+    'e4m3' recipes: fake-quantize under Alg. 1 scales, per-block error
+    sums on the stored values and nonzero counts."""
+    quant_err_ref.calls += 1
+    xb = to_blocks(x, part)
+    xqb, scales, err_sums, counts = _blocked_quant_err(xb, fmt, algo)
+    return QuantErr(from_blocks(xqb, tuple(x.shape)), err_sums, counts,
+                    scales.group_amax, scales.group_mantissa)
+
+
+quant_err_ref.calls = 0
+
+
+def gam_quant_ref(x: torch.Tensor, part: Partition, fmt: FormatSpec,
+                  algo: str = "gam"):
+    """Plain version of the ``gam_quant`` kernel: (xq in x.dtype,
+    block_exp (nm, nk) int32, err_sums, counts (nm, nk) f32)."""
+    gam_quant_ref.calls += 1
+    scales = compute_scales(x, part, fmt, algo=algo)
+    xb = to_blocks(x.to(torch.float32), part)
+    s = scales.scale[:, :, None, None]
+    xqb = true_divide(cast_to_format(xb * s, fmt), s)
+    xq = from_blocks(xqb, tuple(x.shape)).to(x.dtype)
+    xqb = to_blocks(xq.to(torch.float32), part)
+    nz = xb != 0
+    err = torch.where(
+        nz, ((xb - xqb) / torch.where(nz, xb, torch.ones_like(xb))).abs(),
+        torch.zeros_like(xb))
+    return (xq, scales.block_exp, err.sum(dim=(2, 3)),
+            nz.sum(dim=(2, 3)).to(torch.float32))
+
+
+gam_quant_ref.calls = 0
 
 
 def quantize_pack_ref(x: torch.Tensor, part: Partition, mode: str = "sub3",

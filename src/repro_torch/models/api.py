@@ -1,16 +1,58 @@
-"""Public model API (port of the decode builder of ``repro.models.api``)."""
+"""Public model API (port of ``repro.models.api``): the loss of the train
+step and the decode builder of the serving engine. MoR statistics leave
+the loss as ``aux['mor_fwd']`` (the forward stats tree); the backward
+stats are the gradients of the tokens from :func:`make_tokens`.
+"""
 from __future__ import annotations
+
+from typing import Optional
+
+import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.policy import MoRDotPolicy
 
 from . import transformer as T
 
-__all__ = ["make_decode_fn", "init_params", "cache_specs", "init_cache"]
+__all__ = ["cross_entropy", "make_loss_fn", "make_decode_fn", "init_params",
+           "make_tokens", "cache_specs", "init_cache"]
 
 init_params = T.init_params
+make_tokens = T.make_tokens
 cache_specs = T.cache_specs
 init_cache = T.init_cache
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean token cross-entropy; logits (B, S, V) f32, labels (B, S)."""
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].to(torch.int64))[..., 0]
+    nll = lse - gold
+    if mask is not None:
+        mask = mask.to(torch.float32)
+        return torch.sum(nll * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+    return torch.mean(nll)
+
+
+def make_loss_fn(cfg: ArchConfig, policy: MoRDotPolicy, *,
+                 remat: bool = True):
+    """loss_fn(params, tokens, batch) -> (total loss, aux). ``tokens``
+    are the zero bwd-stat tokens from :func:`make_tokens`; differentiate
+    with respect to them to read the backward quantization stats. The
+    dense family has no MoE load-balance term, so the total is the
+    cross-entropy and ``aux['aux_loss']`` is zero."""
+
+    def loss_fn(params, tokens, batch):
+        logits, _, stats = T.forward(cfg, policy, params, batch,
+                                     mode="train", tokens=tokens,
+                                     remat=remat)
+        loss = cross_entropy(logits, batch["labels"])
+        return loss, {"loss": loss, "aux_loss": torch.zeros_like(loss),
+                      "mor_fwd": stats}
+
+    return loss_fn
 
 
 def make_decode_fn(cfg: ArchConfig, policy: MoRDotPolicy):

@@ -1,11 +1,14 @@
 """Transformer sublayers with MoR-quantized linears (port of the dense
-decode path of ``repro.models.blocks``).
+path of ``repro.models.blocks``).
 
-Block functions share the signature
-    f(p, x, policy, cfg, mode, cache, cur_index) -> (x, cache, stats)
-where ``p`` and ``cache`` are this layer's slices. Decode mode writes the
-incoming tokens' K/V into ``cache`` in place (the engine hands each
-step a freshly gathered cache) and returns it.
+Block functions share the reference's signature
+    f(p, x, tok, policy, cfg, mode, cache, cur_index) -> (x, cache, stats)
+where ``p``, ``tok`` and ``cache`` are this layer's slices. ``tok`` holds
+one :func:`~repro_torch.core.linear.new_token` per GEMM ('qkv', 'proj',
+'fc1', 'fc2'; None where nothing differentiates, as in serving). Train
+mode runs causal attention over the whole sequence and keeps no cache;
+decode mode writes the incoming tokens' K/V into ``cache`` in place (the
+engine hands each step a freshly gathered cache) and returns it.
 """
 from __future__ import annotations
 
@@ -17,7 +20,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.linear import mor_dot
 from repro_torch.core.policy import MoRDotPolicy
 
-from .attention import decode_attention
+from .attention import decode_attention, flash_attention
 from .common import activation, apply_rope, glu_split, layer_norm, rms_norm
 
 __all__ = ["norm", "attn_sublayer", "mlp_sublayer", "dense_block"]
@@ -37,21 +40,35 @@ def _split_qkv(qkv, cfg: ArchConfig):
             v.reshape(B, S, hkv, hd))
 
 
-def attn_sublayer(p, xn, policy: MoRDotPolicy, cfg: ArchConfig, mode: str,
-                  cache: Optional[Dict[str, torch.Tensor]], cur_index, *,
-                  kind: str = "causal", prefix_len: int = 0,
+def _tok(tok, name):
+    return None if tok is None else tok[name]
+
+
+def attn_sublayer(p, xn, tok, policy: MoRDotPolicy, cfg: ArchConfig,
+                  mode: str, cache: Optional[Dict[str, torch.Tensor]],
+                  cur_index, *, kind: str = "causal", prefix_len: int = 0,
                   window: int = 0, use_rope: bool = True):
-    """GQA self-attention with RoPE against the KV cache (decode mode:
-    S == 1 for a decode step, S > 1 for a prefill chunk)."""
-    if mode != "decode":
+    """GQA self-attention with RoPE. Train mode: the whole sequence,
+    chunked flash attention, no cache. Decode mode: against the KV
+    cache (S == 1 for a decode step, S > 1 for a prefill chunk)."""
+    if mode not in ("train", "decode"):
         raise NotImplementedError(
-            f"attention mode {mode!r}: only decode (and chunked prefill "
-            "through it) is ported; full prefill and training need the "
-            "flash attention of a later slice"
-        )
+            f"attention mode {mode!r}: train and decode (with chunked "
+            "prefill through it) are ported; full-sequence prefill with "
+            "cache emission is not")
     B, S, _ = xn.shape
-    qkv, st_qkv = mor_dot(xn, p["wqkv"], policy)
+    qkv, st_qkv = mor_dot(xn, p["wqkv"], _tok(tok, "qkv"), policy)
     q, k, v = _split_qkv(qkv, cfg)
+    if mode == "train":
+        pos = torch.arange(S, device=xn.device)[None]
+        if use_rope:
+            q = apply_rope(q, pos, cfg.rope_theta)
+            k = apply_rope(k, pos, cfg.rope_theta)
+        out = flash_attention(q, k, v, kind=kind, prefix_len=prefix_len,
+                              window=window)
+        out = out.reshape(B, S, cfg.n_heads * cfg.head_dim)
+        y, st_proj = mor_dot(out, p["wo"], _tok(tok, "proj"), policy)
+        return y, None, {"qkv": st_qkv, "proj": st_proj}
     cur = torch.as_tensor(cur_index, dtype=torch.int64,
                           device=xn.device).reshape(-1).expand(B)
     pos = cur[:, None] - (S - 1) + torch.arange(S, device=xn.device)[None]
@@ -63,24 +80,24 @@ def attn_sublayer(p, xn, policy: MoRDotPolicy, cfg: ArchConfig, mode: str,
     cache["v"][rows, pos] = v.to(cache["v"].dtype)
     out = decode_attention(q, cache["k"], cache["v"], cur, window=window)
     out = out.reshape(B, S, cfg.n_heads * cfg.head_dim)
-    y, st_proj = mor_dot(out, p["wo"], policy)
+    y, st_proj = mor_dot(out, p["wo"], _tok(tok, "proj"), policy)
     return y, cache, {"qkv": st_qkv, "proj": st_proj}
 
 
-def mlp_sublayer(p, xn, policy: MoRDotPolicy, cfg: ArchConfig):
+def mlp_sublayer(p, xn, tok, policy: MoRDotPolicy, cfg: ArchConfig):
     gated = cfg.act in ("swiglu", "geglu")
-    h, st1 = mor_dot(xn, p["wi"], policy)
+    h, st1 = mor_dot(xn, p["wi"], _tok(tok, "fc1"), policy)
     h = glu_split(h, gated, activation(cfg.act))
-    y, st2 = mor_dot(h, p["wo"], policy)
+    y, st2 = mor_dot(h, p["wo"], _tok(tok, "fc2"), policy)
     return y, {"fc1": st1, "fc2": st2}
 
 
-def dense_block(p, x, policy, cfg, mode, cache, cur_index, **attn_kw):
+def dense_block(p, x, tok, policy, cfg, mode, cache, cur_index, **attn_kw):
     xn = norm(p["ln1"], x, cfg)
-    a, new_cache, st_a = attn_sublayer(p, xn, policy, cfg, mode, cache,
+    a, new_cache, st_a = attn_sublayer(p, xn, tok, policy, cfg, mode, cache,
                                        cur_index, **attn_kw)
     x = x + a
     xn2 = norm(p["ln2"], x, cfg)
-    m, st_m = mlp_sublayer(p["mlp"], xn2, policy, cfg)
+    m, st_m = mlp_sublayer(p["mlp"], xn2, tok, policy, cfg)
     x = x + m
     return x, new_cache, {**st_a, **st_m}

@@ -1,5 +1,5 @@
-"""Shared model building blocks: norms, RoPE, activations (port of
-``repro.models.common``; the mesh constraints and scan helpers have no
+"""Shared model building blocks: norms, RoPE, activations, chunk sizes
+(port of ``repro.models.common``; the mesh constraints and scans have no
 counterpart in an eager single-device port)."""
 from __future__ import annotations
 
@@ -10,7 +10,7 @@ import torch
 from repro_torch.core.formats import true_divide
 
 __all__ = ["rms_norm", "layer_norm", "rope_freqs", "apply_rope",
-           "activation", "glu_split"]
+           "activation", "glu_split", "pick_chunk"]
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
@@ -49,12 +49,33 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
     return out.to(x.dtype)
 
 
+class _Silu(torch.autograd.Function):
+    """silu as JAX computes it in bf16, value and derivative.
+
+    ``jax.nn.silu`` is x * logistic(x), and XLA lowers logistic to
+    1 / (1 + exp(-x)) with every op rounded to the tensor's dtype; the
+    same chain here agrees bit for bit in bf16 (``torch.sigmoid`` rounds
+    once and differs in ~1/3 of elements). JAX differentiates silu as
+    g * s + (x * g) * (s * (1 - s)), each op rounded (read from its
+    compiled HLO); autograd through the forward chain would compute
+    another formula (s^2 exp(-x)) and differ in the last bf16 bit of
+    many elements."""
+
+    @staticmethod
+    def forward(ctx, x):
+        s = torch.reciprocal(1 + torch.exp(-x))
+        ctx.save_for_backward(x, s)
+        return x * s
+
+    @staticmethod
+    def backward(ctx, g):
+        x, s = ctx.saved_tensors
+        return g * s + (x * g) * (s * (1 - s))
+
+
 def activation(name: str) -> Callable[[torch.Tensor], torch.Tensor]:
-    # jax.nn.silu lowers to x * 1 / (1 + exp(-x)) with every op rounded
-    # to the tensor's dtype; the same chain here agrees bit for bit in
-    # bf16 (torch.sigmoid rounds once and differs in ~1/3 of elements).
     if name in ("swiglu", "silu"):
-        return lambda x: x * torch.reciprocal(1 + torch.exp(-x))
+        return _Silu.apply
     if name in ("geglu", "gelu"):
         return lambda x: torch.nn.functional.gelu(x, approximate="tanh")
     if name == "relu2":
@@ -68,3 +89,11 @@ def glu_split(h: torch.Tensor, gated: bool, act_fn):
         g, u = torch.chunk(h, 2, dim=-1)
         return act_fn(g) * u
     return act_fn(h)
+
+
+def pick_chunk(n: int, target: int) -> int:
+    """Largest divisor of n that is <= target (>= 1)."""
+    c = min(target, n)
+    while n % c:
+        c -= 1
+    return c

@@ -1,5 +1,5 @@
-"""Model assembly for the dense decoder family (port of the decode path
-of ``repro.models.transformer``).
+"""Model assembly for the dense decoder family (port of the train and
+decode paths of ``repro.models.transformer``).
 
 Parameters are nested dicts with the reference's key paths
 (``blocks/dense/wqkv``, ``blocks/dense/mlp/wi``, ``lm_head``, ``embed``,
@@ -12,15 +12,20 @@ from __future__ import annotations
 from typing import Any, Dict
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.linear import N_BWD_EVENTS
+from repro_torch.core.mor import STATS_WIDTH
 from repro_torch.core.policy import MoRDotPolicy
 from repro_torch.kernels import ops as kops
 
 from . import blocks as B
 
-__all__ = ["init_params", "cache_specs", "init_cache", "forward",
-           "padded_vocab", "resolve_device"]
+__all__ = ["init_params", "make_tokens", "cache_specs", "init_cache",
+           "forward", "padded_vocab", "resolve_device"]
+
+_GEMMS = ("qkv", "proj", "fc1", "fc2")
 
 
 def padded_vocab(cfg: ArchConfig) -> int:
@@ -95,6 +100,18 @@ def init_params(cfg: ArchConfig, seed: int = 0,
     return params
 
 
+def make_tokens(cfg: ArchConfig, device="cuda"):
+    """Zero bwd-stat tokens, one (L, N_BWD_EVENTS, STATS_WIDTH) stack per
+    GEMM of the layer; each requires grad, and its gradient carries the
+    backward quantization stats out of the train step."""
+    _check_family(cfg)
+    dev = resolve_device(device)
+    return {"blocks": {"dense": {
+        n: torch.zeros((cfg.n_units, N_BWD_EVENTS, STATS_WIDTH),
+                       dtype=torch.float32, device=dev, requires_grad=True)
+        for n in _GEMMS}}}
+
+
 def cache_specs(cfg: ArchConfig, batch: int, seq: int,
                 kv_fp8: bool = False, kv_mor: bool = False):
     """{unit type: {leaf: (shape, dtype)}} of the decode cache, stacked
@@ -133,9 +150,24 @@ def _layer(tree, l: int):
     return out
 
 
+def _train_layer(p_l, x, tok_l, policy, cfg):
+    x, _, st = B.dense_block(p_l, x, tok_l, policy, cfg, "train", None,
+                             None, kind="causal")
+    return x, st
+
+
 def forward(cfg: ArchConfig, policy: MoRDotPolicy, params, batch, *,
-            mode: str = "decode", cache=None, cur_index=None):
+            mode: str = "decode", cache=None, cur_index=None, tokens=None,
+            remat: bool = True):
     """Returns (logits f32 (B, S, Vp), cache, stats).
+
+    Train mode: ``batch['tokens']`` (B, S), causal over the whole
+    sequence, with ``tokens`` from :func:`make_tokens` (None when no
+    backward stats are wanted). With ``remat`` each layer runs under
+    ``torch.utils.checkpoint`` (non-reentrant), as the reference's
+    ``jax.checkpoint`` of the layer body: the backward recomputes the
+    layer's forward, so its quantization events run twice per step, and
+    the forward stats returned are those of the first run.
 
     Decode mode: ``batch['token']`` (B, S) against ``cache`` -- S == 1
     for a decode step, S > 1 for a prefill chunk -- with ``cur_index``
@@ -143,21 +175,31 @@ def forward(cfg: ArchConfig, policy: MoRDotPolicy, params, batch, *,
     The cache is updated in place and returned.
     """
     _check_family(cfg)
-    if mode != "decode":
+    if mode not in ("train", "decode"):
         raise NotImplementedError(
-            f"mode {mode!r}: only decode (and chunked prefill through it) "
-            "is ported")
-    ids = batch["token"]
+            f"mode {mode!r}: train and decode (with chunked prefill "
+            "through it) are ported")
+    ids = batch["token"] if mode == "decode" else batch["tokens"]
     x = params["embed"][ids]
     if cfg.tie_embed:
         x = x * torch.tensor(cfg.d_model**0.5, dtype=x.dtype)
 
     rows = []
     blocks = params["blocks"]["dense"]
+    toks = None if tokens is None else tokens["blocks"]["dense"]
     for l in range(cfg.n_units):
-        c_l = {k: v[l] for k, v in cache["dense"].items()}
-        x, _, st = B.dense_block(_layer(blocks, l), x, policy, cfg, mode,
-                                 c_l, cur_index, kind="causal")
+        p_l = _layer(blocks, l)
+        tok_l = None if toks is None else {k: v[l] for k, v in toks.items()}
+        if mode == "train":
+            if remat:
+                x, st = checkpoint(_train_layer, p_l, x, tok_l, policy, cfg,
+                                   use_reentrant=False)
+            else:
+                x, st = _train_layer(p_l, x, tok_l, policy, cfg)
+        else:
+            c_l = {k: v[l] for k, v in cache["dense"].items()}
+            x, _, st = B.dense_block(p_l, x, tok_l, policy, cfg, mode, c_l,
+                                     cur_index, kind="causal")
         rows.append(st)
     stats = {"blocks": {"dense": {
         k: torch.stack([r[k] for r in rows]) for k in rows[0]}}}
@@ -175,4 +217,4 @@ def forward(cfg: ArchConfig, policy: MoRDotPolicy, params, batch, *,
     Vp = logits.shape[-1]
     col = torch.arange(Vp, device=logits.device)
     logits = torch.where(col < cfg.vocab, logits, -1e30)
-    return logits, cache, stats
+    return logits, (None if mode == "train" else cache), stats

@@ -1,0 +1,181 @@
+"""The training step: loss -> grads (with optional microbatching) ->
+AdamW update, with the MoR stats as metrics (port of the dense-state
+path of ``repro.train.train_step``).
+
+Gradient compression, packed moments, the skip-step guard and the
+shard_map statistics axes are not ported yet: a :class:`TrainConfig`
+asking for them raises.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Tuple
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core.formats import true_divide
+from repro_torch.core.mor import (STAT_DECISION, STAT_FALLBACK_COUNT,
+                                  STAT_FRAC_BF16, STAT_GUARD_FLAGS,
+                                  STAT_REL_ERR, STATS_WIDTH)
+from repro_torch.core.policy import MoRDotPolicy
+from repro_torch.models.api import make_loss_fn, make_tokens
+from repro_torch.optim.adamw import (AdamWConfig, OptState, adamw_update,
+                                     tree_leaves, tree_map)
+
+__all__ = ["TrainConfig", "make_train_step", "summarize_mor_stats"]
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    optimizer: AdamWConfig = AdamWConfig()
+    # Microbatching: split the global batch into n accumulation steps.
+    grad_accum: int = 1
+    remat: bool = True
+    # Not ported yet; anything but the defaults raises.
+    compress_grads: str = "none"
+    moments: object = None
+    guard: object = None
+    mor_mesh_axes: Tuple[str, ...] = ()
+
+    def __post_init__(self):
+        if self.compress_grads != "none":
+            raise NotImplementedError(
+                "gradient compression is not ported yet (ROADMAP Queue 1)")
+        if self.moments is not None:
+            raise NotImplementedError(
+                "packed Adam moments are not ported yet (ROADMAP Queue 1)")
+        if self.guard is not None:
+            raise NotImplementedError(
+                "the numerics guard rails are not ported yet "
+                "(ROADMAP Queue 1)")
+        if self.mor_mesh_axes:
+            raise NotImplementedError(
+                "mor_mesh_axes: multi-device statistics are not ported "
+                "yet (ROADMAP Queue 1)")
+        if self.grad_accum < 1:
+            raise ValueError(f"grad_accum must be >= 1, got "
+                             f"{self.grad_accum}")
+
+
+def _stats_rows(tree):
+    """Every STATS_WIDTH row of a stats tree, concatenated (None when it
+    has none)."""
+    leaves = [l.reshape(-1, l.shape[-1]) for l in tree_leaves(tree)
+              if isinstance(l, torch.Tensor) and l.ndim >= 1
+              and l.shape[-1] == STATS_WIDTH]
+    return torch.cat(leaves) if leaves else None
+
+
+def summarize_mor_stats(fwd_stats, bwd_stats) -> Dict[str, torch.Tensor]:
+    """Reduce the per-layer / per-event stats trees to scalar metrics.
+
+    Disabled events (decision == -1) are left out of the fractions and
+    errors (with no enabled event every metric is 0); the guard counters
+    count every row: ``guard_flag_events`` rows with a guard flag set,
+    ``guard_fallback_blocks`` the nonfinite-block fallbacks."""
+
+    def frac(cat, idx):
+        if cat is None:
+            return torch.zeros((), dtype=torch.float32)
+        enabled = cat[:, STAT_DECISION] >= 0.0
+        n = torch.clamp_min(enabled.to(torch.float32).sum(), 1.0)
+        return torch.where(enabled, cat[:, idx], 0.0).sum() / n
+
+    out = {}
+    guard_events = torch.zeros((), dtype=torch.float32)
+    fallback_blocks = torch.zeros((), dtype=torch.float32)
+    for name, tree in (("fwd", fwd_stats), ("bwd", bwd_stats)):
+        if tree is None:
+            continue
+        cat = _stats_rows(tree)
+        out[f"{name}_frac_bf16"] = frac(cat, STAT_FRAC_BF16)
+        out[f"{name}_rel_err"] = frac(cat, STAT_REL_ERR)
+        if cat is not None:
+            guard_events = guard_events.to(cat.device) + (
+                cat[:, STAT_GUARD_FLAGS] > 0.0).to(torch.float32).sum()
+            fallback_blocks = fallback_blocks.to(cat.device) + \
+                cat[:, STAT_FALLBACK_COUNT].sum()
+    out["guard_flag_events"] = guard_events
+    out["guard_fallback_blocks"] = fallback_blocks
+    return out
+
+
+def _split(batch, n: int, i: int):
+    return {k: v.reshape(n, v.shape[0] // n, *v.shape[1:])[i]
+            for k, v in batch.items()}
+
+
+def _tree_mean(trees):
+    if isinstance(trees[0], dict):
+        return {k: _tree_mean([t[k] for t in trees]) for k in trees[0]}
+    return torch.mean(torch.stack(trees), dim=0)
+
+
+def make_train_step(cfg: ArchConfig, policy: MoRDotPolicy,
+                    tcfg: TrainConfig):
+    """Returns train_step(params, opt_state, batch) -> (params,
+    opt_state, metrics). ``batch`` holds 'tokens' and 'labels' (B, S)
+    integer tensors on the parameters' device; the step leaves its
+    inputs untouched and returns new parameters and state."""
+    loss_fn = make_loss_fn(cfg, policy, remat=tcfg.remat)
+
+    def single_micro(params, batch):
+        leaves = tree_leaves(params)
+        dev = leaves[0].device
+        p = tree_map(lambda t: t.detach().requires_grad_(True), params)
+        tokens = make_tokens(cfg, device=dev)
+        total, aux = loss_fn(p, tokens, batch)
+        p_leaves, t_leaves = tree_leaves(p), tree_leaves(tokens)
+        grads = torch.autograd.grad(total, p_leaves + t_leaves)
+        g_params = _unflatten(p, grads[:len(p_leaves)])
+        g_tokens = _unflatten(tokens, grads[len(p_leaves):])
+        aux = {k: (v.detach() if isinstance(v, torch.Tensor) else
+                   tree_map(lambda t: t.detach(), v))
+               for k, v in aux.items()}
+        return total.detach(), aux, g_params, g_tokens
+
+    def train_step(params, opt_state: OptState, batch):
+        n = tcfg.grad_accum
+        if n > 1:
+            g_acc = tree_map(lambda t: torch.zeros(
+                t.shape, dtype=torch.float32, device=t.device), params)
+            total = torch.zeros((), dtype=torch.float32,
+                                device=tree_leaves(params)[0].device)
+            auxs, toks = [], []
+            for i in range(n):
+                t_i, aux, g_params, g_tokens = single_micro(
+                    params, _split(batch, n, i))
+                g_acc = tree_map(
+                    lambda a, g: a + true_divide(g.to(torch.float32), n),
+                    g_acc, g_params)
+                total = total + true_divide(t_i, n)
+                auxs.append(aux)
+                toks.append(g_tokens)
+            # Stats and aux are per-microbatch means: the reported
+            # metrics do not depend on the grad_accum split.
+            aux, g_tokens, g_params = _tree_mean(auxs), _tree_mean(toks), \
+                g_acc
+        else:
+            total, aux, g_params, g_tokens = single_micro(params, batch)
+        new_params, new_opt, opt_metrics = adamw_update(
+            tcfg.optimizer, g_params, opt_state)
+        metrics = {"loss": aux["loss"], "total_loss": total,
+                   "aux_loss": aux["aux_loss"], **opt_metrics,
+                   **summarize_mor_stats(aux.get("mor_fwd"), g_tokens)}
+        return new_params, new_opt, metrics
+
+    return train_step
+
+
+def _unflatten(tree, leaves):
+    """The tree of ``tree``'s structure holding ``leaves`` (in
+    tree_leaves order)."""
+    it = iter(leaves)
+
+    def rec(t):
+        if isinstance(t, dict):
+            return {k: rec(t[k]) for k in sorted(t)}
+        return next(it)
+
+    return rec(tree)

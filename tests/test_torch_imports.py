@@ -31,7 +31,9 @@ def _imported_roots(path: Path):
 def test_port_tree_is_present():
     names = {p.relative_to(ROOT).as_posix() for p in _port_files()}
     for must in ("src/repro_torch/kernels/ops.py",
-                 "src/repro_torch/serve/engine.py", "chip_smoke.py"):
+                 "src/repro_torch/serve/engine.py",
+                 "src/repro_torch/train/train_step.py",
+                 "src/repro_torch/kernels/gam_quant.py", "chip_smoke.py"):
         assert must in names
 
 
@@ -47,7 +49,8 @@ def test_import_leaves_jax_unloaded():
     code = (
         "import sys\n"
         "import repro_torch.serve, repro_torch.models, repro_torch.convert\n"
-        "import repro_torch.kernels.ops\n"
+        "import repro_torch.kernels.ops, repro_torch.train, repro_torch.data\n"
+        "import repro_torch.optim, repro_torch.core.stats\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "print(bad)\n"
@@ -57,3 +60,31 @@ def test_import_leaves_jax_unloaded():
     res = subprocess.run([sys.executable, "-c", code], env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_every_module_imports_first():
+    """Any module of the port can be the first one a program imports
+    (the core and kernels packages import each other's modules)."""
+    mods = sorted(
+        ".".join(p.relative_to(ROOT / "src").with_suffix("").parts)
+        .removesuffix(".__init__")
+        for p in (ROOT / "src" / "repro_torch").rglob("*.py"))
+    code = (
+        "import importlib, sys\n"
+        f"mods = {mods!r}\n"
+        "bad = []\n"
+        "for m in mods:\n"
+        "    for k in [k for k in sys.modules if k.startswith('repro_torch')]:\n"
+        "        del sys.modules[k]\n"
+        "    try:\n"
+        "        importlib.import_module(m)\n"
+        "    except Exception as e:\n"
+        "        bad.append((m, repr(e)))\n"
+        "print(bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stdout + res.stderr
+

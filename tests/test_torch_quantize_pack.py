@@ -228,8 +228,13 @@ def test_sub4_rejects_incapable_block_and_unported_recipes():
         tmor.quantize_for_gemm(xt, TPolicy(recipe="sub4",
                                            block_shape=(63, 64)))
     for recipe in ("tensor", "e4m3"):
-        with pytest.raises(NotImplementedError, match="gam_quant"):
-            tmor.quantize_for_gemm(xt, TPolicy(recipe=recipe))
+        # Ported since (decide through gam_quant, then pack; held
+        # against the reference in test_torch_mor_dot.py).
+        mo, _ = tmor.quantize_for_gemm(xt, TPolicy(recipe=recipe))
+        assert set(np.unique(mo.tags.numpy()).tolist()) <= {
+            tref.TAG_E4M3, tref.TAG_BF16}
+    with pytest.raises(ValueError, match="unknown recipe"):
+        tmor.quantize_for_gemm(xt, TPolicy(recipe="e3m4"))
     with pytest.raises(ValueError, match="backend"):
         TPolicy(backend="xla")
     with pytest.raises(ValueError, match="CUDA"):
