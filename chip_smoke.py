@@ -3,12 +3,13 @@
 
     python3 chip_smoke.py
 
-1. Prints the card's name and power limit, builds both CUDA kernels
+1. Prints the card's name and power limit, builds the five CUDA sources
    (one nvcc per source, started together) and prints the build time.
 2. Holds each kernel against its plain PyTorch version on the same CUDA
    tensors (``backend='torch'``): ``mor_select_pack`` byte for byte on
-   inputs that hit every tag (a real layer shape among them),
-   ``mixed_gemm`` within an f32-summation-order tolerance.
+   inputs that hit every tag (a real layer shape among them, and a block
+   whose ideal GAM scale overflows to Inf), ``mixed_gemm`` within an
+   f32-summation-order tolerance.
 3. Times both kernels, their plain versions and a library yardstick at
    the shapes the engine gives them.
 4. Serves 8 requests through the llama3-8b engine at full width with
@@ -23,8 +24,9 @@
    the plain path's are.
 6. Training: holds ``gam_quant`` and ``mor_select(emit='select')``
    against their plain versions bit for bit (value lanes, exponents and
-   tags); times them on the wi view and ``mixed_gemm`` at the training
-   shapes (fwd, dgrad, wgrad of wi at 2048 tokens); trains 4-layer,
+   tags; the overflowing-scale block too); times them on the wi view
+   and ``mixed_gemm`` at the training shapes (fwd, dgrad, wgrad of wi
+   at 2048 tokens); trains 4-layer,
    full-width llama3-8b for 3 AdamW steps under each of the tensor,
    sub3 and fused-sub3 policies (2 x 1024 tokens a step), checking
    through the launch counters that every quantization event and every
@@ -33,11 +35,19 @@
    depth-2 step kernel path against plain path (``backend='torch'`` on
    the same CUDA tensors), holding every fused GEMM against the plain
    version on its real inputs.
+7. The kernel API (``ops.flash_attention``, ``ops.fp8_gemm``, which no
+   model path calls, as in the JAX package): both kernels against their
+   plain versions over layouts, offsets, dtypes and blocks; then, with
+   the counters zeroed just before and read just after, flash attention
+   at llama3-8b's heads (the 2 x 1024 training batch, the 8192 context,
+   a 4-slot prefill chunk against 512 positions) and the fp8 GEMM of
+   2048 tokens against the four layer weights, each call checked against
+   its plain version and timed beside its bound and a library call.
 
-Prints JSON lines (the ``kernels``, ``engine`` and ``train`` lines among
-them) and ends with ``{"ok": true, "device": ...}``. Exits non-zero on
-any failure, without a card, or without the rest of the repository
-beside it.
+Prints JSON lines (the ``kernels``, ``engine``, ``train`` and
+``kernel_api`` lines among them) and ends with ``{"ok": true, "device":
+...}``. Exits non-zero on any failure, without a card, or without the
+rest of the repository beside it.
 """
 import contextlib
 import dataclasses
@@ -62,6 +72,10 @@ N_LAYERS = 32                 # llama3-8b depth; cut only if time forces it
 TRAIN_LAYERS = 4
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 1024, 3
 ALGOS = ("gam", "e8m0", "fp32_amax")
+# Block of the parity operands whose ideal GAM scale overflows (values
+# ~1e-37); the NaN and Inf sit in other blocks.
+TINY_AT = (0, 1)
+FP8_FLOPS = 1979e12           # H100 SXM dense fp8 tensor-core peak
 
 
 def emit(obj):
@@ -98,6 +112,24 @@ def mixed_tags(shape, seed=0, bf16_blocks=True):
         x[rows, rng.integers(0, kp, 8)] *= 1e4  # outliers in normal blocks
     x[-max(m // 8, 1):] = 0.0
     return torch.from_numpy(x[:, :k].astype(np.float32)).to(torch.bfloat16)
+
+
+def add_tiny_block(x, block, at, seed=0):
+    """Fill block ``at`` (a block-grid index) of the CUDA operand ``x``
+    with sign * U(1, 2) * 1e-37 and four bf16 denormals: the block's ideal
+    GAM scale q_amax / amax overflows f32 to +Inf for every format, which
+    the kernels' Alg. 1 bit arithmetic must split as the plain version's
+    frexp does (exponent -1)."""
+    rng = np.random.default_rng(seed)
+    r0, c0 = at[0] * block[0], at[1] * block[1]
+    r1, c1 = min(r0 + block[0], x.shape[0]), min(c0 + block[1], x.shape[1])
+    h, w = r1 - r0, c1 - c0
+    t = np.where(rng.standard_normal((h, w)) > 0, 1.0, -1.0) * rng.uniform(
+        1, 2, (h, w)) * 1e-37
+    t[0, :4] = [1e-39, -2e-39, 5e-40, -9e-41]
+    x[r0:r1, c0:c1] = torch.from_numpy(t.astype(np.float32)).to(
+        torch.bfloat16).to(x.device)
+    return x
 
 
 def time_ms(fn, iters=10):
@@ -146,6 +178,7 @@ def phase_mor_select(ops, Partition):
         x = mixed_tags(shape, seed).cuda()
         x[5, 7] = float("nan")
         x[shape[0] // 2 + 3, shape[1] - 9] = float("inf")
+        add_tiny_block(x, block, TINY_AT, seed)
         for mode in ("sub2", "sub3", "sub4"):
             align = (2, 16) if mode == "sub4" else (1, 1)
             part = Partition("block", block, align=align)
@@ -160,7 +193,9 @@ def phase_mor_select(ops, Partition):
             max_err = max(max_err, float(d.nan_to_num(0.0).max()))
             emit({"parity": "mor_select_pack", "shape": list(shape),
                   "block": list(block), "mode": mode,
-                  "tags": sorted(tags), "identical": True})
+                  "tags": sorted(tags), "tiny_block": list(TINY_AT),
+                  "tiny_block_tag": int(mo_t.tags[TINY_AT]),
+                  "identical": True})
     for mode, tags in want.items():
         check(tags <= seen[mode], f"mor_select_pack {mode}: tags "
               f"{sorted(seen[mode])} miss some of {sorted(tags)}")
@@ -211,9 +246,9 @@ def phase_mixed_gemm(ops, ref, Partition):
         emit({"parity": "mixed_gemm", "case": name, "ok": True})
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, peak=BF16_FLOPS):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -297,9 +332,6 @@ def phase_engine(cfg, n_layers):
     """The slice: full-width llama3-8b served by the Engine, with the
     launch counters zeroed just before and read just after."""
     from repro_torch.core.policy import MoRDotPolicy, MoRPolicy
-    from repro_torch.kernels import mixed_gemm as mg_mod
-    from repro_torch.kernels import mor_select as ms_mod
-    from repro_torch.kernels import ref
     from repro_torch.models import init_params
     from repro_torch.serve import Engine, Request, ServeConfig
     from repro_torch.serve.quantized import param_bytes, tag_counts
@@ -307,10 +339,7 @@ def phase_engine(cfg, n_layers):
     cfg = dataclasses.replace(cfg, n_layers=n_layers)
     params = init_params(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
-    mg_mod.mixed_gemm_blocks.launches = 0
-    ms_mod.mor_select_pack.launches = 0
-    ref.mixed_gemm_ref.calls = 0
-    ref.quantize_pack_ref.calls = 0
+    reset_counters()
     t0 = time.perf_counter()
     eng = Engine(cfg, MoRDotPolicy(), params,
                  ServeConfig(slots=4, max_seq=512, prefill_chunk=32),
@@ -345,10 +374,7 @@ def phase_engine(cfg, n_layers):
     steps = eng.run_to_completion()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"mixed_gemm": mg_mod.mixed_gemm_blocks.launches,
-                "mor_select_pack": ms_mod.mor_select_pack.launches}
-    plain = {"mixed_gemm_ref": ref.mixed_gemm_ref.calls,
-             "quantize_pack_ref": ref.quantize_pack_ref.calls}
+    launches, plain = read_counters()
 
     for r in reqs:
         check(r.done and r.error is None, f"request {r.rid}: {r.error}")
@@ -363,7 +389,7 @@ def phase_engine(cfg, n_layers):
     check(launches["mor_select_pack"] == 4 * L + 1,
           f"mor_select_pack launches {launches['mor_select_pack']} != "
           f"{4 * L + 1} quantized matrices")
-    check(plain == {"mixed_gemm_ref": 0, "quantize_pack_ref": 0},
+    check(not any(plain.values()),
           f"plain versions ran on the main path: {plain}")
     profile = profile_decode(eng)
     tc = tag_counts(eng.params)
@@ -581,6 +607,7 @@ def phase_quant_select(ops, Partition):
         x = mixed_tags(shape, seed).cuda()
         x[5, 7] = float("nan")
         x[shape[0] // 2 + 3, shape[1] - 9] = float("inf")
+        add_tiny_block(x, block, TINY_AT, seed)
         for fmt in (E4M3, E5M2):
             for algo in ALGOS:
                 k = ops.gam_quant(x, block=block, fmt=fmt, algo=algo,
@@ -594,6 +621,8 @@ def phase_quant_select(ops, Partition):
                     check(a.shape == b.shape and torch.equal(bits16(a),
                                                              bits16(b)),
                           f"{what}: {name} differs from the plain version")
+                check(int(k[1][TINY_AT]) == -1, f"{what}: the tiny block's "
+                      f"exponent is {int(k[1][TINY_AT])}, not frexp(Inf) - 1")
                 check(torch.equal(k[2].isnan(), t[2].isnan()),
                       f"{what}: NaN error sums differ")
                 ok = ~t[2].isnan()
@@ -616,7 +645,8 @@ def phase_quant_select(ops, Partition):
             tags = set(np.unique(t.sel.cpu().numpy()).tolist())
             seen[mode] |= tags
         emit({"parity": "gam_quant+mor_select_select", "shape": list(shape),
-              "block": list(block), "identical": True})
+              "block": list(block), "tiny_block": list(TINY_AT),
+              "identical": True})
     for mode, tags in want.items():
         check(tags <= seen[mode], f"mor_select_select {mode}: tags "
               f"{sorted(seen[mode])} miss some of {sorted(tags)}")
@@ -717,26 +747,37 @@ def with_backend(pol, backend):
                        grad=pol.grad.replace(backend=backend))
 
 
-def train_counters():
+def kernel_counters():
     """(kernel launch counters, plain-version call counters) by name."""
-    from repro_torch.kernels import gam_quant as gq_mod
-    from repro_torch.kernels import mixed_gemm as mg_mod
-    from repro_torch.kernels import mor_select as ms_mod
+    # The package exports its entry points (gam_quant, mixed_gemm,
+    # mor_select, flash_attention, fp8_gemm) under its kernel modules'
+    # names, as the reference does, so the wrappers are imported from
+    # their modules by path.
     from repro_torch.kernels import ref
-    kernels = {"gam_quant": gq_mod.gam_quant_blocks,
-               "mor_select_select": ms_mod.mor_select_select,
-               "mor_select_pack": ms_mod.mor_select_pack,
-               "mixed_gemm": mg_mod.mixed_gemm_blocks}
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.fp8_gemm import fp8_gemm_blocks
+    from repro_torch.kernels.gam_quant import gam_quant_blocks
+    from repro_torch.kernels.mixed_gemm import mixed_gemm_blocks
+    from repro_torch.kernels.mor_select import (mor_select_pack,
+                                                mor_select_select)
+    kernels = {"gam_quant": gam_quant_blocks,
+               "mor_select_select": mor_select_select,
+               "mor_select_pack": mor_select_pack,
+               "mixed_gemm": mixed_gemm_blocks,
+               "flash_attention": flash_attention_fwd,
+               "fp8_gemm": fp8_gemm_blocks}
     plain = {"quant_err_ref": ref.quant_err_ref,
              "gam_quant_ref": ref.gam_quant_ref,
              "mor_select_ref": ref.mor_select_ref,
              "quantize_pack_ref": ref.quantize_pack_ref,
-             "mixed_gemm_ref": ref.mixed_gemm_ref}
+             "mixed_gemm_ref": ref.mixed_gemm_ref,
+             "flash_attention_ref": ref.flash_attention_ref,
+             "fp8_gemm_ref": ref.fp8_gemm_ref}
     return kernels, plain
 
 
 def reset_counters():
-    kernels, plain = train_counters()
+    kernels, plain = kernel_counters()
     for fn in kernels.values():
         fn.launches = 0
     for fn in plain.values():
@@ -744,7 +785,7 @@ def reset_counters():
 
 
 def read_counters():
-    kernels, plain = train_counters()
+    kernels, plain = kernel_counters()
     return ({k: fn.launches for k, fn in kernels.items()},
             {k: fn.calls for k, fn in plain.items()})
 
@@ -990,10 +1031,281 @@ def phase_train_depth2(cfg, ops, ref):
     return res
 
 
+# The kernel API's full-width flash calls (bf16, causal, llama3-8b heads):
+# name -> (B, S, T, per-slot query offsets or None).
+FLASH_API_CASES = {
+    "a_train_2x1024": (2, 1024, 1024, None),      # the training batch
+    "b_context_8192": (1, 8192, 8192, None),      # llama3-8b's context
+    "c_prefill_chunk": (4, 32, 512, (0, 64, 200, 480)),  # engine chunk
+}
+FP8_API_M = 2048  # tokens against llama3-8b's four layer GEMMs
+
+
+def flash_tol(v, out_plain):
+    """Kernel-vs-plain limit of flash attention: 1e-5 max|v| (the order of
+    the f32 sums, an online against a two-pass softmax) plus one ulp of
+    the output dtype at |out| (a rounding of the result may flip)."""
+    bits = 7 if out_plain.dtype == torch.bfloat16 else 23
+    o = out_plain.float().abs().clamp_min(2.0**-126)
+    return 1e-5 * float(v.float().abs().max()) + torch.exp2(
+        torch.floor(torch.log2(o)) - bits)
+
+
+def visible_pairs(S, T, offs):
+    """(query, key) pairs the causal rows of one head need: min(T, off +
+    row + 1) each, and all T for a row that sees no key (its result is
+    the mean over every key)."""
+    rows = np.arange(S)
+    n = 0
+    for off in offs:
+        k = off + rows + 1
+        n += int(np.where(k <= 0, T, np.minimum(k, T)).sum())
+    return n
+
+
+def visible_keys(S, T, offs):
+    """Key rows the causal rows of one head read, summed over the slots:
+    min(T, off + S) for a slot, and all T where a row sees no key."""
+    return sum(T if off < 0 else min(T, off + S) for off in offs)
+
+
+def fp8_operand(x, block, fmt, Partition):
+    """x (R, C) as fp8 payload with GAM block scales, clipped and cast as
+    the reference suite builds fp8_gemm operands."""
+    from repro_torch.core.gam import compute_scales
+    s = compute_scales(x, Partition("block", block), fmt).scale.contiguous()
+    R, C = x.shape
+    br, bc = block
+    xs = x.float().reshape(R // br, br, C // bc, bc) * s[:, None, :, None]
+    q = xs.clamp(-fmt.amax, fmt.amax).to(fmt.dtype).reshape(R, C)
+    return q.contiguous(), s
+
+
+def dequant(q, s, block):
+    R, C = q.shape
+    br, bc = block
+    return (q.float().reshape(R // br, br, C // bc, bc)
+            / s[:, None, :, None]).reshape(R, C)
+
+
+def phase_kernel_api_parity(ops, Partition, cfg):
+    """Kernel vs plain version of ``ops.flash_attention`` (bf16 and f32,
+    causal and full; S = T, S < T with the default, a scalar, a per-batch
+    and a per-row offset with a negative entry, ragged S = 100 / T = 300;
+    GQA with G = 4 and G = 1 and the folded 3-D layout) and of
+    ``ops.fp8_gemm`` (E4M3 and E5M2 payloads, bf16 and f32 out, blocks
+    (128, 128, 128) and (128, 256, 128))."""
+    from repro_torch.core.formats import E4M3, E5M2
+    hq, hkv, dh = cfg.n_heads, cfg.n_kv, cfg.head_dim
+    g = torch.Generator(device="cuda").manual_seed(0)
+    layouts = {"gqa G=4": (2, hq, hkv), "gqa G=1": (2, hkv, hkv),
+               "folded": (16, None, None)}
+    offsets = [("S=T", 256, 256, True), ("default", 64, 256, True),
+               ("scalar", 64, 256, True), ("per_batch", 64, 256, True),
+               ("per_row", 64, 256, True), ("ragged", 100, 300, True),
+               ("S=T", 256, 256, False), ("default", 64, 256, False),
+               ("ragged", 100, 300, False)]
+    worst = {"flash_attention": 0.0, "fp8_gemm": 0.0}
+    n = 0
+    for lname, (B, H, Hk) in layouts.items():
+        rows = B * (H or 1)
+        for oname, S, T, causal in offsets:
+            if oname == "per_batch" and H is None:
+                continue  # a per-batch offset is a 4-D layout's
+            off = {"scalar": 100,
+                   "per_batch": torch.tensor([17, 190], dtype=torch.int32),
+                   "per_row": torch.from_numpy(np.random.default_rng(
+                       rows).integers(0, T - S + 1, rows).astype(np.int32)),
+                   }.get(oname)
+            if oname == "per_row":
+                off[1] = -40  # rows 0..39 of folded row 1 see no key
+            for dt in (torch.bfloat16, torch.float32):
+                if H is None:
+                    shapes = [(B, S, dh), (B, T, dh), (B, T, dh)]
+                else:
+                    shapes = [(B, S, H, dh), (B, T, Hk, dh), (B, T, Hk, dh)]
+                q, k, v = (torch.randn(sh, generator=g, device="cuda").to(dt)
+                           for sh in shapes)
+                yk = ops.flash_attention(q, k, v, causal=causal, q_offset=off,
+                                         backend="cuda")
+                yt = ops.flash_attention(q, k, v, causal=causal, q_offset=off,
+                                         backend="torch")
+                err = (yk.float() - yt.float()).abs()
+                what = (f"flash {lname} {oname} S={S} T={T} "
+                        f"causal={causal} {dt}")
+                check(yk.shape == yt.shape and yk.dtype == dt, what)
+                check(bool(torch.all(err <= flash_tol(v, yt))),
+                      f"{what}: max err {float(err.max())} beyond 1e-5 "
+                      "max|v| + 1 ulp")
+                worst["flash_attention"] = max(worst["flash_attention"],
+                                               float(err.max()))
+                n += 1
+    emit({"parity": "flash_attention", "cases": n, "ok": True,
+          "max_abs_err": worst["flash_attention"]})
+    M, N, K = 512, 1024, 1024
+    x = torch.randn(M, K, generator=g, device="cuda")
+    w = torch.randn(K, N, generator=g, device="cuda")
+    n = 0
+    for fmt in (E4M3, E5M2):
+        for block in ((128, 128, 128), (128, 256, 128)):
+            bm, bn, bk = block
+            aq, sa = fp8_operand(x, (bm, bk), fmt, Partition)
+            bq, sb = fp8_operand(w, (bk, bn), fmt, Partition)
+            A, Bd = dequant(aq, sa, (bm, bk)), dequant(bq, sb, (bk, bn))
+            for out in (torch.bfloat16, torch.float32):
+                ck = ops.fp8_gemm(aq, bq, sa, sb, block=block, out_dtype=out,
+                                  backend="cuda")
+                ct = ops.fp8_gemm(aq, bq, sa, sb, block=block, out_dtype=out,
+                                  backend="torch")
+                err = (ck.float() - ct.float()).abs()
+                check(bool(torch.all(err <= gemm_tol(A, Bd.T, ct, out))),
+                      f"fp8_gemm {fmt.name} {block} {out}: max err "
+                      f"{float(err.max())} beyond 1e-5 sum|a b| (+1 bf16 ulp)")
+                worst["fp8_gemm"] = max(worst["fp8_gemm"], float(err.max()))
+                n += 1
+    emit({"parity": "fp8_gemm", "cases": n, "ok": True,
+          "max_abs_err": worst["fp8_gemm"]})
+    return worst
+
+
+def sdpa_yardstick(q, k, v, offs):
+    """One ``scaled_dot_product_attention`` call computing the same
+    function (timed only; the port never calls it): is_causal where the
+    offset is the default T - S = 0, an explicit mask otherwise."""
+    import torch.nn.functional as F
+    B, S, _, _ = q.shape
+    T = k.shape[1]
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+    if offs is None and S == T:
+        return lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=True, enable_gqa=True)
+    off = torch.as_tensor(T - S if offs is None else offs,
+                          dtype=torch.int64, device=q.device).reshape(-1)
+    pos = off.expand(B)[:, None] + torch.arange(S, device=q.device)
+    mask = (torch.arange(T, device=q.device)[None, None, :]
+            <= pos[:, :, None])[:, None]
+    return lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, attn_mask=mask, enable_gqa=True)
+
+
+def phase_kernel_api(ops, Partition, cfg):
+    """The kernel API slice: ``ops.flash_attention`` and ``ops.fp8_gemm``
+    at llama3-8b's widths (the shapes of FLASH_API_CASES; M = 2048 tokens
+    against the qkv, proj, fc1 and fc2 weights, E4M3 with GAM block
+    scales), with every launch counter zeroed just before and read just
+    after; then each call held against its plain version and timed
+    beside its bound and a library call."""
+    from repro_torch.core.formats import E4M3
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.fp8_gemm import fp8_gemm_blocks
+    hq, hkv, dh = cfg.n_heads, cfg.n_kv, cfg.head_dim
+    d, f = cfg.d_model, cfg.d_ff
+    g = torch.Generator(device="cuda").manual_seed(1)
+    flash_in = {}
+    for name, (B, S, T, offs) in FLASH_API_CASES.items():
+        q = torch.randn(B, S, hq, dh, generator=g, device="cuda")
+        k = torch.randn(B, T, hkv, dh, generator=g, device="cuda")
+        v = torch.randn(B, T, hkv, dh, generator=g, device="cuda")
+        off = None if offs is None else torch.tensor(
+            offs, dtype=torch.int32, device="cuda")
+        flash_in[name] = [t.to(torch.bfloat16) for t in (q, k, v)] + [off]
+        del q, k, v
+    gemms = {"qkv": (d, (hq + 2 * hkv) * dh), "proj": (hq * dh, d),
+             "fc1": (d, 2 * f), "fc2": (f, d)}
+    fp8_in = {}
+    for name, (K, N) in gemms.items():
+        x = torch.randn(FP8_API_M, K, generator=g, device="cuda").to(
+            torch.bfloat16)
+        w = (torch.randn(K, N, generator=g, device="cuda") * 0.02).to(
+            torch.bfloat16)
+        aq, sa = fp8_operand(x, (128, 128), E4M3, Partition)
+        bq, sb = fp8_operand(w, (128, 128), E4M3, Partition)
+        fp8_in[name] = (aq, bq, sa, sb)
+        del x, w
+    torch.cuda.synchronize()
+
+    reset_counters()
+    outs = {}
+    for name, (q, k, v, off) in flash_in.items():
+        outs[name] = ops.flash_attention(q, k, v, causal=True, q_offset=off)
+    for name, args in fp8_in.items():
+        outs[name] = ops.fp8_gemm(*args)
+    torch.cuda.synchronize()
+    k_counts, p_counts = read_counters()
+    check(k_counts["flash_attention"] == len(flash_in)
+          and k_counts["fp8_gemm"] == len(fp8_in),
+          f"kernel_api: launches {k_counts}, want one per call")
+    check(not any(p_counts.values()),
+          f"kernel_api: plain versions ran on the main path: {p_counts}")
+
+    res = {"flash_attention": {}, "fp8_gemm": {}}
+    for name, (q, k, v, off) in flash_in.items():
+        B, S, T, offs = FLASH_API_CASES[name]
+        y = outs[name]
+        yt = ops.flash_attention(q, k, v, causal=True, q_offset=off,
+                                 backend="torch")
+        check(y.shape == (B, S, hq, dh) and bool(torch.isfinite(y).all()),
+              f"flash {name}: shape {tuple(y.shape)} or nonfinite values")
+        err = (y.float() - yt.float()).abs()
+        check(bool(torch.all(err <= flash_tol(v, yt))),
+              f"flash {name}: max err {float(err.max())} beyond tolerance")
+        del yt
+        o = [T - S] * B if offs is None else list(offs)
+        flops = 4.0 * dh * hq * visible_pairs(S, T, o)
+        nbytes = 2 * (2 * B * S * hq * dh
+                      + 2 * hkv * dh * visible_keys(S, T, o))
+        b = bound(nbytes, flops)
+        lib = sdpa_yardstick(q, k, v, off)
+        off_rows = None if off is None else off.repeat_interleave(hq)
+        res["flash_attention"][name] = dict(
+            ms=time_ms(lambda: flash_attention_fwd(q, k, v,
+                                                   q_offset=off_rows)),
+            plain_ms=time_ms(lambda: ops.flash_attention(
+                q, k, v, q_offset=off, backend="torch")),
+            library_ms=time_ms(lib), bound_ms=b[0], bound_by=b[1],
+            max_abs_err=float(err.max()), shape=[B, S, T, hq, hkv, dh],
+            flops=flops, bytes=nbytes)
+        torch.cuda.empty_cache()
+    for name, (aq, bq, sa, sb) in fp8_in.items():
+        (M, K), N = aq.shape, bq.shape[1]
+        A, Bd = dequant(aq, sa, (128, 128)), dequant(bq, sb, (128, 128))
+        y = outs[name]
+        yt = ops.fp8_gemm(aq, bq, sa, sb, backend="torch")
+        check(y.shape == (M, N) and bool(torch.isfinite(y).all()),
+              f"fp8_gemm {name}: shape {tuple(y.shape)} or nonfinite values")
+        err = (y.float() - yt.float()).abs()
+        check(bool(torch.all(err <= gemm_tol(A, Bd.T, yt, torch.bfloat16))),
+              f"fp8_gemm {name}: max err {float(err.max())} beyond 1e-5 "
+              "sum|a b| + 1 bf16 ulp")
+        a16, b16 = A.to(torch.bfloat16), Bd.to(torch.bfloat16)
+        del A, Bd, yt
+        flops = 2.0 * M * N * K
+        nbytes = M * K + K * N + 4 * (sa.numel() + sb.numel()) + 2 * M * N
+        b = bound(nbytes, flops, FP8_FLOPS)
+        res["fp8_gemm"][name] = dict(
+            ms=time_ms(lambda: fp8_gemm_blocks(aq, bq, sa, sb)),
+            plain_ms=time_ms(lambda: ops.fp8_gemm(aq, bq, sa, sb,
+                                                  backend="torch")),
+            library_ms=time_ms(lambda: torch.matmul(a16, b16)),
+            bound_ms=b[0], bound_by=b[1],
+            max_abs_err=float(err.max()), shape=[M, N, K],
+            flops=flops, bytes=nbytes)
+        del a16, b16
+        torch.cuda.empty_cache()
+    for kern, head in (("flash_attention", "b_context_8192"),
+                       ("fp8_gemm", "fc1")):
+        res[kern] = {**res[kern][head], "case": head, "cases": res[kern]}
+    del flash_in, fp8_in, outs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res, k_counts
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import get_config
     from repro_torch.core.partition import Partition
@@ -1019,8 +1331,14 @@ def main():
     phase_mixed_gemm(ops, ref, Partition)
     quant_parity = phase_quant_select(ops, Partition)
     cfg = get_config("llama3-8b")
+    api_parity = phase_kernel_api_parity(ops, Partition, cfg)
+    t0 = time.perf_counter()
+    api, api_launches = phase_kernel_api(ops, Partition, cfg)
+    emit({"kernel_api_launches": api_launches,
+          "phase_s": time.perf_counter() - t0, "card": smi})
     timing = phase_timing(ops, ref, Partition, cfg)
     timing.update(phase_train_timing(ops, ref, Partition, cfg))
+    timing.update(api)
     engine, launches = phase_engine(cfg, N_LAYERS)
     depth2 = phase_depth2(cfg, ops, ref)
     train, train_launches = phase_train(cfg)
@@ -1036,10 +1354,15 @@ def main():
          "src/repro/kernels/gam_quant.py:96"),
         ("mixed_gemm", "src/repro_torch/csrc/mixed_gemm.cu",
          "src/repro/kernels/mixed_gemm.py:214"),
+        ("flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+         "src/repro/kernels/flash_attention.py:113"),
+        ("fp8_gemm", "src/repro_torch/csrc/fp8_gemm.cu",
+         "src/repro/kernels/fp8_gemm.py:59"),
     ):
         t = timing[name]
         by_path = {"engine": launches.get(name, 0),
-                   "train": train_launches[name]}
+                   "train": train_launches[name],
+                   "kernel_api": api_launches[name]}
         check(sum(by_path.values()) > 0,
               f"{name}: no launch on any main path")
         entry = {
@@ -1054,14 +1377,18 @@ def main():
         if name == "mixed_gemm":
             entry["train_shapes"] = {g: timing[f"mixed_gemm_{g}"]
                                      for g in ("fwd", "dgrad", "wgrad")}
+        if name in api:
+            entry["case"] = t["case"]
+            entry["cases"] = t["cases"]
         kernels.append(entry)
-    emit({"parity_max_abs_err": {"mor_select_pack": sel_err},
+    emit({"parity_max_abs_err": {"mor_select_pack": sel_err, **api_parity},
           **quant_parity})
     emit({"timing_extra": timing["extra"], "card": smi})
     emit({"depth2": depth2, "card": smi})
     emit({"engine": engine, "card": smi})
     emit({"train_depth2": train_depth2, "card": smi})
     emit({"train": train, "card": smi})
+    emit({"wall_s": time.perf_counter() - t_start, "card": smi})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {

@@ -69,12 +69,21 @@ enum { ALGO_GAM = 0, ALGO_E8M0 = 1, ALGO_FP32_AMAX = 2 };
 // block's E8M0 exponent as the reference reports it: the Alg. 1 exponent
 // clamped to [-126, 127] for gam / e8m0, the raw exponent of the ideal
 // scale for fp32_amax.
+//
+// safe_b is positive, finite and at most f32max, so the ideal scale s_b
+// is never subnormal: it is a normal float or, for a block whose amax is
+// below q_amax / f32max (~1.3e-36 for E4M3), +Inf. The reference splits
+// s_b with frexp, which gives +Inf a mantissa of +Inf and an exponent of
+// -1 (frexp's 0, less one): the gam branch then keeps e_b = -1 (m_g <=
+// Inf), e8m0 scales by 2^-1 and fp32_amax by Inf. Reading Inf's bits
+// instead would give exponent 128 and mantissa 1.0.
 __device__ __forceinline__ float gam_scale(float q_amax, float m_g, float safe_b, int algo,
                                            int* e_out = nullptr) {
   const float s_b = q_amax / safe_b;
   const int bits = __float_as_int(s_b);
-  int e_b = ((bits >> 23) & 0xFF) - 127;
-  const float m_b = __int_as_float((bits & 0x7FFFFF) | (127 << 23));
+  const bool inf = isinf(s_b);
+  int e_b = inf ? -1 : ((bits >> 23) & 0xFF) - 127;
+  const float m_b = inf ? s_b : __int_as_float((bits & 0x7FFFFF) | (127 << 23));
   if (algo == ALGO_GAM) {
     if (!(m_g <= m_b)) e_b -= 1;  // avoid saturation when m_g > m_b
     e_b = e_b < -126 ? -126 : (e_b > 127 ? 127 : e_b);

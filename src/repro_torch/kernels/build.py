@@ -29,11 +29,17 @@ _COMMON = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
            "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 # Per-source flags. The quantization kernels' bytes, stored values and
 # error sums follow the reference op by op, so no multiply-add
-# contraction there.
+# contraction there. The GEMMs and attention are held to an f32
+# summation-order tolerance, not bit for bit: a fused multiply-add rounds
+# once where a product and a sum round twice, which is within it, so they
+# keep contraction. None uses fast-math (IEEE division, expf rather than
+# __expf, denormals kept).
 SOURCES: Dict[str, List[str]] = {
     "mor_select": ["-fmad=false"],
     "gam_quant": ["-fmad=false"],
     "mixed_gemm": [],
+    "flash_attention": [],
+    "fp8_gemm": [],
 }
 
 _LOADED: Dict[str, ctypes.CDLL] = {}

@@ -15,7 +15,9 @@ the reference sends them to its XLA lowering on the TPU too, since the
 kernels tile (bm, bk) blocks.
 
 The reference's ``GemmTile`` / ``decode_cache`` / ``bn_mult`` tiling
-knobs are TPU VMEM choices and have no counterpart here.
+knobs are TPU VMEM choices and have no counterpart here; nor have
+``flash_attention``'s ``block_q`` / ``block_k``, which are accepted and
+checked but not emulated.
 """
 from __future__ import annotations
 
@@ -33,14 +35,16 @@ from repro_torch.core.gam import split_mantissa_exponent
 from repro_torch.core.partition import Partition, _pad2d
 
 from . import ref as _ref
+from .flash_attention import flash_attention_fwd, flash_layout, flash_offsets
+from .fp8_gemm import check_fp8_gemm, fp8_gemm_blocks
 from .gam_quant import gam_quant_blocks
 from .mixed_gemm import mixed_gemm_blocks
 from .mor_select import mor_select_pack, mor_select_select
 from .ref import MixedOperand, MorSelect, QuantErr
 
 __all__ = ["resolve_backend", "quant_err", "mor_select", "gam_quant",
-           "quantize_pack", "mixed_gemm", "mixed_dot", "MixedOperand",
-           "MorSelect", "QuantErr"]
+           "quantize_pack", "mixed_gemm", "mixed_dot", "fp8_gemm",
+           "flash_attention", "MixedOperand", "MorSelect", "QuantErr"]
 
 
 def resolve_backend(backend: str, x: torch.Tensor) -> str:
@@ -233,3 +237,69 @@ def mixed_dot(x2: torch.Tensor, mo: MixedOperand, *,
         x2, (_ref.activation_row_block(x2.shape[0], bk), bk)
     )
     return mixed_gemm(a, mo, out_dtype=out_dtype, backend=backend)
+
+
+def fp8_gemm(a_q: torch.Tensor, b_q: torch.Tensor, a_scale: torch.Tensor,
+             b_scale: torch.Tensor, *, block=(128, 128, 128),
+             out_dtype=torch.bfloat16, backend: str = "auto"):
+    """Per-block-scaled fp8 GEMM: a_q (M, K) and b_q (K, N) fp8 payloads
+    (E4M3 or E5M2), a_scale (M/bm, K/bk) and b_scale (K/bk, N/bn) f32;
+    returns the dequantized product (M, N) in ``out_dtype``."""
+    block = tuple(block)
+    if resolve_backend(backend, a_q) == "torch":
+        check_fp8_gemm(a_q, b_q, a_scale, b_scale, block, out_dtype)
+        return _ref.fp8_gemm_ref(a_q, b_q, a_scale, b_scale, block,
+                                 out_dtype)
+    return fp8_gemm_blocks(a_q, b_q, a_scale, b_scale, block=block,
+                           out_dtype=out_dtype)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, q_offset=None, block_q: int = 512,
+                    block_k: int = 512, backend: str = "auto"):
+    """Flash attention forward in the reference's two layouts.
+
+    * 4-D GQA contract: q ``(B, S, Hq, dh)`` against k / v
+      ``(B, T, Hkv, dh)`` with ``Hq % Hkv == 0``; query head ``h`` reads
+      kv head ``h // (Hq // Hkv)``; returns ``(B, S, Hq, dh)``.
+      ``q_offset`` is a scalar, per batch row ``(B,)`` (repeated over the
+      heads) or per folded row ``(B*Hq,)``.
+    * 3-D folded ``(BH, S|T, d)`` passthrough; ``q_offset`` scalar or
+      ``(BH,)``.
+
+    ``q_offset`` is the key position of query row 0 (default ``T - S``:
+    the last query at the last key); ignored when not causal. The kernel
+    reads the GQA layout in place; the plain version folds q and repeats
+    the kv heads, as the reference does.
+    """
+    if q.ndim == 4:
+        B, S, Hq, dh = q.shape
+        if k.ndim != 4 or v.ndim != 4 or k.shape != v.shape:
+            raise ValueError(f"4-D q needs matching 4-D k/v, got "
+                             f"k{tuple(k.shape)} v{tuple(v.shape)}")
+        flash_layout(q, k, v, block_q, block_k)
+        off = q_offset
+        if off is not None:
+            off = torch.as_tensor(off, dtype=torch.int32).reshape(-1)
+            if off.shape[0] == B and B != B * Hq:
+                off = torch.repeat_interleave(off, Hq)
+        if resolve_backend(backend, q) == "cuda":
+            return flash_attention_fwd(q, k, v, causal=causal, q_offset=off,
+                                       block_q=block_q, block_k=block_k)
+        G = Hq // k.shape[2]
+
+        def fold(x):  # (B, L, H, dh) -> (B*H, L, dh)
+            return x.movedim(2, 1).reshape(B * x.shape[2], x.shape[1], dh)
+
+        kf = fold(k.repeat_interleave(G, dim=2) if G > 1 else k)
+        vf = fold(v.repeat_interleave(G, dim=2) if G > 1 else v)
+        out = flash_attention(fold(q), kf, vf, causal=causal, q_offset=off,
+                              block_q=block_q, block_k=block_k,
+                              backend="torch")
+        return out.reshape(B, Hq, S, dh).movedim(1, 2).contiguous()
+    if resolve_backend(backend, q) == "cuda":
+        return flash_attention_fwd(q, k, v, causal=causal, q_offset=q_offset,
+                                   block_q=block_q, block_k=block_k)
+    B, _, _, S, T, _, _, _ = flash_layout(q, k, v, block_q, block_k)
+    off = flash_offsets(q_offset, S, T, B, q.device)
+    return _ref.flash_attention_ref(q, k, v, causal, off)

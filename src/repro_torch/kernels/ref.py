@@ -6,9 +6,11 @@ They follow the JAX references op for op, so on the CPU they agree with
 ``repro.kernels.ref`` byte for byte on every decision and payload lane.
 
 ``quantize_pack_ref.calls``, ``mixed_gemm_ref.calls``,
-``mor_select_ref.calls``, ``quant_err_ref.calls`` and
-``gam_quant_ref.calls`` count the calls, so a run can show its main path
-never took a plain version.
+``mor_select_ref.calls``, ``quant_err_ref.calls``, ``gam_quant_ref.calls``,
+``fp8_gemm_ref.calls`` and ``flash_attention_ref.calls`` count the
+calls, so a run can show its main path never took a plain version. The
+last two agree with the reference to within f32 summation order (their
+matmuls sum in PyTorch's order, XLA's in its own).
 """
 from __future__ import annotations
 
@@ -39,7 +41,7 @@ __all__ = [
     "QuantErr", "MixedOperand", "nvfp4_block_capable", "pack_mixed",
     "passthrough_mixed", "activation_row_block", "decode_mixed_ref",
     "mixed_gemm_ref", "mor_select_ref", "quantize_pack_ref",
-    "quant_err_ref", "gam_quant_ref",
+    "quant_err_ref", "gam_quant_ref", "fp8_gemm_ref", "flash_attention_ref",
 ]
 
 # Per-block representation tags (the contract between selection,
@@ -531,3 +533,50 @@ def compact_lane_shapes(block: Tuple[int, int]):
     return (tuple(block), _nib_compact_shape(block),
             _ms_compact_shape(block))
 
+
+def fp8_gemm_ref(a_q: torch.Tensor, b_q: torch.Tensor, a_scale: torch.Tensor,
+                 b_scale: torch.Tensor, block=(128, 128, 128),
+                 out_dtype=torch.bfloat16) -> torch.Tensor:
+    """Plain version of the per-block-scaled fp8 GEMM: every payload
+    element dequantized in f32 by an IEEE division by its block's scale,
+    then one f32 matmul, cast to ``out_dtype``. a_q (M, K) and b_q (K, N)
+    fp8; a_scale (M/bm, K/bk), b_scale (K/bk, N/bn) f32."""
+    fp8_gemm_ref.calls += 1
+    bm, bn, bk = block
+    M, K = a_q.shape
+    N = b_q.shape[1]
+    a = a_q.to(torch.float32).reshape(M // bm, bm, K // bk, bk)
+    a = true_divide(a, a_scale[:, None, :, None])
+    b = b_q.to(torch.float32).reshape(K // bk, bk, N // bn, bn)
+    b = true_divide(b, b_scale[:, None, :, None])
+    return (a.reshape(M, K) @ b.reshape(K, N)).to(out_dtype)
+
+
+fp8_gemm_ref.calls = 0
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool, q_offset: torch.Tensor) -> torch.Tensor:
+    """Plain softmax attention of the flash kernel. q (BH, S, d), k / v
+    (BH, T, d); returns (BH, S, d) in q.dtype.
+
+    ``q_offset``: (BH,) int32 key position of each row's query 0, as
+    ``kernels.flash_attention.flash_offsets`` normalizes it; ignored when
+    not causal. Scores are an f32 einsum scaled by d^-0.5 afterwards;
+    masked scores are -1e30, so a row with no visible key (offset + row
+    < 0) gets the mean of v over all T keys."""
+    flash_attention_ref.calls += 1
+    BH, S, d = q.shape
+    T = k.shape[1]
+    s = torch.einsum("bqd,bkd->bqk", q.to(torch.float32),
+                     k.to(torch.float32)) * (d ** -0.5)
+    if causal:
+        q_pos = q_offset[:, None] + torch.arange(S, device=q.device)
+        mask = (torch.arange(T, device=q.device)[None, None, :]
+                <= q_pos[:, :, None])
+        s = torch.where(mask, s, torch.full((), -1e30, device=q.device))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bqk,bkd->bqd", p, v.to(torch.float32)).to(q.dtype)
+
+
+flash_attention_ref.calls = 0

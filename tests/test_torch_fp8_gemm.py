@@ -1,0 +1,181 @@
+"""The port's per-block-scaled fp8 GEMM (``kernels.ops.fp8_gemm``, the
+work of the ``fp8_gemm`` kernel) against the JAX package's: its plain
+reference (``ops.fp8_gemm(backend='xla')``, ``ref.fp8_gemm_ref``) and
+the Pallas kernel in interpret mode, on the reference suite's shapes
+(``tests/test_kernels.py``) and one non-square block, with E4M3 and E5M2
+payloads and f32 and bf16 output. The payloads cross between the
+frameworks as uint8 bytes.
+
+Tolerance: |port - jax| <= 1e-6 * sum_k |a_k b_k| (the dequantized
+operands, summed in f64) plus, for bf16 output, one bf16 ulp at |out|.
+The same f32 products are summed in PyTorch's and XLA's orders (the
+Pallas kernel also divides each block's partial by sa * sb instead of
+dequantizing the elements), which moves an f32 sum by a few ulps of the
+sum of magnitudes; a bf16 result may then round the other way. On the
+card the CUDA kernel is held against the plain version at 1e-5 (the
+``cuda``-marked test here, and ``chip_smoke.py`` at llama3-8b's
+shapes)."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core.formats import E4M3 as JE4M3
+from repro.core.formats import E5M2 as JE5M2
+from repro.core.gam import compute_scales
+from repro.core.partition import Partition
+from repro.kernels import ops as jops
+from repro.kernels.fp8_gemm import fp8_gemm as jfp8_gemm
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+
+FORMATS = {"e4m3": (JE4M3, jnp.float8_e4m3fn, torch.float8_e4m3fn),
+           "e5m2": (JE5M2, jnp.float8_e5m2, torch.float8_e5m2)}
+OUTS = {"f32": (jnp.float32, torch.float32),
+        "bf16": (jnp.bfloat16, torch.bfloat16)}
+# (M, N, K) and block (bm, bn, bk): the reference suite's shapes, then a
+# non-square block.
+SHAPES = [((128, 128, 128), (128, 128, 128)),
+          ((256, 128, 384), (128, 128, 128)),
+          ((128, 256, 256), (128, 128, 128)),
+          ((256, 512, 256), (128, 256, 128))]
+
+
+def operands(mnk, block, fmt, seed=1):
+    """Payloads and GAM block scales built as the reference suite builds
+    them (scale, clip, cast), in JAX and as torch tensors."""
+    M, N, K = mnk
+    bm, bn, bk = block
+    jfmt, jdt, tdt = FORMATS[fmt]
+    rng = np.random.default_rng(seed)
+    a = jnp.asarray(rng.standard_normal((M, K)), jnp.float32)
+    b = jnp.asarray(rng.standard_normal((K, N)), jnp.float32)
+    sa = compute_scales(a, Partition("block", (bm, bk)), jfmt).scale
+    sb = compute_scales(b, Partition("block", (bk, bn)), jfmt).scale
+
+    def quantize(x, s, r, c):
+        xb = x.reshape(x.shape[0] // r, r, x.shape[1] // c, c)
+        xs = xb * s[:, None, :, None]
+        return jnp.clip(xs, -jfmt.amax, jfmt.amax).astype(jdt).reshape(
+            x.shape)
+
+    aq, bq = quantize(a, sa, bm, bk), quantize(b, sb, bk, bn)
+
+    def to_torch(x):
+        return torch.from_numpy(np.asarray(x).view(np.uint8).copy()).view(tdt)
+
+    jax_args = (aq, bq, sa, sb)
+    torch_args = (to_torch(aq), to_torch(bq),
+                  torch.from_numpy(np.asarray(sa).copy()),
+                  torch.from_numpy(np.asarray(sb).copy()))
+    return jax_args, torch_args
+
+
+def magnitude_sums(aq, bq, sa, sb, block):
+    """sum_k |a_k b_k| of the dequantized operands, in f64."""
+    bm, bn, bk = block
+    a = np.asarray(aq, np.float64) / np.repeat(np.repeat(
+        np.asarray(sa, np.float64), bm, 0), bk, 1)
+    b = np.asarray(bq, np.float64) / np.repeat(np.repeat(
+        np.asarray(sb, np.float64), bk, 0), bn, 1)
+    return np.abs(a) @ np.abs(b)
+
+
+def assert_gemm_close(want, got, mags, out, what):
+    w = np.asarray(want, np.float32).astype(np.float64)
+    g = got.to(torch.float32).numpy().astype(np.float64)
+    assert w.shape == g.shape, what
+    tol = 1e-6 * mags
+    if out == "bf16":
+        tol = tol + np.exp2(np.floor(np.log2(np.maximum(np.abs(w),
+                                                        2.0**-126))) - 7)
+    bad = np.abs(w - g) > tol
+    assert not bad.any(), (f"{what}: {int(bad.sum())} beyond tolerance, "
+                           f"max |diff| {np.abs(w - g).max()}")
+
+
+CASES = [(s, f, o) for s in range(len(SHAPES)) for f in FORMATS for o in OUTS]
+
+
+@pytest.mark.parametrize("shape,fmt,out", CASES, ids=str)
+def test_matches_reference(shape, fmt, out):
+    mnk, block = SHAPES[shape]
+    jargs, targs = operands(mnk, block, fmt)
+    want = jops.fp8_gemm(*jargs, block=block, out_dtype=OUTS[out][0],
+                         backend="xla")
+    got = tops.fp8_gemm(*targs, block=block, out_dtype=OUTS[out][1])
+    assert got.dtype == OUTS[out][1]
+    assert_gemm_close(want, got, magnitude_sums(*jargs, block), out,
+                      f"{mnk} {block} {fmt} {out}")
+
+
+@pytest.mark.parametrize("shape,fmt,out", CASES, ids=str)
+def test_matches_pallas_kernel_interpreted(shape, fmt, out):
+    mnk, block = SHAPES[shape]
+    jargs, targs = operands(mnk, block, fmt, seed=2)
+    want = jfp8_gemm(*jargs, block=block, out_dtype=OUTS[out][0],
+                     interpret=True)
+    got = tops.fp8_gemm(*targs, block=block, out_dtype=OUTS[out][1])
+    assert_gemm_close(want, got, magnitude_sums(*jargs, block), out,
+                      f"{mnk} {block} {fmt} {out}")
+
+
+def test_dequantized_product_approximates_the_f32_gemm():
+    """As the reference suite checks: fp8 payloads with GAM scales give a
+    product near the unquantized one."""
+    M, N, K = 128, 256, 256
+    _, targs = operands((M, N, K), (128, 128, 128), "e4m3", seed=1)
+    rng = np.random.default_rng(1)
+    a, b = rng.standard_normal((M, K)), rng.standard_normal((K, N))
+    exact = a @ b
+    got = tops.fp8_gemm(*targs, out_dtype=torch.float32).numpy()
+    assert np.median(np.abs(got - exact) / (np.abs(exact) + 1e-2)) < 0.1
+
+
+def test_rejects_what_the_reference_cannot_take():
+    _, (aq, bq, sa, sb) = operands((128, 128, 128), (128, 128, 128), "e4m3")
+    with pytest.raises(ValueError, match="divisible"):
+        tops.fp8_gemm(aq, bq, sa, sb, block=(128, 128, 96))
+    with pytest.raises(ValueError, match="contraction"):
+        tops.fp8_gemm(aq, bq[:64], sa, sb)
+    with pytest.raises(ValueError, match="b_scale"):
+        tops.fp8_gemm(aq, bq, sa, sb[:, :0])
+    with pytest.raises(TypeError, match="float8"):
+        tops.fp8_gemm(aq.float(), bq, sa, sb)
+    with pytest.raises(TypeError, match="out_dtype"):
+        tops.fp8_gemm(aq, bq, sa, sb, out_dtype=torch.float16)
+
+
+def test_cpu_tensors_take_the_plain_version():
+    _, targs = operands((128, 128, 128), (128, 128, 128), "e5m2")
+    calls = tref.fp8_gemm_ref.calls
+    tops.fp8_gemm(*targs)
+    assert tref.fp8_gemm_ref.calls == calls + 1
+    with pytest.raises(ValueError, match="CUDA"):
+        tops.fp8_gemm(*targs, backend="cuda")
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU or "
+                    "interpret mode (chip_smoke.py runs them on the card)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", range(len(SHAPES)))
+@pytest.mark.parametrize("fmt", tuple(FORMATS))
+def test_kernel_matches_plain_version_on_card(shape, fmt, cuda_device):
+    """The CUDA kernel against its plain version on the same CUDA
+    tensors: within 1e-5 sum|a b| (+ one bf16 ulp for bf16 out)."""
+    mnk, block = SHAPES[shape]
+    jargs, targs = operands(mnk, block, fmt)
+    targs = [t.to(cuda_device) for t in targs]
+    mags = magnitude_sums(*jargs, block)
+    for out in OUTS:
+        k = tops.fp8_gemm(*targs, block=block, out_dtype=OUTS[out][1],
+                          backend="cuda")
+        t = tops.fp8_gemm(*targs, block=block, out_dtype=OUTS[out][1],
+                          backend="torch")
+        assert_gemm_close(t.cpu(), k.cpu(), 10 * mags, out, f"{mnk} {out}")

@@ -116,6 +116,41 @@ def test_gam_quant_matches_reference(fmt, algo, shape):
     np.testing.assert_array_equal(np.asarray(cnt_j), cnt_t.numpy())
 
 
+def tiny_block_operand(seed=0, denormals=False):
+    """Normal values, and a first 128x128 block of sign * U(1, 2) * 1e-37:
+    its ideal scale q_amax / amax overflows f32 to +Inf (the amax is below
+    q_amax / f32max for every format). ``denormals`` adds bf16 denormals
+    to that block (the card keeps them; XLA on the CPU flushes them)."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((256, 256))
+    sign = np.where(rng.standard_normal((128, 128)) > 0, 1.0, -1.0)
+    x[:128, :128] = sign * rng.uniform(1, 2, (128, 128)) * 1e-37
+    if denormals:
+        x[3, :8] = [1e-39, -2e-39, 5e-40, -9e-41, 3e-38, 0.0, 1e-40, -1e-39]
+    xj = jnp.asarray(x, jnp.bfloat16)
+    return xj, to_torch(xj)
+
+
+@pytest.mark.parametrize("fmt", tuple(FORMATS))
+@pytest.mark.parametrize("algo", ALGOS)
+def test_tiny_block_matches_reference(fmt, algo):
+    """A block whose ideal scale overflows: the reference splits the Inf
+    scale with frexp (exponent -1), so gam scales it by m_g / 2, e8m0 by
+    1/2 and fp32_amax by Inf. xq, block_exp and counts bit for bit."""
+    jfmt, tfmt = FORMATS[fmt]
+    xj, xt = tiny_block_operand()
+    xq_j, exp_j, err_j, cnt_j = jit_ref(lambda x: jref.gam_quant_ref(
+        x, JPartition("block", (128, 128)), jfmt, algo))(xj)
+    xq_t, exp_t, err_t, cnt_t = tops.gam_quant(xt, fmt=tfmt, algo=algo)
+    what = f"tiny {fmt}/{algo}"
+    assert_values_equal(xq_j, xq_t, what + " xq")
+    np.testing.assert_array_equal(np.asarray(exp_j), exp_t.numpy(),
+                                  err_msg=what + " block_exp")
+    assert int(exp_t[0, 0]) == -1
+    assert_sums_close(err_j, err_t, what + " err_sums")
+    np.testing.assert_array_equal(np.asarray(cnt_j), cnt_t.numpy())
+
+
 def test_tensor_and_channel_partitions_take_the_plain_version():
     """The reference's routing: 'tensor' / 'channel' / 'subchannel'
     events never reach the kernel, on any device; a 'block' event on
@@ -157,3 +192,20 @@ def test_kernel_matches_plain_version_on_card(fmt, algo, cuda_device):
     assert torch.equal(k[1], t[1]) and torch.equal(k[3], t[3])
     torch.testing.assert_close(k[2], t[2], rtol=1e-6, atol=0,
                                equal_nan=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fmt", tuple(FORMATS))
+@pytest.mark.parametrize("algo", ALGOS)
+def test_kernel_matches_plain_version_on_tiny_block(fmt, algo, cuda_device):
+    """The kernel's Alg. 1 bit arithmetic on an overflowing ideal scale
+    (and on bf16 denormals) against the plain version's frexp: xq,
+    block_exp and counts bit for bit."""
+    _, xt = tiny_block_operand(denormals=True)
+    xt = xt.to(cuda_device)
+    tfmt = FORMATS[fmt][1]
+    k = tops.gam_quant(xt, fmt=tfmt, algo=algo, backend="cuda")
+    t = tops.gam_quant(xt, fmt=tfmt, algo=algo, backend="torch")
+    assert torch.equal(k[0].view(torch.int16), t[0].view(torch.int16))
+    assert torch.equal(k[1], t[1]) and torch.equal(k[3], t[3])
+    assert int(k[1][0, 0]) == -1

@@ -114,6 +114,54 @@ def test_mor_select_matches_reference(mode, algo, shape, poison):
     assert_select_equal(r_j, r_t, f"{mode}/{algo}/{shape}")
 
 
+def tiny_block_operand(seed=0, denormals=False):
+    """Normal values, and a first 128x128 block of sign * U(1, 2) * 1e-37:
+    the ideal scale q_amax / amax of every candidate format overflows f32
+    to +Inf. ``denormals`` adds bf16 denormals to that block (the card
+    keeps them; XLA on the CPU flushes them)."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((256, 256))
+    sign = np.where(rng.standard_normal((128, 128)) > 0, 1.0, -1.0)
+    x[:128, :128] = sign * rng.uniform(1, 2, (128, 128)) * 1e-37
+    if denormals:
+        x[3, :8] = [1e-39, -2e-39, 5e-40, -9e-41, 3e-38, 0.0, 1e-40, -1e-39]
+    xj = jnp.asarray(x, jnp.bfloat16)
+    return xj, to_torch(xj)
+
+
+PACK_LANES = ("payload_q", "payload_bf16", "payload_nib", "micro_scales",
+              "tags", "scales")
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("algo", ALGOS)
+def test_tiny_block_matches_reference(mode, algo):
+    """A block whose ideal scales overflow: the reference splits each Inf
+    scale with frexp (exponent -1). The selection (y, tags, sums) and the
+    packed payload (every lane, the block scales) bit for bit."""
+    xj, xt = tiny_block_operand()
+    align = (2, 16) if mode == "sub4" else (1, 1)
+    jpart = JPartition("block", (128, 128), align=align)
+    tpart = TPartition("block", (128, 128), align=align)
+    what = f"tiny {mode}/{algo}"
+    r_j = jit_ref(lambda x: jops.mor_select(x, jpart, mode, algo,
+                                            backend="xla"))(xj)
+    assert_select_equal(r_j, tops.mor_select(xt, tpart, mode, algo), what)
+    mo_j, _ = jit_ref(lambda x: jops.quantize_pack(x, jpart, mode, algo,
+                                                   backend="xla"))(xj)
+    mo_t, _ = tops.quantize_pack(xt, tpart, mode, algo)
+    for lane in PACK_LANES:
+        a, b = getattr(mo_j, lane), getattr(mo_t, lane)
+        if b.dtype == torch.bfloat16:
+            a, b = bf16_bits(a), bf16_bits(b)
+        else:
+            a, b = np.asarray(a), b.numpy()
+        np.testing.assert_array_equal(a.view(np.uint8), b.view(np.uint8),
+                                      err_msg=f"{what} {lane}")
+    if algo == "e8m0" and int(mo_t.tags[0, 0]) != tref.TAG_BF16:
+        assert float(mo_t.scales[0, 0]) == 0.5
+
+
 def test_every_tag_occurs():
     """The operand exercises every arm of the selection, so the bit
     comparison above covers every candidate's stored value."""
@@ -162,3 +210,25 @@ def test_kernel_matches_plain_version_on_card(mode, cuda_device):
     t = tops.mor_select(xt, part, mode, backend="torch")
     assert torch.equal(k.y.view(torch.int16), t.y.view(torch.int16))
     assert torch.equal(k.sel, t.sel)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("algo", ALGOS)
+def test_kernels_match_plain_versions_on_tiny_block(mode, algo, cuda_device):
+    """Both kernels' Alg. 1 bit arithmetic on overflowing ideal scales
+    (and on bf16 denormals) against the plain versions' frexp: y, sel and
+    every packed lane bit for bit."""
+    _, xt = tiny_block_operand(denormals=True)
+    xt = xt.to(cuda_device)
+    align = (2, 16) if mode == "sub4" else (1, 1)
+    part = TPartition("block", (128, 128), align=align)
+    k = tops.mor_select(xt, part, mode, algo, backend="cuda")
+    t = tops.mor_select(xt, part, mode, algo, backend="torch")
+    assert torch.equal(k.y.view(torch.int16), t.y.view(torch.int16))
+    assert torch.equal(k.sel, t.sel)
+    mo_k, _ = tops.quantize_pack(xt, part, mode, algo, backend="cuda")
+    mo_t, _ = tops.quantize_pack(xt, part, mode, algo, backend="torch")
+    for lane in PACK_LANES:
+        a, b = getattr(mo_k, lane), getattr(mo_t, lane)
+        assert torch.equal(a.view(torch.uint8), b.view(torch.uint8)), lane
