@@ -9,12 +9,14 @@
    tensors (``backend='torch'``): ``mor_select_pack`` byte for byte on
    inputs that hit every tag (a real layer shape among them, and a block
    whose ideal GAM scale overflows to Inf), ``mixed_gemm`` within an
-   f32-summation-order tolerance.
+   f32-summation-order tolerance on both of its paths (M <= 64 streams,
+   larger M takes the tensor cores; ragged tile edges, a padded K, tiny
+   rows with bf16 denormals), each call checked to take its path.
 3. Times both kernels, their plain versions and a library yardstick at
    the shapes the engine gives them.
 4. Serves 8 requests through the llama3-8b engine at full width with
    sub3-quantized random weights, and checks that every GEMM of the run
-   went through ``mixed_gemm`` and every weight through
+   went through ``mixed_gemm``'s stream path and every weight through
    ``mor_select_pack`` (launch counters), never the plain versions.
 5. Runs a prefill chunk (M = 32) and a decode step (M = 4) at depth 2
    three ways -- kernel path, plain path, GEMMs summed in f64 -- and
@@ -25,12 +27,13 @@
 6. Training: holds ``gam_quant`` and ``mor_select(emit='select')``
    against their plain versions bit for bit (value lanes, exponents and
    tags; the overflowing-scale block too); times them on the wi view
-   and ``mixed_gemm`` at the training shapes (fwd, dgrad, wgrad of wi
-   at 2048 tokens); trains 4-layer,
+   and ``mixed_gemm``'s tensor-core path at the training shapes (fwd,
+   dgrad, wgrad of wi at 2048 tokens); trains 4-layer,
    full-width llama3-8b for 3 AdamW steps under each of the tensor,
    sub3 and fused-sub3 policies (2 x 1024 tokens a step), checking
    through the launch counters that every quantization event and every
-   fused GEMM went through the kernels and none through a plain
+   fused GEMM went through the kernels (the GEMMs through the
+   tensor-core path) and none through a plain
    version; profiles one tensor step and one fused step; and runs one
    depth-2 step kernel path against plain path (``backend='torch'`` on
    the same CUDA tensors), holding every fused GEMM against the plain
@@ -202,9 +205,31 @@ def phase_mor_select(ops, Partition):
     return max_err
 
 
+def tiny_rows(shape, seed=0):
+    """(M, K) bf16 CUDA activation, tiny in every k block: the first half
+    of the rows sign * U(1, 2) * 1e-37 with every eighth element a bf16
+    denormal, the second half all bf16 denormals (sign * U(1, 2) *
+    5e-39). Against a B of magnitude ~1 a product of a denormal keeps
+    every bit in f32, and a path that flushed denormals would lose the
+    whole result of a denormal row, far beyond ``gemm_tol``."""
+    rng = np.random.default_rng(seed)
+    m, k = shape
+    sign = np.where(rng.standard_normal((m, k)) > 0, 1.0, -1.0)
+    x = sign * rng.uniform(1, 2, (m, k)) * 1e-37
+    x[:, ::8] *= 5e-2
+    x[m // 2:] = sign[m // 2:] * rng.uniform(1, 2, (m - m // 2, k)) * 5e-39
+    return torch.from_numpy(x.astype(np.float32)).to(torch.bfloat16).cuda()
+
+
 def phase_mixed_gemm(ops, ref, Partition):
-    """Kernel vs plain version of the mixed GEMM on packs that mix every
-    tag and compact lanes, f32 and bf16 output, within ``gemm_tol``."""
+    """Kernel vs plain version of the mixed GEMM on both paths (M <= 64
+    streams, larger M takes the tensor cores), on packs that mix every
+    tag and compact lanes, ragged tile edges and a padded K, and tiny
+    rows with bf16 denormals; f32 and bf16 output, within ``gemm_tol``.
+    Each call must take the path its M names. Returns the largest
+    err / tol of each path."""
+    from repro_torch.kernels.mixed_gemm import gemm_path, mixed_gemm_blocks
+
     def pack(x, mode, block=(128, 128)):
         align = (2, 16) if mode == "sub4" else (1, 1)
         mo, _ = ops.quantize_pack(x, Partition("block", block, align=align),
@@ -224,7 +249,7 @@ def phase_mixed_gemm(ops, ref, Partition):
         "the no-BF16 sub4 pack should mix three tags, bf16 lane compact")
     a_mixed = pack(mixed_tags((256, K), 5).cuda(), "sub4")
     cases = []
-    for M in (4, 32, 129):
+    for M in (4, 32, 65, 128, 129, 200):
         x = torch.randn(M, K, device="cuda").to(torch.bfloat16)
         for label, b in (("4 tags", b_mixed), ("no BF16", b_nobf),
                          ("all E4M3", b_fp8)):
@@ -233,17 +258,48 @@ def phase_mixed_gemm(ops, ref, Partition):
             cases.append((f"passthrough M={M} x {label} N={b.shape[0]}",
                           a, b))
     cases.append(("mixed A (sub4) x mixed B (sub4)", a_mixed, b_mixed))
+    cases.append(("mixed A (sub3) M=300 x mixed B (sub3) N=1000 K=4000",
+                  pack(mixed_tags((300, 4000), 7).cuda(), "sub3"),
+                  pack(mixed_tags((1000, 4000), 8).cuda(), "sub3")))
+    b_unit = pack(torch.randn(384, K, device="cuda").to(torch.bfloat16),
+                  "sub3")
+    cases.append(("tiny passthrough A M=200 (bf16 denormals) x all E4M3 "
+                  "N=384", ref.passthrough_mixed(tiny_rows((200, K)),
+                                                 (128, 128)), b_unit))
+    worst = {"stream": 0.0, "tc": 0.0}
     for name, a, b in cases:
         A = ref.decode_mixed_ref(a)[:a.shape[0]]
         B = ref.decode_mixed_ref(b)[:b.shape[0]]
+        path = gemm_path(a.shape[0])
+        row = {"parity": "mixed_gemm", "case": name, "path": path}
         for out_dtype in (torch.float32, torch.bfloat16):
+            n0 = mixed_gemm_blocks.launches_by_path[path]
             ck = ops.mixed_gemm(a, b, out_dtype=out_dtype, backend="cuda")
+            check(mixed_gemm_blocks.launches_by_path[path] == n0 + 1,
+                  f"mixed_gemm {name}: did not take the {path} path")
             ct = ops.mixed_gemm(a, b, out_dtype=out_dtype, backend="torch")
             err = (ck.float() - ct.float()).abs()
-            check(bool(torch.all(err <= gemm_tol(A, B, ct, out_dtype))),
+            tol = gemm_tol(A, B, ct, out_dtype)
+            check(bool(torch.all(err <= tol)),
                   f"mixed_gemm {name} {out_dtype}: max err "
                   f"{float(err.max())} beyond tolerance")
-        emit({"parity": "mixed_gemm", "case": name, "ok": True})
+            dt = str(out_dtype).split(".")[-1]
+            row[f"max_err_over_tol_{dt}"] = float(torch.where(
+                err > 0, err / tol, torch.zeros_like(err)).max())
+            if out_dtype == torch.float32:
+                # Three ways: kernel and plain version against the sum in
+                # f64, each as a share of sum |a||b|.
+                e = A.double() @ B.double().T
+                sab = (A.double().abs() @ B.double().abs().T).clamp_min(
+                    1e-300)
+                for who, y in (("kernel", ck), ("plain", ct)):
+                    row[f"{who}_vs_f64_over_sum_ab"] = float(
+                        ((y.double() - e).abs() / sab).max())
+                del e, sab
+        worst[path] = max(worst[path], row["max_err_over_tol_float32"],
+                          row["max_err_over_tol_bfloat16"])
+        emit({**row, "ok": True})
+    return worst
 
 
 def bound(nbytes, flops, peak=BF16_FLOPS):
@@ -386,6 +442,9 @@ def phase_engine(cfg, n_layers):
     check(launches["mixed_gemm"] == (4 * L + 1) * calls,
           f"mixed_gemm launches {launches['mixed_gemm']} != (4L+1) x "
           f"{calls} model calls")
+    paths = gemm_paths()
+    check(paths["stream"] == launches["mixed_gemm"],
+          f"engine GEMMs off the stream path: {paths}")
     check(launches["mor_select_pack"] == 4 * L + 1,
           f"mor_select_pack launches {launches['mor_select_pack']} != "
           f"{4 * L + 1} quantized matrices")
@@ -408,14 +467,15 @@ def phase_engine(cfg, n_layers):
         "prefill_chunk_ms": float(np.median(step_ms["prefill"])),
         "wall_s": wall, "tokens": tokens, "tokens_per_s": tokens / wall,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "launches": launches, "plain_calls": plain, "profile": profile,
+        "launches": launches, "mixed_gemm_paths": paths,
+        "plain_calls": plain, "profile": profile,
     }
     # The timing wrappers above close over eng's bound methods: a cycle
     # that only the collector frees, and it holds the quantized weights.
     del eng
     gc.collect()
     torch.cuda.empty_cache()
-    return engine, launches
+    return engine, launches, paths
 
 
 def profile_decode(eng, calls=3):
@@ -453,6 +513,8 @@ def profile_decode(eng, calls=3):
     return {
         "calls": calls, "wall_ms_per_call": wall_ms / calls,
         "device_ms_per_call": busy_ms / calls,
+        "mixed_gemm_ms_per_call": sum(
+            us for us, k, _ in rows if "mixed_gemm" in k) / 1e3 / calls,
         "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
         "top": [{"name": k[:60], "ms_per_call": us / 1e3 / calls,
                  "count_per_call": c / calls} for us, k, c in rows[:8]],
@@ -715,22 +777,29 @@ def phase_train_timing(ops, ref, Partition, cfg):
     for name, (a, bb) in gemms.items():
         A = ref.decode_mixed_ref(a)[:a.shape[0]]
         B = ref.decode_mixed_ref(bb)[:bb.shape[0]]
+        n_tc = mixed_gemm_blocks.launches_by_path["tc"]
         ck = mixed_gemm_blocks(a, bb)
+        check(mixed_gemm_blocks.launches_by_path["tc"] == n_tc + 1,
+              f"mixed_gemm train {name}: did not take the tc path")
         ct = ref.mixed_gemm_ref(a, bb)
         err = (ck.float() - ct.float()).abs()
-        check(bool(torch.all(err <= gemm_tol(A, B, ct, torch.bfloat16))),
+        tol = gemm_tol(A, B, ct, torch.bfloat16)
+        check(bool(torch.all(err <= tol)),
               f"mixed_gemm train {name}: max err {float(err.max())} beyond "
               "1e-5 sum|a||b| + 1 bf16 ulp")
+        ratio = float(torch.where(err > 0, err / tol,
+                                  torch.zeros_like(err)).max())
         Mm, Nn, Kk = a.shape[0], bb.shape[0], a.shape[1]
         b = bound(weight_bytes(a) + weight_bytes(bb) + 2 * Mm * Nn,
                   2.0 * Mm * Nn * Kk)
         out[f"mixed_gemm_{name}"] = dict(
-            ms=time_ms(lambda: mixed_gemm_blocks(a, bb), iters=3),
+            path="tc", ms=time_ms(lambda: mixed_gemm_blocks(a, bb), iters=20),
             plain_ms=time_ms(lambda: ref.mixed_gemm_ref(a, bb), iters=1),
             bound_ms=b[0], bound_by=b[1],
-            library_ms=time_ms(lambda: torch.matmul(A, B.T), iters=10),
-            max_abs_err=float(err.max()), shape=[Mm, Nn, Kk])
-        del A, B, ck, ct, err
+            library_ms=time_ms(lambda: torch.matmul(A, B.T), iters=20),
+            max_abs_err=float(err.max()), max_err_over_tol=ratio,
+            shape=[Mm, Nn, Kk])
+        del A, B, ck, ct, err, tol
     return out
 
 
@@ -780,6 +849,7 @@ def reset_counters():
     kernels, plain = kernel_counters()
     for fn in kernels.values():
         fn.launches = 0
+    kernels["mixed_gemm"].launches_by_path = {"stream": 0, "tc": 0}
     for fn in plain.values():
         fn.calls = 0
 
@@ -788,6 +858,12 @@ def read_counters():
     kernels, plain = kernel_counters()
     return ({k: fn.launches for k, fn in kernels.items()},
             {k: fn.calls for k, fn in plain.items()})
+
+
+def gemm_paths():
+    """mixed_gemm's launches by path since the last reset_counters()."""
+    from repro_torch.kernels.mixed_gemm import mixed_gemm_blocks
+    return dict(mixed_gemm_blocks.launches_by_path)
 
 
 def train_batch(cfg, step):
@@ -820,7 +896,7 @@ def phase_train(cfg):
         "sub3_fused": {"mor_select_pack": events,
                        "mixed_gemm": 4 * L * 4 * TRAIN_STEPS},
     }
-    res, launches, profiles = {}, {}, {}
+    res, launches, profiles, train_paths = {}, {}, {}, {}
     for name, pol in train_policies().items():
         params = init_params(cfg, seed=0, device="cuda")
         opt = init_opt_state(params)
@@ -849,13 +925,17 @@ def phase_train(cfg):
                   f"{row['grad_norm']}")
             rows.append(row)
         k_counts, p_counts = read_counters()
+        paths = gemm_paths()
         for kern, n in expect[name].items():
             check(k_counts[kern] == n, f"train {name}: {kern} launched "
                   f"{k_counts[kern]} times, want {n} (every event)")
+        check(paths["tc"] == k_counts["mixed_gemm"],
+              f"train {name}: fused GEMMs off the tc path: {paths}")
         check(not any(p_counts.values()),
               f"train {name}: plain versions ran on the main path: "
               f"{p_counts}")
         launches[name] = k_counts
+        train_paths[name] = paths
         if name in ("tensor", "sub3_fused"):
             profiles[name] = profile_train_step(
                 step_fn, params, opt, batches[0],
@@ -863,7 +943,8 @@ def phase_train(cfg):
         res[name] = {"steps": rows,
                      "step_ms_median": float(np.median(
                          [r["step_ms"] for r in rows])),
-                     "launches": k_counts, "plain_calls": p_counts}
+                     "launches": k_counts, "mixed_gemm_paths": paths,
+                     "plain_calls": p_counts}
         del params, opt, step_fn, batches
         gc.collect()
         torch.cuda.empty_cache()
@@ -876,7 +957,9 @@ def phase_train(cfg):
     res["profile"] = profiles
     total = {k: sum(launches[p][k] for p in launches)
              for k in next(iter(launches.values()))}
-    return res, total
+    total_paths = {k: sum(p[k] for p in train_paths.values())
+                   for k in ("stream", "tc")}
+    return res, total, total_paths
 
 
 def profile_train_step(step_fn, params, opt, batch, must, steps=1):
@@ -906,6 +989,8 @@ def profile_train_step(step_fn, params, opt, batch, must, steps=1):
     return {
         "steps": steps, "wall_ms_per_step": wall_ms / steps,
         "device_ms_per_step": busy_ms / steps,
+        f"{must}_ms_per_step": sum(
+            us for us, k, _ in rows if must in k) / 1e3 / steps,
         "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
         "top": [{"name": k[:60], "ms_per_step": us / 1e3 / steps,
                  "count_per_step": c / steps} for us, k, c in rows[:10]],
@@ -1328,7 +1413,7 @@ def main():
           "card": smi})
 
     sel_err = phase_mor_select(ops, Partition)
-    phase_mixed_gemm(ops, ref, Partition)
+    gemm_parity = phase_mixed_gemm(ops, ref, Partition)
     quant_parity = phase_quant_select(ops, Partition)
     cfg = get_config("llama3-8b")
     api_parity = phase_kernel_api_parity(ops, Partition, cfg)
@@ -1339,9 +1424,9 @@ def main():
     timing = phase_timing(ops, ref, Partition, cfg)
     timing.update(phase_train_timing(ops, ref, Partition, cfg))
     timing.update(api)
-    engine, launches = phase_engine(cfg, N_LAYERS)
+    engine, launches, engine_paths = phase_engine(cfg, N_LAYERS)
     depth2 = phase_depth2(cfg, ops, ref)
-    train, train_launches = phase_train(cfg)
+    train, train_launches, train_paths = phase_train(cfg)
     train_depth2 = phase_train_depth2(cfg, ops, ref)
 
     kernels = []
@@ -1375,6 +1460,11 @@ def main():
             "shape": t["shape"], "card": smi,
         }
         if name == "mixed_gemm":
+            # ms / bound_ms above: the stream path at the decode shape;
+            # train_shapes: the tc path.
+            entry["launches_by_gemm_path"] = {
+                k: engine_paths[k] + train_paths[k] for k in ("stream", "tc")}
+            entry["parity_max_err_over_tol"] = gemm_parity
             entry["train_shapes"] = {g: timing[f"mixed_gemm_{g}"]
                                      for g in ("fwd", "dgrad", "wgrad")}
         if name in api:

@@ -41,6 +41,7 @@ import torch
 
 from repro_torch.kernels import ops as kops
 
+from .device import resolve_device
 from .mor import STATS_WIDTH, mor_quantize, quantize_for_gemm
 from .policy import MoRDotPolicy
 
@@ -50,10 +51,12 @@ N_FWD_EVENTS = 2  # x, w
 N_BWD_EVENTS = 4  # dy(dgrad), w(dgrad), x^T(wgrad), dy^T(wgrad)
 
 
-def new_token(device="cpu", requires_grad: bool = True) -> torch.Tensor:
-    """Zero token whose gradient carries the N_BWD_EVENTS stats rows."""
+def new_token(device="cuda", requires_grad: bool = True) -> torch.Tensor:
+    """Zero token whose gradient carries the N_BWD_EVENTS stats rows, on
+    ``device`` (CUDA unless the caller asks for the CPU)."""
     return torch.zeros((N_BWD_EVENTS, STATS_WIDTH), dtype=torch.float32,
-                       device=device, requires_grad=requires_grad)
+                       device=resolve_device(device),
+                       requires_grad=requires_grad)
 
 
 def _flat2d(x: torch.Tensor):

@@ -2,6 +2,14 @@
 (``csrc/mixed_gemm.cu``), the Hopper port of
 ``repro/kernels/mixed_gemm.py:mixed_gemm_blocks``.
 
+The kernel has two paths, chosen by :func:`gemm_path` from M alone:
+``'stream'`` (M <= 64: decode steps, prefill chunks, the f32 head; CUDA
+cores, split K) and ``'tc'`` (larger M: the training GEMMs; bf16 tensor
+cores on operands decoded once to bf16). Both compute the same
+function and take the same arguments; there is no fallback from one to
+the other. ``mixed_gemm_blocks.launches`` counts every launch and
+``mixed_gemm_blocks.launches_by_path`` each path's.
+
 The plain PyTorch version of the same function is
 ``kernels.ref.mixed_gemm_ref``; ``kernels.ops.mixed_gemm`` routes a CPU
 tensor there and a CUDA tensor here.
@@ -17,7 +25,7 @@ from repro_torch.core.formats import NVFP4_MICRO
 from . import build
 from .ref import MixedOperand, compact_lane_shapes, nvfp4_block_capable
 
-__all__ = ["mixed_gemm_blocks"]
+__all__ = ["mixed_gemm_blocks", "gemm_path", "STREAM_MAX_M"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -25,14 +33,37 @@ _I = ctypes.c_int
 # output tiles cannot fill the card twice over, which on a 132-SM card
 # needs at most ~2.2 M floats; fewer splits fit a smaller workspace.
 WORKSPACE_FLOATS = 1 << 22
+# Largest M the streaming path takes: decode (M = slots), prefill chunks
+# and the head have a handful of rows and are bound by the weight's
+# bytes; above it the tensor-core path's 128-row tiles are filled.
+STREAM_MAX_M = 64
+_ENTRY = {"stream": "mixed_gemm_launch", "tc": "mixed_gemm_tc_launch"}
+
+
+def gemm_path(m: int) -> str:
+    """The kernel path of a product with ``m`` rows: ``'stream'`` for
+    m <= STREAM_MAX_M, ``'tc'`` above."""
+    return "stream" if m <= STREAM_MAX_M else "tc"
+
+
+def _workspace_floats(path: str, m: int, n: int, kp: int) -> int:
+    """f32 words of scratch a launch takes: the streaming path's split-K
+    partials, or the tensor-core path's two decoded bf16 operands (rows
+    rounded up to its 128-row tile, Kp to its 64-deep chunk)."""
+    if path == "stream":
+        return WORKSPACE_FLOATS
+    kd = -(-kp // 64) * 64
+    return (-(-m // 128) + -(-n // 128)) * 128 * kd // 2
 
 
 def _lib():
     lib = build.load("mixed_gemm")
-    lib.mixed_gemm_launch.argtypes = (
-        [_P] * 6 + [_I] * 5 + [_P] * 6 + [_I] * 5 + [_P, _P, ctypes.c_longlong]
-        + [_I] * 3 + [_P])
-    lib.mixed_gemm_launch.restype = _I
+    for entry in _ENTRY.values():
+        fn = getattr(lib, entry)
+        fn.argtypes = (
+            [_P] * 6 + [_I] * 5 + [_P] * 6 + [_I] * 5
+            + [_P, _P, ctypes.c_longlong] + [_I] * 3 + [_P])
+        fn.restype = _I
     return lib
 
 
@@ -94,19 +125,25 @@ def mixed_gemm_blocks(a: MixedOperand, b: MixedOperand, *,
     args_b = _operand_args(b, "b", dev)
     M, N = a.shape[0], b.shape[0]
     Kp, bk = a.padded_shape[1], a.block[1]
-    lib = _lib()
+    path = gemm_path(M)
+    launch = getattr(_lib(), _ENTRY[path])
     out = torch.empty((M, N), dtype=out_dtype, device=dev)
-    workspace = torch.empty(WORKSPACE_FLOATS, dtype=torch.float32, device=dev)
+    workspace = torch.empty(_workspace_floats(path, M, N, Kp),
+                            dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.mixed_gemm_launch(
+        err = launch(
             *args_a, *args_b, out.data_ptr(), workspace.data_ptr(),
-            WORKSPACE_FLOATS, int(out_dtype == torch.float32), Kp, bk, stream,
+            workspace.numel(),
+            int(out_dtype == torch.float32), Kp, bk, stream,
         )
     if err != 0:
-        raise RuntimeError(f"mixed_gemm launch failed: CUDA error {err}")
+        raise RuntimeError(
+            f"mixed_gemm ({path} path) launch failed: CUDA error {err}")
     mixed_gemm_blocks.launches += 1
+    mixed_gemm_blocks.launches_by_path[path] += 1
     return out
 
 
 mixed_gemm_blocks.launches = 0
+mixed_gemm_blocks.launches_by_path = {"stream": 0, "tc": 0}

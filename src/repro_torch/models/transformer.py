@@ -15,6 +15,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.device import resolve_device
 from repro_torch.core.linear import N_BWD_EVENTS
 from repro_torch.core.mor import STATS_WIDTH
 from repro_torch.core.policy import MoRDotPolicy
@@ -30,18 +31,6 @@ _GEMMS = ("qkv", "proj", "fc1", "fc2")
 
 def padded_vocab(cfg: ArchConfig) -> int:
     return -(-cfg.vocab // 128) * 128
-
-
-def resolve_device(device) -> torch.device:
-    """The device an entry point runs on: CUDA unless the caller asks for
-    the CPU; asking for CUDA on a machine without it raises."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "CUDA is not available; pass device='cpu' to run the plain "
-            "PyTorch versions on the CPU"
-        )
-    return dev
 
 
 def _check_family(cfg: ArchConfig):

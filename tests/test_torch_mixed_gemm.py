@@ -216,15 +216,111 @@ def test_backend_choice_never_falls_back():
     assert tref.mixed_gemm_ref.calls == calls + 1
 
 
+def tiny_packs(recipe, algo):
+    """Both packages' sub3 / sub4 pack (64 x 64 blocks) of mixed_tags
+    input with block (0, 1) set to sign * U(1, 2) * 1e-37: its ideal GAM
+    scale overflows f32 (gam keeps a finite scale, fp32_amax scales by
+    Inf). Under gam the block also holds four bf16 denormals; not under
+    fp32_amax, where XLA on the CPU reads a denormal as 0 and 0 * Inf is
+    NaN, so the reference's payload byte would differ (ROADMAP Queue 3,
+    "XLA flushes f32 denormals on the CPU")."""
+    rng = np.random.default_rng(11)
+    x = np.array(mixed_tags((256, 384), 9)[0].astype(jnp.float32))
+    t = np.where(rng.standard_normal((64, 64)) > 0, 1.0, -1.0) * \
+        rng.uniform(1, 2, (64, 64)) * 1e-37
+    if algo == "gam":
+        t[0, :4] = [1e-39, -2e-39, 5e-40, -9e-41]
+    x[:64, 64:128] = t
+    xj = jnp.asarray(x, jnp.bfloat16)
+    from repro.core.mor import quantize_for_gemm as jqfg
+    from repro_torch.core.mor import quantize_for_gemm as tqfg
+    mo_j, _ = jit_ref(lambda v: jqfg(v, JPolicy(
+        recipe=recipe, block_shape=(64, 64), algo=algo, backend="xla")))(xj)
+    mo_t, _ = tqfg(to_torch(xj), TPolicy(recipe=recipe, block_shape=(64, 64),
+                                         algo=algo))
+    return mo_j, mo_t
+
+
+@pytest.mark.parametrize("algo", ("gam", "fp32_amax"))
+@pytest.mark.parametrize("recipe", ("sub3", "sub4"))
+def test_fp8_block_tables_equal_decode(recipe, algo):
+    """An fp8 block's stored values depend only on its tag, its scale
+    and the byte: a 256-entry table round_bf16(fp8(byte) / scale) per
+    block, looked up by payload_q, equals the plain version's and JAX's
+    decode_mixed_ref bit for bit on every E4M3 and E5M2 block -- the
+    tiny block and (under fp32_amax) its Inf scale, which decodes to
+    silent zeros, included. (The tensor-core path decodes each element
+    once with the same division; the streaming path through an f32
+    table of fp8 values.)"""
+    from repro_torch.core.formats import true_divide
+    from repro_torch.core.partition import Partition, to_blocks
+    mo_j, mo_t = tiny_packs(recipe, algo)
+    for lane in ("payload_q", "tags", "scales"):
+        np.testing.assert_array_equal(bits(getattr(mo_j, lane)),
+                                      bits(getattr(mo_t, lane)), lane)
+    tags, scales = mo_t.tags, mo_t.scales
+    codes = torch.arange(256, dtype=torch.int32).to(torch.uint8)
+    v4 = codes.view(torch.float8_e4m3fn).float()
+    v5 = codes.view(torch.float8_e5m2).float()
+    vals = torch.where((tags == tref.TAG_E5M2)[:, :, None], v5, v4)
+    tables = true_divide(vals, scales[:, :, None]).to(torch.bfloat16)
+    part = Partition("block", mo_t.block)
+    qb = to_blocks(mo_t.payload_q, part)
+    nr, nk, br, bk = qb.shape
+    looked = torch.gather(tables, 2, qb.reshape(nr, nk, br * bk).long())
+    looked = looked.reshape(nr, nk, br, bk)
+    fp8 = (tags == tref.TAG_E4M3) | (tags == tref.TAG_E5M2)
+    assert {tref.TAG_E4M3, tref.TAG_E5M2} <= set(tags[fp8].tolist())
+    for dec in (tref.decode_mixed_ref(mo_t),
+                to_torch(jit_ref(jref.decode_mixed_ref)(mo_j))):
+        want = to_blocks(dec, part)
+        np.testing.assert_array_equal(bits(looked[fp8]), bits(want[fp8]))
+    assert bool(fp8[0, 1])  # the tiny block is an fp8 block
+    if algo == "fp32_amax":
+        assert float(scales[0, 1]) == float("inf")
+        assert bool(qb[0, 1].any()) and not bool(looked[0, 1].float().any())
+
+
+@pytest.mark.parametrize("m, path", [(1, "stream"), (4, "stream"),
+                                     (32, "stream"), (64, "stream"),
+                                     (65, "tc"), (129, "tc"), (200, "tc"),
+                                     (2048, "tc")])
+def test_gemm_path_by_rows(m, path):
+    """M alone picks the kernel path: decode steps, prefill chunks and
+    the head stream; the training GEMMs take the tensor cores."""
+    from repro_torch.kernels.mixed_gemm import STREAM_MAX_M, gemm_path
+    assert STREAM_MAX_M == 64
+    assert gemm_path(m) == path
+
+
+def test_launch_counters_by_path():
+    """The wrapper counts every launch and each path's; a CPU product
+    takes the plain version on either path's M and launches nothing."""
+    from repro_torch.kernels.mixed_gemm import mixed_gemm_blocks as mgb
+    assert set(mgb.launches_by_path) == {"stream", "tc"}
+    _, mo_t = packs((128, 128), "sub3", 7, True)
+    before = (mgb.launches, dict(mgb.launches_by_path))
+    calls = tref.mixed_gemm_ref.calls
+    for m in (4, 100):
+        tops.mixed_dot(torch.ones(m, 128, dtype=torch.bfloat16), mo_t)
+    assert tref.mixed_gemm_ref.calls == calls + 2
+    assert (mgb.launches, mgb.launches_by_path) == before
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("M", (4, 33))
-def test_kernel_matches_plain_version_on_card(M, cuda_device):
-    _, mo_t = packs((256, 384), "sub4", 8, True)
+@pytest.mark.parametrize("N", (256, 200))
+@pytest.mark.parametrize("M", (4, 33, 65, 129, 200))
+def test_kernel_matches_plain_version_on_card(M, N, cuda_device):
+    from repro_torch.kernels.mixed_gemm import gemm_path, mixed_gemm_blocks
+    _, mo_t = packs((N, 384), "sub4", 8, True)
     mo = tref.MixedOperand(**{
         **mo_t.__dict__,
         **{lane: getattr(mo_t, lane).to(cuda_device) for lane in LANES}})
     x = torch.randn(M, 384, device=cuda_device).to(torch.bfloat16)
+    path = gemm_path(M)
+    n0 = mixed_gemm_blocks.launches_by_path[path]
     ck = tops.mixed_dot(x, mo, out_dtype=torch.float32, backend="cuda")
+    assert mixed_gemm_blocks.launches_by_path[path] == n0 + 1
     ct = tops.mixed_dot(x, mo, out_dtype=torch.float32, backend="torch")
     scale = x.double().abs() @ mo.dequant().double().abs().T
     assert bool(torch.all((ck - ct).abs().double() <= 1e-5 * scale))

@@ -107,7 +107,7 @@ def run_ref(x, w, dy, pol):
 def run_port(x, w, dy, pol):
     xt = to_torch(x).requires_grad_(True)
     wt = to_torch(w).requires_grad_(True)
-    tok = tlin.new_token()
+    tok = tlin.new_token(device="cpu")
     y, st = tlin.mor_dot(xt, wt, tok, pol)
     dx, dw, dtok = torch.autograd.grad(y, (xt, wt, tok),
                                        grad_outputs=to_torch(dy))
@@ -242,3 +242,19 @@ def test_fusable_checks_and_serving_token():
         tlin.mor_dot(xt, wt, None, MoRDotPolicy(a, b, a, fuse_gemm=True))
     y, st = tlin.mor_dot(xt, wt, None, MoRDotPolicy(a, a, a))
     assert y.shape == (2, 48, 80) and st.shape == (2, tmor.STATS_WIDTH)
+
+
+def test_new_token_defaults_to_cuda(monkeypatch):
+    """new_token runs on the card unless the caller asks for the CPU, as
+    every entry point of the port does; without CUDA the default raises
+    resolve_device's error rather than building a CPU token."""
+    import inspect
+    assert inspect.signature(tlin.new_token).parameters[
+        "device"].default == "cuda"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="pass device='cpu'"):
+        tlin.new_token()
+    tok = tlin.new_token(device="cpu", requires_grad=False)
+    assert tok.device.type == "cpu" and not tok.requires_grad
+    assert tuple(tok.shape) == (tlin.N_BWD_EVENTS, tmor.STATS_WIDTH)
+    assert not bool(tok.any())
