@@ -10,10 +10,14 @@
    inputs that hit every tag (a real layer shape among them, and a block
    whose ideal GAM scale overflows to Inf), ``mixed_gemm`` within an
    f32-summation-order tolerance on both of its paths (M <= 64 streams,
-   larger M takes the tensor cores; ragged tile edges, a padded K, tiny
-   rows with bf16 denormals), each call checked to take its path.
+   larger M takes the tensor cores; ragged tile edges, a padded K, split
+   K at K = 14336, packs of every tag, compact lanes, tiny rows with bf16
+   denormals), each call checked to take its path.
 3. Times both kernels, their plain versions and a library yardstick at
-   the shapes the engine gives them.
+   the shapes the engine gives them; the stream path also at the prefill
+   chunk (M = 32), on a wi weight of every sub3 tag and at the f32 head
+   (M = 4 x 128256), each with its bytes per second, bound and
+   ``torch.matmul`` on the decoded weight.
 4. Serves 8 requests through the llama3-8b engine at full width with
    sub3-quantized random weights, and checks that every GEMM of the run
    went through ``mixed_gemm``'s stream path and every weight through
@@ -23,7 +27,8 @@
    holds every GEMM of the kernel path (all five weight shapes) against
    the plain version on its real inputs at 1e-5 sum|a||b|; the kernel
    path's logits may be at most twice as far from the f64 path's as
-   the plain path's are.
+   the plain path's are. A backward through a real-quantized (QTensor)
+   weight must raise the reference's NotImplementedError.
 6. Training: holds ``gam_quant`` and ``mor_select(emit='select')``
    against their plain versions bit for bit (value lanes, exponents and
    tags; the overflowing-scale block too); times them on the wi view
@@ -150,6 +155,52 @@ def time_ms(fn, iters=10):
     return start.elapsed_time(end) / iters
 
 
+_CAPTURE = []
+
+
+def device_ms(fn, iters=20):
+    """Mean device time of one call with no host in between: ``iters``
+    calls captured in a CUDA graph, CUDA events around its replay. The
+    stream path's kernels take less time than their Python wrapper, so
+    eager launches (``time_ms``) would time the host."""
+    fn()
+    torch.cuda.synchronize()
+    if not _CAPTURE:
+        _CAPTURE.append(torch.cuda.Stream())
+    side = _CAPTURE[0]  # one stream: libraries keep a workspace per stream
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    del graph
+    return start.elapsed_time(end) / iters
+
+
+def host_us(fn, iters=50):
+    """Host wall time of one eager call (no synchronisation inside)."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    us = (time.perf_counter() - t) / iters * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 def assert_pack_equal(mo_k, mo_t, r_k, r_t, what):
     for lane in ("payload_q", "payload_bf16", "payload_nib",
                  "micro_scales", "tags", "scales"):
@@ -248,16 +299,33 @@ def phase_mixed_gemm(ops, ref, Partition):
         np.unique(b_nobf.tags.cpu().numpy())) == 3,
         "the no-BF16 sub4 pack should mix three tags, bf16 lane compact")
     a_mixed = pack(mixed_tags((256, K), 5).cuda(), "sub4")
+    # The stream path's other weight paths: a sub3 pack mixing E4M3, E5M2
+    # and BF16 blocks, and K = 14336 (split K) at a ragged N.
+    b_mix3 = pack(mixed_tags((1024, K), 9).cuda(), "sub3")
+    check({0, 1, 2} <= set(np.unique(b_mix3.tags.cpu().numpy())),
+          "the mixed sub3 pack should hold E4M3, E5M2 and BF16 blocks")
+    b_long = pack((torch.randn(1000, 14336, device="cuda") * 0.02).to(
+        torch.bfloat16), "sub3")
     cases = []
-    for M in (4, 32, 65, 128, 129, 200):
+    for M in (1, 4, 16, 32, 64, 65, 128, 129, 200):
         x = torch.randn(M, K, device="cuda").to(torch.bfloat16)
         for label, b in (("4 tags", b_mixed), ("no BF16", b_nobf),
-                         ("all E4M3", b_fp8)):
+                         ("all E4M3", b_fp8), ("E4M3/E5M2/BF16", b_mix3)):
+            if label == "E4M3/E5M2/BF16" and M > 64:
+                continue
             a = ref.passthrough_mixed(
                 x, (ref.activation_row_block(M, 128), 128))
             cases.append((f"passthrough M={M} x {label} N={b.shape[0]}",
                           a, b))
+    for M in (4, 32):
+        x = torch.randn(M, 14336, device="cuda").to(torch.bfloat16)
+        cases.append((f"passthrough M={M} x all E4M3 N=1000 K=14336 "
+                      "(split K)", ref.passthrough_mixed(
+                          x, (ref.activation_row_block(M, 128), 128)),
+                      b_long))
     cases.append(("mixed A (sub4) x mixed B (sub4)", a_mixed, b_mixed))
+    cases.append(("mixed A (sub4) M=64 x mixed B (sub4)",
+                  pack(mixed_tags((64, K), 15).cuda(), "sub4"), b_mixed))
     cases.append(("mixed A (sub3) M=300 x mixed B (sub3) N=1000 K=4000",
                   pack(mixed_tags((300, 4000), 7).cuda(), "sub3"),
                   pack(mixed_tags((1000, 4000), 8).cuda(), "sub3")))
@@ -266,6 +334,14 @@ def phase_mixed_gemm(ops, ref, Partition):
     cases.append(("tiny passthrough A M=200 (bf16 denormals) x all E4M3 "
                   "N=384", ref.passthrough_mixed(tiny_rows((200, K)),
                                                  (128, 128)), b_unit))
+    # The stream path on the same rows: against unit weights and against
+    # 0.02-scale ones, where some results are bf16 denormals.
+    for M in (4, 32, 64):
+        a = ref.passthrough_mixed(tiny_rows((M, K)),
+                                  (ref.activation_row_block(M, 128), 128))
+        for label, b in (("unit", b_unit), ("0.02-scale", b_fp8)):
+            cases.append((f"tiny passthrough A M={M} (bf16 denormals) x all "
+                          f"E4M3 {label} N={b.shape[0]}", a, b))
     worst = {"stream": 0.0, "tc": 0.0}
     for name, a, b in cases:
         A = ref.decode_mixed_ref(a)[:a.shape[0]]
@@ -346,10 +422,10 @@ def phase_timing(ops, ref, Partition, cfg):
     wq = mo_k.compact()
     x = torch.randn(4, d, device="cuda").to(torch.bfloat16)
     xa = ref.passthrough_mixed(x, (ref.activation_row_block(4, 128), 128))
-    gk = time_ms(lambda: mixed_gemm_blocks(xa, wq), iters=20)
+    gk = device_ms(lambda: mixed_gemm_blocks(xa, wq))
     gt = time_ms(lambda: ref.mixed_gemm_ref(xa, wq), iters=2)
     wdec = wq.dequant()
-    glib = time_ms(lambda: torch.matmul(x, wdec.T), iters=20)
+    glib = device_ms(lambda: torch.matmul(x, wdec.T))
     yk = ops.mixed_dot(x, wq, out_dtype=torch.float32, backend="cuda")
     yt = ops.mixed_dot(x, wq, out_dtype=torch.float32, backend="torch")
     g_err = float((yk - yt).abs().max())
@@ -359,29 +435,85 @@ def phase_timing(ops, ref, Partition, cfg):
     N = w.shape[0]
     g_bound = bound(weight_bytes(wq) + x.numel() * 2 + 4 * N * 2,
                     2.0 * 4 * N * d)
-    extra = {}
-    for M in (32,):  # a prefill chunk
-        xm = torch.randn(M, d, device="cuda").to(torch.bfloat16)
-        xma = ref.passthrough_mixed(
-            xm, (ref.activation_row_block(M, 128), 128))
-        extra[f"mixed_gemm_M{M}_ms"] = time_ms(
-            lambda: mixed_gemm_blocks(xma, wq), iters=10)
-        extra[f"mixed_gemm_M{M}_bound_ms"] = bound(
-            weight_bytes(wq) + M * d * 2 + M * N * 2, 2.0 * M * N * d)[0]
-        extra[f"mixed_gemm_M{M}_library_ms"] = time_ms(
-            lambda: torch.matmul(xm, wdec.T), iters=10)
+    w_shape = list(w.shape)
+    del w, wdec
+    stream = {"decode M=4 x wi": stream_row(
+        ops, ref, xa, wq, torch.bfloat16, gk)}
+    xm = torch.randn(32, d, device="cuda").to(torch.bfloat16)
+    stream["prefill M=32 x wi"] = stream_row(ops, ref, ref.passthrough_mixed(
+        xm, (ref.activation_row_block(32, 128), 128)), wq, torch.bfloat16)
+    del wq
+    # Random weights put every block in E4M3: the same shape with blocks
+    # of every sub3 tag (E4M3, E5M2, BF16).
+    wm = ops.quantize_pack(mixed_tags((2 * f, d), 3).cuda(), part, "sub3",
+                           backend="cuda")[0].compact()
+    stream["decode M=4 x wi, mixed tags"] = stream_row(ops, ref, xa, wm,
+                                                       torch.bfloat16)
+    stream["decode M=4 x wi, mixed tags"]["tags"] = np.bincount(
+        wm.tags.reshape(-1).cpu().numpy(), minlength=4).tolist()
+    del wm
+    # The f32 head: M = 4 against the 128256-wide vocabulary.
+    wh = (torch.randn(cfg.vocab, d, device="cuda") * 0.02).to(torch.bfloat16)
+    wh = ops.quantize_pack(wh, part, "sub3", backend="cuda")[0].compact()
+    stream["head M=4 x 128256x4096 (f32)"] = stream_row(ops, ref, xa, wh,
+                                                        torch.float32)
+    del wh
+    # cuBLAS keeps a workspace for the capture stream; later phases'
+    # peak memory should not count it.
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+    torch.cuda.empty_cache()
     return {
         "mor_select_pack": dict(ms=sel_k, plain_ms=sel_t,
                                 bound_ms=sel_bound[0],
                                 bound_by=sel_bound[1], library_ms=None,
                                 max_abs_err=sel_err,
-                                shape=list(w.shape)),
+                                shape=w_shape),
         "mixed_gemm": dict(ms=gk, plain_ms=gt, bound_ms=g_bound[0],
                            bound_by=g_bound[1], library_ms=glib,
                            max_abs_err=g_err,
                            shape=[4, N, d]),
-        "extra": extra,
+        "stream": stream,
     }
+
+
+def stream_row(ops, ref, a, wq, out_dtype, ms=None):
+    """One stream-path shape: the kernel's device time (``device_ms``)
+    with the bytes it must move per second, its bound, ``torch.matmul`` on
+    the decoded bf16 weight (timed the same way), the eager-launch time
+    (``time_ms``, the method of the rows before the CUDA-graph timing) and
+    the wrapper's host time per call; the result held against the plain
+    version within ``gemm_tol``."""
+    from repro_torch.kernels.mixed_gemm import (gemm_path, mixed_gemm_blocks,
+                                                stream_plan, _sm_count)
+    M, N, K = a.shape[0], wq.shape[0], wq.shape[1]
+    check(gemm_path(M) == "stream", f"M={M} is not a stream-path shape")
+    call = lambda: mixed_gemm_blocks(a, wq, out_dtype=out_dtype)  # noqa: E731
+    if ms is None:
+        ms = device_ms(call)
+    x = ref.decode_mixed_ref(a)[:M, :K]
+    wdec = ref.decode_mixed_ref(wq)[:N, :K]
+    lib = device_ms(lambda: torch.matmul(x, wdec.T))
+    yk = ops.mixed_gemm(a, wq, out_dtype=out_dtype, backend="cuda")
+    yt = ops.mixed_gemm(a, wq, out_dtype=out_dtype, backend="torch")
+    err = (yk.float() - yt.float()).abs()
+    tol = gemm_tol(x, wdec, yt, out_dtype)
+    check(bool(torch.all(err <= tol)),
+          f"stream path M={M} N={N} K={K}: max err {float(err.max())} "
+          "beyond gemm_tol")
+    nbytes = weight_bytes(wq) + M * K * 2 + M * N * (
+        4 if out_dtype == torch.float32 else 2)
+    b = bound(nbytes, 2.0 * M * N * K)
+    return {"M": M, "N": N, "K": K, "out": str(out_dtype).split(".")[-1],
+            "ms": ms, "bytes_per_s": nbytes / (ms * 1e-3),
+            "bound_ms": b[0], "bound_by": b[1], "share_of_bound": b[0] / ms,
+            "library_ms": lib, "vs_library": ms / lib,
+            "eager_ms": time_ms(call), "host_us_per_call": host_us(call),
+            "splits": stream_plan(M, N, wq.padded_shape[1],
+                                  _sm_count(wq.tags.device))[0],
+            "max_err_over_tol": float(torch.where(
+                err > 0, err / tol, torch.zeros_like(err)).max())}
 
 
 def phase_engine(cfg, n_layers):
@@ -536,10 +668,12 @@ def patched(module, name, fn):
 def gemm_tol(x2, w, y_plain, out_dtype):
     """The kernel-vs-plain limit of one GEMM: 1e-5 * sum_k |a||b| (only
     the f32 summation order differs), plus one bf16 ulp of the result
-    (<= 2^-7 |c|) for bf16 output."""
+    for bf16 output: max(2^-7 |c|, 2^-133), the latter the ulp of a bf16
+    denormal, so a rounding flip there passes and a flush to zero
+    fails."""
     tol = 1e-5 * (x2.double().abs() @ w.double().abs().T).float()
     if out_dtype == torch.bfloat16:
-        tol = tol + 2.0**-7 * y_plain.float().abs()
+        tol = tol + (2.0**-7 * y_plain.float().abs()).clamp_min(2.0**-133)
     return tol
 
 
@@ -641,6 +775,30 @@ def phase_depth2(cfg, ops, ref):
               f"depth-2 {what}: kernel path {r['kernel_vs_f64']} from the "
               f"f64 path, plain path {r['plain_vs_f64']}")
     return res
+
+
+def phase_serve_grad():
+    """``mor_dot`` against a real-quantized weight on the card: the
+    forward serves (the kernel's output carries the serving Function's
+    grad_fn), and a backward raises the reference's NotImplementedError
+    instead of leaving x without a gradient."""
+    from repro_torch.core.linear import mor_dot
+    from repro_torch.core.policy import MoRDotPolicy, MoRPolicy
+    from repro_torch.serve.quantized import quantize_weight
+    qt, _ = quantize_weight((torch.randn(512, 384, device="cuda") * 0.02).to(
+        torch.bfloat16), MoRPolicy(recipe="sub3"))
+    x = torch.randn(4, 512, device="cuda").to(torch.bfloat16)
+    x.requires_grad_(True)
+    y, st = mor_dot(x, qt, None, MoRDotPolicy())
+    check(y.is_cuda and y.requires_grad and not st.requires_grad,
+          "mor_dot on a QTensor: the output should carry a grad_fn")
+    try:
+        y.float().sum().backward()
+    except NotImplementedError as e:
+        check("QTensor" in str(e), f"unexpected error: {e}")
+        return {"raises": "NotImplementedError", "message": str(e),
+                "x_grad": x.grad is not None}
+    raise AssertionError("backward through a QTensor weight did not raise")
 
 
 def bits16(t):
@@ -1426,6 +1584,7 @@ def main():
     timing.update(api)
     engine, launches, engine_paths = phase_engine(cfg, N_LAYERS)
     depth2 = phase_depth2(cfg, ops, ref)
+    serve_grad = phase_serve_grad()
     train, train_launches, train_paths = phase_train(cfg)
     train_depth2 = phase_train_depth2(cfg, ops, ref)
 
@@ -1467,13 +1626,15 @@ def main():
             entry["parity_max_err_over_tol"] = gemm_parity
             entry["train_shapes"] = {g: timing[f"mixed_gemm_{g}"]
                                      for g in ("fwd", "dgrad", "wgrad")}
+            entry["stream_shapes"] = timing["stream"]
         if name in api:
             entry["case"] = t["case"]
             entry["cases"] = t["cases"]
         kernels.append(entry)
     emit({"parity_max_abs_err": {"mor_select_pack": sel_err, **api_parity},
           **quant_parity})
-    emit({"timing_extra": timing["extra"], "card": smi})
+    emit({"stream_path": timing["stream"], "card": smi})
+    emit({"qtensor_backward": serve_grad, "card": smi})
     emit({"depth2": depth2, "card": smi})
     emit({"engine": engine, "card": smi})
     emit({"train_depth2": train_depth2, "card": smi})

@@ -30,8 +30,8 @@ GEMM lowerings (``MoRDotPolicy.fuse_gemm``):
 
 A weight that is already real-quantized (``serve.quantized.QTensor``;
 anything exposing ``as_mixed_operand()``) is consumed directly by the
-mixed kernel against a BF16-passthrough activation pack (serving; no
-backward).
+mixed kernel against a BF16-passthrough activation pack (serving): a
+backward through it raises, as the reference's ``_bwd`` does.
 """
 from __future__ import annotations
 
@@ -69,11 +69,17 @@ def _is_mixed_weight(w) -> bool:
 
 def _dot(a: torch.Tensor, b_t: torch.Tensor, out_dtype) -> torch.Tensor:
     """a @ b_t^T: exact products of the operands, f32 accumulation, one
-    rounding to ``out_dtype``."""
+    rounding to ``out_dtype``. On CUDA, cuBLAS runs with
+    ``allow_bf16_reduced_precision_reduction`` off for this call only; the
+    caller's setting is restored after it."""
     if a.is_cuda and a.dtype == b_t.dtype == out_dtype == torch.bfloat16:
-        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
-            False
-        return torch.matmul(a, b_t.T)
+        flags = torch.backends.cuda.matmul
+        user = flags.allow_bf16_reduced_precision_reduction
+        flags.allow_bf16_reduced_precision_reduction = False
+        try:
+            return torch.matmul(a, b_t.T)
+        finally:
+            flags.allow_bf16_reduced_precision_reduction = user
     return (a.to(torch.float32) @ b_t.to(torch.float32).T).to(out_dtype)
 
 
@@ -191,6 +197,25 @@ def _bwd(policy: MoRDotPolicy, x, w, dy):
     return dx, dw, torch.stack([dy_stats, w_stats, xT_stats, dyT_stats])
 
 
+class _ServeDot(torch.autograd.Function):
+    """``mor_dot`` against a real-quantized (QTensor) weight: the forward
+    is the serving product, and a backward raises the reference's error
+    (its ``_bwd``) instead of differentiating the plain version's ops (on
+    the CPU) or dropping x's gradient (on CUDA)."""
+
+    @staticmethod
+    def forward(ctx, x, w, policy):
+        y, fwd_stats = _fwd(x, w, policy)
+        ctx.mark_non_differentiable(fwd_stats)
+        return y, fwd_stats
+
+    @staticmethod
+    def backward(ctx, dy, _dstats):
+        raise NotImplementedError(
+            "mor_dot cannot differentiate through a real-quantized "
+            "(QTensor) serving weight")
+
+
 class _MorDot(torch.autograd.Function):
     """The reference's ``custom_vjp``: forward stats as an output,
     backward stats as the token's gradient."""
@@ -220,7 +245,7 @@ def mor_dot(x: torch.Tensor, w, token: Optional[torch.Tensor],
     STATS_WIDTH)); the serving and disabled paths report zero stats.
     """
     if _is_mixed_weight(w):
-        return _fwd(x, w, policy)
+        return _ServeDot.apply(x, w, policy)
     if token is None:
         token = new_token(x.device, requires_grad=False)
     return _MorDot.apply(x, w, token, policy)

@@ -3,11 +3,12 @@
 ``repro/kernels/mixed_gemm.py:mixed_gemm_blocks``.
 
 The kernel has two paths, chosen by :func:`gemm_path` from M alone:
-``'stream'`` (M <= 64: decode steps, prefill chunks, the f32 head; CUDA
-cores, split K) and ``'tc'`` (larger M: the training GEMMs; bf16 tensor
-cores on operands decoded once to bf16). Both compute the same
-function and take the same arguments; there is no fallback from one to
-the other. ``mixed_gemm_blocks.launches`` counts every launch and
+``'stream'`` (M <= 64: decode steps, prefill chunks, the f32 head; the
+weight streamed once through per-block decode tables into bf16 tensor-core
+products, K split as :func:`stream_plan` says) and ``'tc'`` (larger M:
+the training GEMMs; bf16 tensor cores on operands decoded once to bf16).
+Both compute the same function; there is no fallback from one to the
+other. ``mixed_gemm_blocks.launches`` counts every launch and
 ``mixed_gemm_blocks.launches_by_path`` each path's.
 
 The plain PyTorch version of the same function is
@@ -17,6 +18,7 @@ tensor there and a CUDA tensor here.
 from __future__ import annotations
 
 import ctypes
+from typing import Dict, Tuple
 
 import torch
 
@@ -25,19 +27,31 @@ from repro_torch.core.formats import NVFP4_MICRO
 from . import build
 from .ref import MixedOperand, compact_lane_shapes, nvfp4_block_capable
 
-__all__ = ["mixed_gemm_blocks", "gemm_path", "STREAM_MAX_M"]
+__all__ = ["mixed_gemm_blocks", "gemm_path", "stream_plan", "stream_rows",
+           "STREAM_MAX_M"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# f32 split-K partials the kernel may use: it splits K only while the
-# output tiles cannot fill the card twice over, which on a 132-SM card
-# needs at most ~2.2 M floats; fewer splits fit a smaller workspace.
-WORKSPACE_FLOATS = 1 << 22
 # Largest M the streaming path takes: decode (M = slots), prefill chunks
 # and the head have a handful of rows and are bound by the weight's
 # bytes; above it the tensor-core path's 128-row tiles are filled.
 STREAM_MAX_M = 64
+# The stream kernel's thread block: 128 weight rows, K in 64-deep chunks.
+STREAM_ROWS, STREAM_KC = 128, 64
+_OPERAND = [_P] * 6 + [_I] * 5
+_ARGTYPES = {
+    "mixed_gemm_launch": (_OPERAND * 2 + [_P, _P, ctypes.c_longlong, _P]
+                          + [_I] * 4 + [_P]),
+    "mixed_gemm_tc_launch": (_OPERAND * 2 + [_P, _P, ctypes.c_longlong]
+                             + [_I] * 3 + [_P]),
+}
 _ENTRY = {"stream": "mixed_gemm_launch", "tc": "mixed_gemm_tc_launch"}
+_SMS: Dict[int, int] = {}
+_LIB = []
+# The stream kernel's split-K tickets, one int per 128-row strip, zero
+# between launches (each strip's last thread block resets its own), kept
+# per device and stream so that no two launches in flight share them.
+_TICKETS: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
 def gemm_path(m: int) -> str:
@@ -46,25 +60,69 @@ def gemm_path(m: int) -> str:
     return "stream" if m <= STREAM_MAX_M else "tc"
 
 
-def _workspace_floats(path: str, m: int, n: int, kp: int) -> int:
-    """f32 words of scratch a launch takes: the streaming path's split-K
-    partials, or the tensor-core path's two decoded bf16 operands (rows
-    rounded up to its 128-row tile, Kp to its 64-deep chunk)."""
-    if path == "stream":
-        return WORKSPACE_FLOATS
+def stream_rows(m: int) -> int:
+    """Rows of the stream kernel's activation tile: M padded to its
+    n-tiles of 8 (8, 16, 32 or 64)."""
+    return 8 if m <= 8 else 16 if m <= 16 else 32 if m <= 32 else 64
+
+
+def stream_plan(m: int, n: int, kp: int, sms: int) -> Tuple[int, int]:
+    """(splits, workspace floats) of a stream-path launch on a card with
+    ``sms`` SMs. K is split while the 128-row strips alone would leave the
+    card short of eight thread blocks an SM, with at least four and at
+    most 64 chunks of 64 in a split, and with the f32 partials' traffic
+    (8 B each, written and read) within a quarter of the weight's fp8
+    bytes. The workspace holds the activation decoded to bf16
+    (:func:`stream_rows` x Kp rounded up to 64) and, when K is split,
+    splits x M x N f32 partials."""
+    strips = -(-n // STREAM_ROWS)
+    chunks = -(-kp // STREAM_KC)
+    splits = max(1, min(-(-8 * sms // strips), chunks // 4, kp // (32 * m)))
+    splits = max(splits, -(-chunks // 64))
+    act = stream_rows(m) * chunks * STREAM_KC // 2
+    return splits, act + (splits * m * n if splits > 1 else 0)
+
+
+def _tc_workspace_floats(m: int, n: int, kp: int) -> int:
+    """f32 words of the tensor-core path's scratch: its two decoded bf16
+    operands (rows rounded up to its 128-row tile, Kp to its 64-deep
+    chunk)."""
     kd = -(-kp // 64) * 64
     return (-(-m // 128) + -(-n // 128)) * 128 * kd // 2
 
 
 def _lib():
-    lib = build.load("mixed_gemm")
-    for entry in _ENTRY.values():
-        fn = getattr(lib, entry)
-        fn.argtypes = (
-            [_P] * 6 + [_I] * 5 + [_P] * 6 + [_I] * 5
-            + [_P, _P, ctypes.c_longlong] + [_I] * 3 + [_P])
-        fn.restype = _I
-    return lib
+    if not _LIB:
+        lib = build.load("mixed_gemm")
+        for entry, argtypes in _ARGTYPES.items():
+            fn = getattr(lib, entry)
+            fn.argtypes = argtypes
+            fn.restype = _I
+        _LIB.append(lib)
+    return _LIB[0]
+
+
+def _sm_count(dev: torch.device) -> int:
+    """The card's SM count, read once per process and device; the stream
+    kernels' shared-memory limits are raised at the same time."""
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _SMS:
+        with torch.cuda.device(idx):
+            err = _lib().mixed_gemm_stream_setup()
+        if err != 0:
+            raise RuntimeError(
+                f"mixed_gemm stream setup failed: CUDA error {err}")
+        _SMS[idx] = torch.cuda.get_device_properties(idx).multi_processor_count
+    return _SMS[idx]
+
+
+def _tickets(dev: torch.device, stream: int, strips: int) -> torch.Tensor:
+    key = (dev.index, stream)
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < strips:
+        t = torch.zeros(max(strips, 1024), dtype=torch.int32, device=dev)
+        _TICKETS[key] = t
+    return t
 
 
 def _operand_args(mo: MixedOperand, name: str, device):
@@ -126,17 +184,22 @@ def mixed_gemm_blocks(a: MixedOperand, b: MixedOperand, *,
     M, N = a.shape[0], b.shape[0]
     Kp, bk = a.padded_shape[1], a.block[1]
     path = gemm_path(M)
-    launch = getattr(_lib(), _ENTRY[path])
     out = torch.empty((M, N), dtype=out_dtype, device=dev)
-    workspace = torch.empty(_workspace_floats(path, M, N, Kp),
-                            dtype=torch.float32, device=dev)
+    f32 = int(out_dtype == torch.float32)
+    launch = getattr(_lib(), _ENTRY[path])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = launch(
-            *args_a, *args_b, out.data_ptr(), workspace.data_ptr(),
-            workspace.numel(),
-            int(out_dtype == torch.float32), Kp, bk, stream,
-        )
+        if path == "stream":
+            splits, floats = stream_plan(M, N, Kp, _sm_count(dev))
+            ws = torch.empty(floats, dtype=torch.float32, device=dev)
+            tickets = _tickets(dev, stream, -(-N // STREAM_ROWS))
+            tail = (ws.data_ptr(), ws.numel(), tickets.data_ptr(), splits,
+                    f32, Kp, bk)
+        else:
+            ws = torch.empty(_tc_workspace_floats(M, N, Kp),
+                             dtype=torch.float32, device=dev)
+            tail = (ws.data_ptr(), ws.numel(), f32, Kp, bk)
+        err = launch(*args_a, *args_b, out.data_ptr(), *tail, stream)
     if err != 0:
         raise RuntimeError(
             f"mixed_gemm ({path} path) launch failed: CUDA error {err}")

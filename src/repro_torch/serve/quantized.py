@@ -66,6 +66,12 @@ class QTensor:
         return self.mo.tags
 
     @property
+    def is_quantized(self) -> bool:
+        """True if any block is stored as an fp8 payload (any tag but
+        BF16), as the reference's ``QTensor.is_quantized``."""
+        return bool((self.mo.tags.cpu().numpy() != TAG_BF16).any())
+
+    @property
     def frac_quantized(self) -> float:
         return float((self.mo.tags.cpu().numpy() != TAG_BF16).mean())
 

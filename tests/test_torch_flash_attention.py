@@ -59,6 +59,10 @@ def ulp(x: np.ndarray, dtype: str) -> np.ndarray:
 def assert_attention_close(want, got, v, dtype, what):
     if isinstance(v, torch.Tensor):
         v = v.to(torch.float32).numpy()
+    # `want` is the reference's array, or (on the card) the plain
+    # version's tensor, which numpy cannot read in bf16.
+    if isinstance(want, torch.Tensor):
+        want = want.to(torch.float32).numpy()
     w = np.asarray(want, np.float32).astype(np.float64)
     g = got.to(torch.float32).numpy().astype(np.float64)
     assert w.shape == g.shape, (what, w.shape, g.shape)

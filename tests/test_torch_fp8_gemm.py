@@ -82,6 +82,10 @@ def magnitude_sums(aq, bq, sa, sb, block):
 
 
 def assert_gemm_close(want, got, mags, out, what):
+    # `want` is the reference's array, or (on the card) the plain
+    # version's tensor, which numpy cannot read in bf16.
+    if isinstance(want, torch.Tensor):
+        want = want.to(torch.float32).numpy()
     w = np.asarray(want, np.float32).astype(np.float64)
     g = got.to(torch.float32).numpy().astype(np.float64)
     assert w.shape == g.shape, what

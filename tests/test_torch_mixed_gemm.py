@@ -293,6 +293,23 @@ def test_gemm_path_by_rows(m, path):
     assert gemm_path(m) == path
 
 
+def test_passthrough_pack_lanes_read_as_all_bf16():
+    """The stream kernel reads an activation's bf16 lane as it is where the
+    wrapper's lane flags say every tag is BF16: fp8 lane compact, no
+    NVFP4 lanes, bf16 lane dense (a lane is compact only where no tag
+    names it). ``passthrough_mixed`` packs, ``mixed_dot``'s activations,
+    carry those flags and decode to their own values; a quantized pack's
+    fp8 lane is dense."""
+    from repro_torch.kernels.mixed_gemm import _operand_args
+    x = torch.randn(5, 256).to(torch.bfloat16)
+    a = tref.passthrough_mixed(x, (tref.activation_row_block(5, 128), 128))
+    assert bool((a.tags == tref.TAG_BF16).all())
+    assert _operand_args(a, "a", a.tags.device)[-3:] == [0, 1, 0]
+    np.testing.assert_array_equal(bits(a.dequant()), bits(x))
+    _, mo = packs((128, 128), "sub3", 7, False)
+    assert _operand_args(mo, "b", mo.tags.device)[-3] == 1
+
+
 def test_launch_counters_by_path():
     """The wrapper counts every launch and each path's; a CPU product
     takes the plain version on either path's M and launches nothing."""
@@ -307,15 +324,47 @@ def test_launch_counters_by_path():
     assert (mgb.launches, mgb.launches_by_path) == before
 
 
+@pytest.mark.parametrize("m, n, kp, splits", [
+    (4, 28672, 4096, 5), (32, 28672, 4096, 4), (4, 6144, 4096, 16),
+    (4, 4096, 4096, 16), (4, 4096, 14336, 33), (4, 128256, 4096, 2),
+    (32, 128256, 4096, 2), (64, 4096, 4096, 2), (1, 4096, 14336, 33),
+    (4, 200, 384, 1)])
+def test_stream_plan(m, n, kp, splits):
+    """The stream path's launch plan on a 132-SM card is a function of the
+    shape alone: K splits only while the 128-row strips leave the card
+    short of eight thread blocks an SM (four to 64 chunks of 64 a split,
+    partials' traffic within a quarter of the weight's fp8 bytes); the
+    workspace is the activation decoded to bf16 (rows padded to 8, 16, 32
+    or 64, K to 64) plus, when K is split, no more than splits x M x N
+    f32 partials. M alone still picks the path."""
+    from repro_torch.kernels.mixed_gemm import (gemm_path, stream_plan,
+                                                stream_rows)
+    got, floats = stream_plan(m, n, kp, 132)
+    assert got == splits and stream_plan(m, n, kp, 132) == (got, floats)
+    chunks = -(-kp // 64)
+    act = stream_rows(m) * chunks * 64 // 2
+    assert stream_rows(m) in (8, 16, 32, 64) and stream_rows(m) >= m
+    partials = floats - act
+    assert partials == (splits * m * n if splits > 1 else 0)
+    assert partials <= splits * m * n
+    assert 1 <= splits and -(-chunks // splits) <= 64
+    assert splits == 1 or splits * m * n * 8 <= n * kp / 4
+    assert gemm_path(m) == "stream"
+
+
+def card_operand(mo, device):
+    return tref.MixedOperand(**{
+        **mo.__dict__,
+        **{lane: getattr(mo, lane).to(device) for lane in LANES}})
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("N", (256, 200))
-@pytest.mark.parametrize("M", (4, 33, 65, 129, 200))
+@pytest.mark.parametrize("M", (1, 4, 16, 32, 33, 64, 65, 129, 200))
 def test_kernel_matches_plain_version_on_card(M, N, cuda_device):
     from repro_torch.kernels.mixed_gemm import gemm_path, mixed_gemm_blocks
     _, mo_t = packs((N, 384), "sub4", 8, True)
-    mo = tref.MixedOperand(**{
-        **mo_t.__dict__,
-        **{lane: getattr(mo_t, lane).to(cuda_device) for lane in LANES}})
+    mo = card_operand(mo_t, cuda_device)
     x = torch.randn(M, 384, device=cuda_device).to(torch.bfloat16)
     path = gemm_path(M)
     n0 = mixed_gemm_blocks.launches_by_path[path]
@@ -324,6 +373,79 @@ def test_kernel_matches_plain_version_on_card(M, N, cuda_device):
     ct = tops.mixed_dot(x, mo, out_dtype=torch.float32, backend="torch")
     scale = x.double().abs() @ mo.dequant().double().abs().T
     assert bool(torch.all((ck - ct).abs().double() <= 1e-5 * scale))
+
+
+def card_weight(kind, device):
+    """(N, K) weights in 128 x 128 blocks, the stream kernel's table path:
+    a ragged all-E4M3 sub3 pack (compact BF16 and NVFP4 lanes), the same
+    at unit scale, K = 14336 (the split-K path), a mixed-tag sub3 pack
+    (E4M3, E5M2 and BF16 blocks) and a sub4 pack with NVFP4 blocks."""
+    from repro_torch.core.mor import quantize_for_gemm
+    rng = np.random.default_rng(12)
+    if kind in ("e4m3 ragged", "e4m3 unit"):
+        w = torch.from_numpy(rng.standard_normal((1000, 4096)) * (
+            0.02 if kind == "e4m3 ragged" else 1.0))
+        recipe = "sub3"
+    elif kind == "K=14336":
+        w = torch.from_numpy(rng.standard_normal((384, 14336)) * 0.02)
+        recipe = "sub3"
+    else:
+        w = to_torch(mixed_tags((1024, 1024), 13)[0])
+        recipe = "sub3" if kind == "mixed sub3" else "sub4"
+    mo, _ = quantize_for_gemm(w.to(torch.bfloat16), TPolicy(recipe=recipe))
+    return card_operand(mo.compact(), device)
+
+
+def tiny_rows(m, k, device, seed=0):
+    """(m, k) bf16 activation, tiny in every k block: the first half of
+    the rows sign * U(1, 2) * 1e-37 with every eighth element a bf16
+    denormal, the rest all bf16 denormals (sign * U(1, 2) * 5e-39).
+    Against 0.02-scale weights some results are bf16 denormals, which a
+    path that flushed denormals would zero."""
+    rng = np.random.default_rng(seed)
+    sign = np.where(rng.standard_normal((m, k)) > 0, 1.0, -1.0)
+    x = sign * rng.uniform(1, 2, (m, k)) * 1e-37
+    x[:, ::8] *= 5e-2
+    x[m // 2:] = sign[m // 2:] * rng.uniform(1, 2, (m - m // 2, k)) * 5e-39
+    return torch.from_numpy(x.astype(np.float32)).to(torch.bfloat16).to(
+        device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_dtype", (torch.float32, torch.bfloat16))
+@pytest.mark.parametrize("kind", ("e4m3 ragged", "e4m3 unit", "K=14336",
+                                  "mixed sub3", "sub4 nvfp4"))
+@pytest.mark.parametrize("act", ("randn", "tiny"))
+@pytest.mark.parametrize("M", (1, 4, 16, 32, 64))
+def test_stream_path_on_card(M, act, kind, out_dtype, cuda_device):
+    """The stream path on 128 x 128 packs against the plain version, on
+    normal activations and on tiny rows with bf16 denormals: within
+    1e-5 sum |a||b| (+ one bf16 ulp of the result for bf16 output, at
+    least 2^-133, the ulp of a bf16 denormal), and a second launch repeats
+    the first bit for bit (the split-K sum has a fixed order)."""
+    from repro_torch.kernels.mixed_gemm import mixed_gemm_blocks
+    mo = card_weight(kind, cuda_device)
+    tags = set(mo.tags.reshape(-1).tolist())
+    if kind == "mixed sub3":
+        assert {tref.TAG_E4M3, tref.TAG_E5M2, tref.TAG_BF16} <= tags
+    if kind == "sub4 nvfp4":
+        assert tref.TAG_NVFP4 in tags
+    if act == "tiny":
+        x = tiny_rows(M, mo.shape[1], cuda_device)
+    else:
+        x = torch.randn(M, mo.shape[1], device=cuda_device).to(
+            torch.bfloat16)
+    n0 = mixed_gemm_blocks.launches_by_path["stream"]
+    ck = tops.mixed_dot(x, mo, out_dtype=out_dtype, backend="cuda")
+    again = tops.mixed_dot(x, mo, out_dtype=out_dtype, backend="cuda")
+    assert mixed_gemm_blocks.launches_by_path["stream"] == n0 + 2
+    assert torch.equal(ck, again)
+    ct = tops.mixed_dot(x, mo, out_dtype=out_dtype, backend="torch")
+    w = mo.dequant().double()
+    tol = 1e-5 * (x.double().abs() @ w.abs().T)
+    if out_dtype == torch.bfloat16:
+        tol = tol + (2.0**-7 * ct.double().abs()).clamp_min(2.0**-133)
+    assert bool(torch.all((ck.double() - ct.double()).abs() <= tol))
 
 
 @pytest.fixture

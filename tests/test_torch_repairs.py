@@ -1,0 +1,275 @@
+"""Faults of the port against the JAX reference, each held against it
+on the CPU (and, where the fault was device-dependent, on the card):
+
+* ``mor_dot`` with a real-quantized (``QTensor``) weight: the forward
+  serves as before (same values and zero stats, no error without a
+  gradient), and a backward raises the reference's
+  ``NotImplementedError`` with its message, where the port used to
+  differentiate the plain version's ops (CPU) or drop x's gradient
+  (CUDA).
+* tanh-approximate gelu in bf16 (``models.common.activation('gelu')`` /
+  ``'geglu'``): bit for bit against compiled ``jax.nn.gelu(approximate=
+  True)`` forward and backward, over every finite bf16 value whose
+  result stays a normal number (XLA on the CPU flushes f32 denormals, so
+  inputs below 2^-124 in magnitude, whose results are denormal, are left
+  out); f32 within a few ulps of XLA's own tanh.
+* ``QTensor.is_quantized`` as the reference's ("any block stored as
+  fp8").
+* ``core.linear._dot`` turns cuBLAS's reduced-precision bf16 reduction
+  off for its own call only (card).
+
+The JAX side is compiled whole with excess precision off (``jit_ref``).
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import linear as jlin
+from repro.core.policy import MoRDotPolicy as JDotPolicy
+from repro.core.policy import MoRPolicy as JPolicy
+from repro.serve import quantized as jq
+from repro_torch.core import linear as tlin
+from repro_torch.core.policy import MoRDotPolicy, MoRPolicy
+from repro_torch.kernels import ops as tops
+from repro_torch.models.common import activation, glu_split
+from repro_torch.serve import quantized as tq
+
+SERVE_ERR = ("mor_dot cannot differentiate through a real-quantized "
+             "(QTensor) serving weight")
+
+
+def jit_ref(fn):
+    """``fn`` compiled by XLA with its excess precision off."""
+    return jax.jit(fn, compiler_options={"xla_allow_excess_precision": False})
+
+
+def to_torch(a) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).copy()).view(
+            torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
+def bits(a) -> np.ndarray:
+    if isinstance(a, torch.Tensor):
+        a = a.detach()
+        if a.dtype == torch.bfloat16:
+            return a.view(torch.int16).numpy().view(np.uint16)
+        a = a.numpy()
+    a = np.asarray(a)
+    return a.view(np.uint16) if a.dtype.name == "bfloat16" else a
+
+
+def served(seed=0):
+    """One (K, N) = (256, 192) weight served as a sub3 QTensor by both
+    packages, and a (2, 5, 256) bf16 activation."""
+    rng = np.random.default_rng(seed)
+    wj = jnp.asarray(rng.standard_normal((256, 192)) * 0.02, jnp.bfloat16)
+    xj = jnp.asarray(rng.standard_normal((2, 5, 256)), jnp.bfloat16)
+    qj, _ = jq.quantize_weight(wj, JPolicy(recipe="sub3", block_shape=(64, 64),
+                                           backend="xla"))
+    qt, _ = tq.quantize_weight(to_torch(wj), MoRPolicy(recipe="sub3",
+                                                       block_shape=(64, 64)))
+    return xj, qj, qt
+
+
+def test_qtensor_backward_raises_the_reference_error():
+    """A gradient through a QTensor weight raises NotImplementedError with
+    the reference's message in both packages."""
+    xj, qj, qt = served()
+    pol_j = JDotPolicy(weight=JPolicy(backend="xla"))
+
+    def loss_j(x):
+        y, _ = jlin.mor_dot(x, qj, jlin.new_token(), pol_j)
+        return jnp.sum(y.astype(jnp.float32))
+
+    with pytest.raises(NotImplementedError) as ej:
+        jax.grad(loss_j)(xj)
+    xt = to_torch(xj).requires_grad_(True)
+    y, st = tlin.mor_dot(xt, qt, None, MoRDotPolicy())
+    assert y.requires_grad and not st.requires_grad
+    with pytest.raises(NotImplementedError) as et:
+        y.float().sum().backward()
+    assert str(et.value) == str(ej.value) == SERVE_ERR
+    assert xt.grad is None
+
+
+@pytest.mark.parametrize("grad", (False, True))
+def test_qtensor_forward_unchanged(grad):
+    """The serving forward: the mixed GEMM's values (the same call as
+    ``ops.mixed_dot``, one launch of the plain version on the CPU), zero
+    stats, within the reference's qdot; no error where nothing asks for a
+    gradient."""
+    from repro_torch.kernels.ref import mixed_gemm_ref
+    xj, qj, qt = served(1)
+    xt = to_torch(xj).requires_grad_(grad)
+    calls = mixed_gemm_ref.calls
+    y, st = tlin.mor_dot(xt, qt, None, MoRDotPolicy())
+    assert mixed_gemm_ref.calls == calls + 1
+    want = tops.mixed_dot(xt.detach().reshape(10, 256), qt.mo,
+                          out_dtype=torch.bfloat16).reshape(2, 5, 192)
+    np.testing.assert_array_equal(bits(y), bits(want))
+    assert y.requires_grad == grad and y.dtype == torch.bfloat16
+    assert not st.requires_grad and not bool(st.any())
+    assert tuple(st.shape) == (tlin.N_FWD_EVENTS, st.shape[1])
+    yj = jit_ref(lambda x, q: jq.qdot(x, q, backend="xla"))(xj, qj)
+    yj32 = np.asarray(yj).astype(np.float32)
+    scale = np.abs(np.asarray(xj).astype(np.float64)).reshape(10, 256) @ \
+        np.abs(qt.dequant().double().numpy())
+    tol = 1e-6 * scale.reshape(2, 5, 192) + 2.0**-7 * np.abs(yj32)
+    assert np.all(np.abs(y.detach().float().numpy() - yj32) <= tol)
+    with torch.no_grad():
+        y2, _ = tlin.mor_dot(xt, qt, None, MoRDotPolicy())
+    np.testing.assert_array_equal(bits(y2), bits(want))
+
+
+@pytest.mark.cuda
+def test_qtensor_backward_raises_on_card(cuda_device):
+    """On the card the kernel's output now carries the serving Function's
+    grad_fn, so a backward raises instead of leaving x without one."""
+    _, _, qt = served(2)
+    qt = tq.QTensor(tq.MixedOperand(**{
+        **qt.mo.__dict__,
+        **{lane: getattr(qt.mo, lane).to(cuda_device) for lane in tq._LANES}}),
+        qt.stats.to(cuda_device), qt.shape)
+    x = torch.randn(4, 256, device=cuda_device).to(torch.bfloat16)
+    x.requires_grad_(True)
+    y, st = tlin.mor_dot(x, qt, None, MoRDotPolicy())
+    assert y.is_cuda and y.requires_grad and not st.requires_grad
+    with pytest.raises(NotImplementedError, match="QTensor"):
+        y.float().sum().backward()
+
+
+def _gelu_ref(x, g):
+    y, vjp = jax.vjp(lambda v: jax.nn.gelu(v, approximate=True), x)
+    return y, vjp(g)[0]
+
+
+def _normal_bf16():
+    """Every finite bf16 value of magnitude >= 2^-124, and zero."""
+    b = np.arange(1 << 16, dtype=np.uint16)
+    f = b.view(jnp.bfloat16).astype(np.float32)
+    keep = np.isfinite(f) & ((np.abs(f) >= 2.0**-124) | (f == 0))
+    return b[keep]
+
+
+def _same(a, b):
+    """Bit for bit, two NaNs of any payload counting as equal."""
+    a, b = np.asarray(a).astype(np.float32), np.asarray(b).astype(np.float32)
+    nan = np.isnan(a) & np.isnan(b)
+    return int(((a.view(np.uint32) != b.view(np.uint32)) & ~nan).sum())
+
+
+def test_gelu_bf16_bit_exact_forward_and_backward():
+    xb = _normal_bf16()
+    rng = np.random.default_rng(0)
+    xj = jnp.asarray(xb.view(jnp.bfloat16))
+    gj = jnp.asarray(rng.standard_normal(xb.shape[0]), jnp.bfloat16)
+    yj, dj = jit_ref(_gelu_ref)(xj, gj)
+    xt = to_torch(xj).requires_grad_(True)
+    yt = activation("gelu")(xt)
+    yt.backward(to_torch(gj))
+    assert yt.dtype == torch.bfloat16 and xt.grad.dtype == torch.bfloat16
+    assert _same(yj, yt.detach().float()) == 0
+    assert _same(dj, xt.grad.float()) == 0
+    # The one-rounding F.gelu the port used before differs in many.
+    old = torch.nn.functional.gelu(xt.detach(), approximate="tanh")
+    assert _same(yj, old.float()) > 1000
+
+
+def test_gelu_f32_matches_to_rounding():
+    """f32: the same chain against XLA's. The one op that differs is tanh:
+    XLA computes it with its own approximation and returns +-1 exactly
+    beyond |h| ~ 7.9, so the two differ by up to ~4.5 ulps of 1 (at most
+    2^-21). Carried through the chain (dy/di = x / 2; |d dx/di| <= |g|
+    (1/2 + c2 |x| (1 + 3 c1 x^2))) that moves y by at most 2^-22 |x| and
+    dx by at most 2^-21 |g| (1 + |x| (1 + 0.135 x^2)), near zero where
+    1 + tanh cancels as well. Each result is held to that plus 4 ulps of
+    its own rounding (relative 2^-21)."""
+    rng = np.random.default_rng(1)
+    x = np.concatenate([rng.standard_normal(4096) * s for s in
+                        (0.01, 1.0, 4.0, 30.0)]).astype(np.float32)
+    g = rng.standard_normal(x.shape[0]).astype(np.float32)
+    yj, dj = jit_ref(_gelu_ref)(jnp.asarray(x), jnp.asarray(g))
+    xt = torch.from_numpy(x).requires_grad_(True)
+    yt = activation("gelu")(xt)
+    yt.backward(torch.from_numpy(g))
+    ax, ag = np.abs(x).astype(np.float64), np.abs(g).astype(np.float64)
+    for want, got, slack in (
+            (yj, yt.detach(), 2.0**-22 * ax),
+            (dj, xt.grad, 2.0**-21 * ag * (ax * (1 + 0.135 * ax**2) + 1))):
+        want = np.asarray(want).astype(np.float64)
+        err = np.abs(got.numpy().astype(np.float64) - want)
+        assert np.all(err <= slack + 2.0**-21 * np.abs(want) + 1e-37)
+
+
+def test_geglu_glu_split_bit_exact():
+    """The gated form: gelu(gate) * up over a (4, 2 x 96) fc1 output, the
+    reference's ``glu_split`` forward and backward bit for bit."""
+    from repro.models.common import activation as jact
+    from repro.models.common import glu_split as jglu
+    rng = np.random.default_rng(2)
+    hj = jnp.asarray(rng.standard_normal((4, 192)) * 3, jnp.bfloat16)
+    gj = jnp.asarray(rng.standard_normal((4, 96)), jnp.bfloat16)
+
+    def ref(h, g):
+        y, vjp = jax.vjp(lambda v: jglu(v, True, jact("geglu")), h)
+        return y, vjp(g)[0]
+
+    yj, dj = jit_ref(ref)(hj, gj)
+    ht = to_torch(hj).requires_grad_(True)
+    yt = glu_split(ht, True, activation("geglu"))
+    yt.backward(to_torch(gj))
+    np.testing.assert_array_equal(bits(yt), bits(yj))
+    np.testing.assert_array_equal(bits(ht.grad), bits(dj))
+
+
+def test_qtensor_is_quantized():
+    """As tests/test_mixed_gemm.py holds the reference: recipe 'tensor'
+    stores a normal weight all in E4M3 (quantized) and a weight of huge
+    dynamic range all in BF16 (not); both packages agree."""
+    from repro_torch.kernels.ref import TAG_BF16, TAG_E4M3
+    rng = np.random.default_rng(1)
+    w = rng.standard_normal((256, 128)).astype(np.float32)
+    bad = np.exp2(rng.uniform(-30, 30, (256, 128))).astype(np.float32)
+    for arr, want, tag in ((w, True, TAG_E4M3), (bad, False, TAG_BF16)):
+        qj, _ = jq.quantize_weight(jnp.asarray(arr),
+                                   JPolicy(recipe="tensor", backend="xla"))
+        qt, st = tq.quantize_weight(torch.from_numpy(arr),
+                                    MoRPolicy(recipe="tensor"))
+        assert qt.is_quantized is want and qj.is_quantized is want
+        assert st["quantized"] == float(want)
+        assert bool((qt.tags == tag).all())
+
+
+@pytest.mark.cuda
+def test_dot_restores_the_reduced_precision_flag(cuda_device):
+    """``_dot``'s bf16 cuBLAS GEMM runs with the reduced-precision bf16
+    reduction off and leaves the caller's setting as it found it."""
+    flags = torch.backends.cuda.matmul
+    before = flags.allow_bf16_reduced_precision_reduction
+    a = torch.randn(64, 256, device=cuda_device).to(torch.bfloat16)
+    b = torch.randn(32, 256, device=cuda_device).to(torch.bfloat16)
+    try:
+        for user in (True, False):
+            flags.allow_bf16_reduced_precision_reduction = user
+            y = tlin._dot(a, b, torch.bfloat16)
+            assert flags.allow_bf16_reduced_precision_reduction is user
+            want = (a.float() @ b.float().T).to(torch.bfloat16)
+            assert torch.equal(y, want) or bool(
+                ((y.float() - want.float()).abs()
+                 <= 2.0**-7 * want.float().abs() + 1e-5 * (
+                     a.float().abs() @ b.float().abs().T)).all())
+    finally:
+        flags.allow_bf16_reduced_precision_reduction = before
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU or "
+                    "interpret mode (chip_smoke.py runs them on the card)")
+    return torch.device("cuda")
