@@ -4,7 +4,11 @@
     python3 chip_smoke.py
 
 1. Prints the card's name and power limit, builds the five CUDA sources
-   (one nvcc per source, started together) and prints the build time.
+   (one nvcc per source, started together) and prints the build time;
+   reads the fp8 GEMM's wgmma route's registers, spills and shared
+   memory from ``-Xptxas -v`` (a note that ptxas serialized its wgmmas
+   fails) and counts HGMMA in its SASS (``cuobjdump -sass``, where the
+   toolkit has it; none fails).
 2. Holds each kernel against its plain PyTorch version on the same CUDA
    tensors (``backend='torch'``): ``mor_select_pack`` byte for byte on
    inputs that hit every tag (a real layer shape among them, and a block
@@ -45,12 +49,17 @@
    version on its real inputs.
 7. The kernel API (``ops.flash_attention``, ``ops.fp8_gemm``, which no
    model path calls, as in the JAX package): both kernels against their
-   plain versions over layouts, offsets, dtypes and blocks; then, with
-   the counters zeroed just before and read just after, flash attention
-   at llama3-8b's heads (the 2 x 1024 training batch, the 8192 context,
-   a 4-slot prefill chunk against 512 positions) and the fp8 GEMM of
-   2048 tokens against the four layer weights, each call checked against
-   its plain version and timed beside its bound and a library call.
+   plain versions over layouts, offsets, dtypes and blocks (the fp8 GEMM
+   on both of its routes, with mixed formats, tiny blocks whose scales'
+   product overflows f32, and a bit-identical repeat of every call);
+   then, with the counters zeroed just before and read just after, flash
+   attention at llama3-8b's heads (the 2 x 1024 training batch, the 8192
+   context, a 4-slot prefill chunk against 512 positions) and the fp8
+   GEMM of 2048 tokens against the four layer weights (all four on the
+   wgmma route), each call checked against its plain version and timed
+   beside its bound (and, for the fp8 GEMM, the f16 bound of its MMAs and
+   the cuda_core route's time at a block of that route) and a library
+   call.
 
 Prints JSON lines (the ``kernels``, ``engine``, ``train`` and
 ``kernel_api`` lines among them) and ends with ``{"ok": true, "device":
@@ -1008,6 +1017,8 @@ def reset_counters():
     for fn in kernels.values():
         fn.launches = 0
     kernels["mixed_gemm"].launches_by_path = {"stream": 0, "tc": 0}
+    kernels["fp8_gemm"].launches_by_route = {
+        r: 0 for r in kernels["fp8_gemm"].launches_by_route}
     for fn in plain.values():
         fn.calls = 0
 
@@ -1282,6 +1293,7 @@ FLASH_API_CASES = {
     "c_prefill_chunk": (4, 32, 512, (0, 64, 200, 480)),  # engine chunk
 }
 FP8_API_M = 2048  # tokens against llama3-8b's four layer GEMMs
+CUDA_CORE_BLOCK = (128, 128, 64)  # a block of the cuda_core route
 
 
 def flash_tol(v, out_plain):
@@ -1336,8 +1348,11 @@ def phase_kernel_api_parity(ops, Partition, cfg):
     causal and full; S = T, S < T with the default, a scalar, a per-batch
     and a per-row offset with a negative entry, ragged S = 100 / T = 300;
     GQA with G = 4 and G = 1 and the folded 3-D layout) and of
-    ``ops.fp8_gemm`` (E4M3 and E5M2 payloads, bf16 and f32 out, blocks
-    (128, 128, 128) and (128, 256, 128))."""
+    ``ops.fp8_gemm`` on both routes (E4M3, E5M2 and mixed payloads, bf16
+    and f32 out, blocks (128, 128, 128) and (128, 256, 128), tiny blocks
+    whose sa * sb overflows, a 64-row block with a ragged tile, and two
+    blocks of the cuda_core route), each call twice: the repeat must be
+    bit-identical."""
     from repro_torch.core.formats import E4M3, E5M2
     hq, hkv, dh = cfg.n_heads, cfg.n_kv, cfg.head_dim
     g = torch.Generator(device="cuda").manual_seed(0)
@@ -1385,30 +1400,101 @@ def phase_kernel_api_parity(ops, Partition, cfg):
                 n += 1
     emit({"parity": "flash_attention", "cases": n, "ok": True,
           "max_abs_err": worst["flash_attention"]})
-    M, N, K = 512, 1024, 1024
-    x = torch.randn(M, K, generator=g, device="cuda")
-    w = torch.randn(K, N, generator=g, device="cuda")
-    n = 0
-    for fmt in (E4M3, E5M2):
-        for block in ((128, 128, 128), (128, 256, 128)):
-            bm, bn, bk = block
-            aq, sa = fp8_operand(x, (bm, bk), fmt, Partition)
-            bq, sb = fp8_operand(w, (bk, bn), fmt, Partition)
-            A, Bd = dequant(aq, sa, (bm, bk)), dequant(bq, sb, (bk, bn))
-            for out in (torch.bfloat16, torch.float32):
-                ck = ops.fp8_gemm(aq, bq, sa, sb, block=block, out_dtype=out,
-                                  backend="cuda")
-                ct = ops.fp8_gemm(aq, bq, sa, sb, block=block, out_dtype=out,
-                                  backend="torch")
-                err = (ck.float() - ct.float()).abs()
-                check(bool(torch.all(err <= gemm_tol(A, Bd.T, ct, out))),
-                      f"fp8_gemm {fmt.name} {block} {out}: max err "
-                      f"{float(err.max())} beyond 1e-5 sum|a b| (+1 bf16 ulp)")
-                worst["fp8_gemm"] = max(worst["fp8_gemm"], float(err.max()))
-                n += 1
-    emit({"parity": "fp8_gemm", "cases": n, "ok": True,
-          "max_abs_err": worst["fp8_gemm"]})
+    from repro_torch.kernels.fp8_gemm import fp8_gemm_blocks, fp8_gemm_route
+    # (M, N, K), block, A's format, B's format, value scale. The first
+    # four: both formats and blocks of the reference suite; then mixed
+    # formats, tiny blocks (N(0,1) * 1e-18: sa * sb overflows f32), a
+    # 64-row block with a ragged last tile, a 256-deep K block, and blocks
+    # the route function gives the cuda_core route (bk = 32, bn = 64,
+    # bk = 64), tiny blocks there too.
+    cases = [((512, 1024, 1024), blk, f, f, 1.0)
+             for f in (E4M3, E5M2)
+             for blk in ((128, 128, 128), (128, 256, 128))]
+    cases += [((512, 1024, 1024), (128, 128, 128), E4M3, E5M2, 1.0),
+              ((512, 1024, 1024), (128, 128, 128), E4M3, E4M3, 1e-18),
+              ((192, 256, 384), (64, 128, 128), E5M2, E4M3, 1.0),
+              ((256, 512, 1024), (128, 128, 256), E5M2, E5M2, 1.0),
+              ((512, 1024, 1024), (128, 128, 32), E4M3, E4M3, 1.0),
+              ((256, 512, 256), (128, 64, 128), E4M3, E5M2, 1.0),
+              ((192, 256, 320), (64, 128, 64), E5M2, E4M3, 1.0),
+              ((512, 1024, 1024), (128, 128, 32), E4M3, E4M3, 1e-18)]
+    n, by_route, ratio = 0, {}, 0.0
+    for (M, N, K), block, fa, fb, scale in cases:
+        bm, bn, bk = block
+        x = torch.randn(M, K, generator=g, device="cuda") * scale
+        w = torch.randn(K, N, generator=g, device="cuda") * scale
+        aq, sa = fp8_operand(x, (bm, bk), fa, Partition)
+        bq, sb = fp8_operand(w, (bk, bn), fb, Partition)
+        A, Bd = dequant(aq, sa, (bm, bk)), dequant(bq, sb, (bk, bn))
+        route = fp8_gemm_route(M, N, K, block)
+        for out in (torch.bfloat16, torch.float32):
+            before = fp8_gemm_blocks.launches_by_route[route]
+            ck = ops.fp8_gemm(aq, bq, sa, sb, block=block, out_dtype=out,
+                              backend="cuda")
+            again = ops.fp8_gemm(aq, bq, sa, sb, block=block, out_dtype=out,
+                                 backend="cuda")
+            ct = ops.fp8_gemm(aq, bq, sa, sb, block=block, out_dtype=out,
+                              backend="torch")
+            what = (f"fp8_gemm {(M, N, K)} {block} {fa.name}x{fb.name} "
+                    f"scale {scale} {out} ({route})")
+            check(fp8_gemm_blocks.launches_by_route[route] == before + 2,
+                  f"{what}: not launched on its route")
+            check(torch.equal(ck, again), f"{what}: a repeat differs")
+            err = (ck.float() - ct.float()).abs()
+            tol = gemm_tol(A, Bd.T, ct, out)
+            check(bool(torch.all(err <= tol)),
+                  f"{what}: max err {float(err.max())} beyond 1e-5 sum|a b| "
+                  "(+1 bf16 ulp)")
+            if scale < 1.0:
+                check(float(ct.float().abs().max()) > 0.0,
+                      f"{what}: the plain version is all zeros")
+            worst["fp8_gemm"] = max(worst["fp8_gemm"], float(err.max()))
+            ratio = max(ratio, float((err / tol).max()))
+            by_route[route] = by_route.get(route, 0) + 1
+            n += 1
+    emit({"parity": "fp8_gemm", "cases": n, "cases_by_route": by_route,
+          "ok": True, "repeats_bit_identical": True,
+          "max_abs_err": worst["fp8_gemm"], "max_err_over_tol": ratio})
     return worst
+
+
+def fp8_build_facts(build):
+    """The wgmma route's registers, spills and shared memory (its
+    ``-Xptxas -v`` lines and the launcher's dynamic shared memory), the
+    counts of ptxas's notes that it serialized the wgmmas (any fails),
+    and the number of HGMMA instructions in the library's SASS
+    (``cuobjdump -sass``, where the toolkit has it; none fails)."""
+    import os
+    import shutil
+    log = build.build_log("fp8_gemm").splitlines()
+    regs, spills = set(), set()
+    for i, line in enumerate(log):
+        if "Compiling entry function" in line and "wgmma_kernel" in line:
+            for ln in log[i + 1:i + 4]:
+                if "registers" in ln:
+                    regs.add(int(ln.split("Used ")[1].split()[0]))
+                if "spill" in ln:
+                    spills.add(ln.strip())
+    # ptxas's notes that it serialized the wgmmas or injected a wait
+    # (C7514, C7517, C7518): any of them costs the overlap the design needs.
+    notes = {c: sum(c in ln for ln in log) for c in ("C7514", "C7517", "C7518")}
+    facts = {"wgmma_registers": sorted(regs), "wgmma_spills": sorted(spills),
+             "wgmma_smem_bytes": build.load("fp8_gemm").fp8_gemm_wgmma_smem(),
+             "wgmma_serialized_notes": notes}
+    check(regs, "fp8_gemm: no ptxas lines for the wgmma kernel")
+    check(not any(notes.values()),
+          f"fp8_gemm: ptxas serialized the wgmma kernel's wgmmas: {notes}")
+    cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if os.path.exists(cuobjdump):
+        sass = subprocess.run(
+            [cuobjdump, "-sass", str(build.library_path("fp8_gemm"))],
+            capture_output=True, text=True, check=True).stdout
+        facts["sass"] = {"HGMMA": sass.count("HGMMA")}
+        check(facts["sass"]["HGMMA"] > 0,
+              "fp8_gemm: the library's SASS holds no HGMMA")
+    else:
+        facts["sass"] = "not checked"
+    return facts
 
 
 def sdpa_yardstick(q, k, v, offs):
@@ -1440,7 +1526,7 @@ def phase_kernel_api(ops, Partition, cfg):
     beside its bound and a library call."""
     from repro_torch.core.formats import E4M3
     from repro_torch.kernels.flash_attention import flash_attention_fwd
-    from repro_torch.kernels.fp8_gemm import fp8_gemm_blocks
+    from repro_torch.kernels.fp8_gemm import fp8_gemm_blocks, fp8_gemm_route
     hq, hkv, dh = cfg.n_heads, cfg.n_kv, cfg.head_dim
     d, f = cfg.d_model, cfg.d_ff
     g = torch.Generator(device="cuda").manual_seed(1)
@@ -1475,9 +1561,13 @@ def phase_kernel_api(ops, Partition, cfg):
         outs[name] = ops.fp8_gemm(*args)
     torch.cuda.synchronize()
     k_counts, p_counts = read_counters()
+    fp8_routes = dict(fp8_gemm_blocks.launches_by_route)
     check(k_counts["flash_attention"] == len(flash_in)
           and k_counts["fp8_gemm"] == len(fp8_in),
           f"kernel_api: launches {k_counts}, want one per call")
+    check(fp8_routes["wgmma"] == len(fp8_in),
+          f"kernel_api: fp8_gemm launches by route {fp8_routes}, want "
+          "every call on the wgmma route")
     check(not any(p_counts.values()),
           f"kernel_api: plain versions ran on the main path: {p_counts}")
 
@@ -1521,19 +1611,32 @@ def phase_kernel_api(ops, Partition, cfg):
               f"fp8_gemm {name}: max err {float(err.max())} beyond 1e-5 "
               "sum|a b| + 1 bf16 ulp")
         a16, b16 = A.to(torch.bfloat16), Bd.to(torch.bfloat16)
+        # PR 13's route, timed beside it at a block the route function
+        # gives it (bk = 64: the same products, twice the promotions).
+        cq = (fp8_operand(A, CUDA_CORE_BLOCK[::2], E4M3, Partition)
+              + fp8_operand(Bd, CUDA_CORE_BLOCK[:0:-1], E4M3, Partition))
         del A, Bd, yt
         flops = 2.0 * M * N * K
         nbytes = M * K + K * N + 4 * (sa.numel() + sb.numel()) + 2 * M * N
         b = bound(nbytes, flops, FP8_FLOPS)
+        # The wgmma route's own ceiling: its MMAs run at the f16 rate.
+        b_f16 = bound(nbytes, flops, BF16_FLOPS)
+        check(fp8_gemm_route(M, N, K, CUDA_CORE_BLOCK) == "cuda_core",
+              f"fp8_gemm: block {CUDA_CORE_BLOCK} is not on the cuda_core "
+              "route")
         res["fp8_gemm"][name] = dict(
             ms=time_ms(lambda: fp8_gemm_blocks(aq, bq, sa, sb)),
+            route="wgmma",
+            cuda_core_ms=time_ms(lambda: fp8_gemm_blocks(
+                cq[0], cq[2], cq[1], cq[3], block=CUDA_CORE_BLOCK), iters=3),
+            cuda_core_block=list(CUDA_CORE_BLOCK),
             plain_ms=time_ms(lambda: ops.fp8_gemm(aq, bq, sa, sb,
                                                   backend="torch")),
             library_ms=time_ms(lambda: torch.matmul(a16, b16)),
-            bound_ms=b[0], bound_by=b[1],
+            bound_ms=b[0], bound_by=b[1], bound_f16_ms=b_f16[0],
             max_abs_err=float(err.max()), shape=[M, N, K],
             flops=flops, bytes=nbytes)
-        del a16, b16
+        del a16, b16, cq
         torch.cuda.empty_cache()
     for kern, head in (("flash_attention", "b_context_8192"),
                        ("fp8_gemm", "fc1")):
@@ -1541,6 +1644,7 @@ def phase_kernel_api(ops, Partition, cfg):
     del flash_in, fp8_in, outs
     gc.collect()
     torch.cuda.empty_cache()
+    res["fp8_gemm"]["launches_by_route"] = fp8_routes
     return res, k_counts
 
 
@@ -1570,6 +1674,8 @@ def main():
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "card": smi})
 
+    fp8_build = fp8_build_facts(build)
+    emit({"fp8_gemm_build": fp8_build, "card": smi})
     sel_err = phase_mor_select(ops, Partition)
     gemm_parity = phase_mixed_gemm(ops, ref, Partition)
     quant_parity = phase_quant_select(ops, Partition)
@@ -1630,6 +1736,15 @@ def main():
         if name in api:
             entry["case"] = t["case"]
             entry["cases"] = t["cases"]
+        if name == "fp8_gemm":
+            # ms / bound_ms above: the wgmma route at fc1; bound_f16_ms:
+            # the same work at the f16 rate of its MMAs.
+            entry["kernel_route"] = t["route"]
+            entry["launches_by_route"] = t["launches_by_route"]
+            entry["bound_f16_ms"] = t["bound_f16_ms"]
+            entry["cuda_core_ms"] = t["cuda_core_ms"]
+            entry["cuda_core_block"] = t["cuda_core_block"]
+            entry["build"] = fp8_build
         kernels.append(entry)
     emit({"parity_max_abs_err": {"mor_select_pack": sel_err, **api_parity},
           **quant_parity})

@@ -65,8 +65,9 @@ class MoRDotPolicy:
     ablation hook). ``fuse_gemm=True`` routes all three GEMMs through the
     mixed-representation block GEMM on real packs instead of
     dequantize-then-bf16-dot; every enabled operand policy must then be
-    'block'-partitioned with one shared block shape. (The reference's
-    ``decision_cache_steps`` is read by nothing and is not ported.)
+    'block'-partitioned with one shared block shape.
+    ``decision_cache_steps`` is accepted and ignored: the reference
+    declares it and nothing there reads it.
     """
 
     act: MoRPolicy = MoRPolicy()
@@ -74,6 +75,7 @@ class MoRDotPolicy:
     grad: MoRPolicy = MoRPolicy()
     quantize_bwd: bool = True
     fuse_gemm: bool = False
+    decision_cache_steps: int = 0  # unread, as in the reference
 
     @property
     def enabled(self) -> bool:

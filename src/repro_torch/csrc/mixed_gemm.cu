@@ -71,12 +71,8 @@
 // instead (~3 B per element). No wgmma, TMA or warp specialisation yet:
 // wgmma would read the tiles through shared-memory descriptors in its
 // own layout.
-#include <cuda.h>
-#include <string.h>
-
-#include <mutex>
-
 #include "common.cuh"
+#include "tma.cuh"
 
 struct Operand {
   const uint8_t* q;
@@ -154,34 +150,6 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared.b64 [%0], %1;\n" ::"r"(
-                   (uint32_t)__cvta_generic_to_shared(bar)), "r"(count));
-}
-
-// One thread announces the bytes a TMA copy will bring to the barrier.
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared.b64 _, [%0], %1;\n" ::"r"(
-                   (uint32_t)__cvta_generic_to_shared(bar)), "r"(bytes));
-}
-
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  asm volatile(
-      "{\n .reg .pred p;\n WAIT_%=: mbarrier.try_wait.parity.shared.b64 p, [%0], %1;\n"
-      " @!p bra WAIT_%=;\n}\n" ::"r"((uint32_t)__cvta_generic_to_shared(bar)),
-      "r"(parity));
-}
-
-// A 2-D box of the tensor `map` at (x, y) into shared memory by the TMA.
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, int x, int y,
-                                            uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"((uint32_t)__cvta_generic_to_shared(dst)),
-      "l"(map), "r"(x), "r"(y), "r"((uint32_t)__cvta_generic_to_shared(bar))
-      : "memory");
 }
 
 __device__ __forceinline__ uint16_t bf16_bits(float v) {
@@ -455,64 +423,6 @@ mixed_gemm_stream_kernel(const __grid_constant__ CUtensorMap wmap,
 }
 
 static bool aligned(const void* p, uintptr_t n) { return ((uintptr_t)p & (n - 1)) == 0; }
-
-typedef CUresult (*TensorMapEncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                         const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                         const cuuint32_t*, CUtensorMapInterleave,
-                                         CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                         CUtensorMapFloatOOBfill);
-
-// A TMA descriptor of a row-major (rows, cols) matrix of `elem`-byte
-// values with rows `pitch` bytes apart, read in boxes of box_cols x
-// box_rows; rows past `rows` read as zeros. The driver's encoder is found
-// once through the runtime (no link to libcuda). Encoding takes the host
-// tens of microseconds, so the last ST_MAPS descriptors are kept, keyed
-// by everything they encode: a weight's is reused by every call, an
-// activation's whenever the allocator hands its buffer out again.
-#define ST_MAPS 64
-struct StMapKey {
-  const void* p;
-  int type, rows, cols, box_cols, box_rows, swizzle;
-  size_t pitch;
-};
-
-static cudaError_t st_map(CUtensorMap* map, CUtensorMapDataType type, const void* p, int rows,
-                          int cols, size_t pitch, int box_cols, int box_rows,
-                          CUtensorMapSwizzle swizzle) {
-  static std::mutex lock;
-  static TensorMapEncodeTiled encode = nullptr;
-  static StMapKey keys[ST_MAPS];
-  static CUtensorMap maps[ST_MAPS];
-  static int used = 0, next = 0;
-  const StMapKey key{p, (int)type, rows, cols, box_cols, box_rows, (int)swizzle, pitch};
-  std::lock_guard<std::mutex> hold(lock);
-  for (int i = 0; i < used; ++i)
-    if (memcmp(&keys[i], &key, sizeof(key)) == 0) {
-      *map = maps[i];
-      return cudaSuccess;
-    }
-  if (encode == nullptr) {
-    void* fn = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    const cudaError_t e =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
-    if (e != cudaSuccess) return e;
-    if (fn == nullptr || found != cudaDriverEntryPointSuccess) return cudaErrorNotSupported;
-    encode = (TensorMapEncodeTiled)fn;
-  }
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)pitch};
-  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows}, step[2] = {1, 1};
-  const CUresult r = encode(map, type, 2, const_cast<void*>(p), dims, strides, box, step,
-                            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  if (r != CUDA_SUCCESS) return cudaErrorInvalidValue;
-  keys[next] = key;
-  maps[next] = *map;
-  next = (next + 1) % ST_MAPS;
-  if (used < ST_MAPS) ++used;
-  return cudaSuccess;
-}
 
 template <int NT, bool FAST>
 static cudaError_t st_allow_smem() {
@@ -833,20 +743,21 @@ extern "C" int mixed_gemm_launch(
   CUtensorMap wmap, amap;
   memset(&wmap, 0, sizeof(wmap));
   if (fast && B.q_dense) {
-    const cudaError_t e = st_map(&wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, B.q,
-                                 (N + B.br - 1) / B.br * B.br, Kp, Kp, ST_KC, ST_ROWS,
-                                 CU_TENSOR_MAP_SWIZZLE_NONE);
+    const cudaError_t e = tma_map_2d(&wmap, CU_TENSOR_MAP_DATA_TYPE_UINT8, B.q,
+                                     (N + B.br - 1) / B.br * B.br, Kp, Kp, ST_KC, ST_ROWS,
+                                     CU_TENSOR_MAP_SWIZZLE_NONE);
     if (e != cudaSuccess) return (int)e;
   }
   cudaError_t err;
   if (!A.q_dense && !A.nv && A.bf_dense && Kp == Kd && aligned(A.bf, 16)) {
-    err = st_map(&amap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, A.bf, (M + A.br - 1) / A.br * A.br, Kp,
-                 (size_t)Kp * 2, ST_KC, 8 * nt, CU_TENSOR_MAP_SWIZZLE_128B);
+    err = tma_map_2d(&amap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, A.bf,
+                     (M + A.br - 1) / A.br * A.br, Kp, (size_t)Kp * 2, ST_KC, 8 * nt,
+                     CU_TENSOR_MAP_SWIZZLE_128B);
   } else {
     err = tc_decode_launch(A, (__nv_bfloat16*)workspace, 8 * nt, Kd, Kp, bk, s);
     if (err == cudaSuccess)
-      err = st_map(&amap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, workspace, 8 * nt, Kd,
-                   (size_t)Kd * 2, ST_KC, 8 * nt, CU_TENSOR_MAP_SWIZZLE_128B);
+      err = tma_map_2d(&amap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, workspace, 8 * nt, Kd,
+                       (size_t)Kd * 2, ST_KC, 8 * nt, CU_TENSOR_MAP_SWIZZLE_128B);
   }
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)((N + ST_ROWS - 1) / ST_ROWS), (unsigned)splits);

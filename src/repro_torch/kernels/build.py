@@ -20,7 +20,8 @@ import subprocess
 from pathlib import Path
 from typing import Dict, List
 
-__all__ = ["CSRC", "BUILD_DIR", "SOURCES", "build_all", "load"]
+__all__ = ["CSRC", "BUILD_DIR", "SOURCES", "build_all", "build_log", "load",
+           "library_path"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -89,10 +90,23 @@ def _build(names) -> Dict[str, str]:
     return logs
 
 
+def build_log(name: str) -> str:
+    """The compiler log of the cached build of ``csrc/<name>.cu`` (its
+    ``-Xptxas -v`` lines), building it first if needed."""
+    _build([name])
+    return (BUILD_DIR / f"{_target(name).stem}.log").read_text()
+
+
 def build_all() -> Dict[str, str]:
     """Build every kernel library not yet cached (register and
     shared-memory use from ``-Xptxas -v`` in the returned logs)."""
     return _build(SOURCES)
+
+
+def library_path(name: str) -> Path:
+    """Path of the built library of ``csrc/<name>.cu``, built if needed."""
+    _build([name])
+    return _target(name)
 
 
 def load(name: str) -> ctypes.CDLL:

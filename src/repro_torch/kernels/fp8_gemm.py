@@ -1,5 +1,12 @@
-"""Wrapper of the per-block-scaled fp8 GEMM kernel (``csrc/fp8_gemm.cu``),
+"""Wrapper of the per-block-scaled fp8 GEMM kernels (``csrc/fp8_gemm.cu``),
 the Hopper port of ``repro/kernels/fp8_gemm.py:fp8_gemm``.
+
+Two routes, picked by :func:`fp8_gemm_route` from the shape and block
+alone: ``wgmma`` (TMA ring, exact fp8 -> f16 conversion, f16 wgmma with
+f32 accumulators) where each 64 x 128 slab of an output tile lies in one
+scale block and each K block holds an even number of 64-deep K steps,
+else ``cuda_core`` (an f32 outer product on CUDA cores, any block with
+``bk % 32 == 0``).
 
 The plain PyTorch version of the same function is
 ``kernels.ref.fp8_gemm_ref``; ``kernels.ops.fp8_gemm`` routes a CPU
@@ -14,18 +21,35 @@ import torch
 
 from . import build
 
-__all__ = ["fp8_gemm_blocks", "FP8_DTYPES", "check_fp8_gemm"]
+__all__ = ["fp8_gemm_blocks", "fp8_gemm_route", "FP8_DTYPES", "ROUTES",
+           "check_fp8_gemm"]
 
 FP8_DTYPES = (torch.float8_e4m3fn, torch.float8_e5m2)
-# The kernel's K step: a scale block must hold whole steps.
+ROUTES = ("wgmma", "cuda_core")
+# The cuda_core kernel's K step: a scale block must hold whole steps.
 K_STEP = 32
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
-def _fn():
-    f = build.load("fp8_gemm").fp8_gemm_launch
+def fp8_gemm_route(M: int, N: int, K: int,
+                   block: Tuple[int, int, int]) -> str:
+    """The route that computes (M, N, K) under ``block``: "wgmma" where
+    bm % 64 == 0, bn % 128 == 0 and bk % 128 == 0 (each MMA warpgroup's
+    64 x 128 slab in one scale block, an even number of 64-deep stages in
+    each K block), "cuda_core" otherwise. A pure function of its
+    arguments; each launcher computes its own grid and refuses a block
+    outside its route."""
+    bm, bn, bk = block
+    if bm % 64 == 0 and bn % 128 == 0 and bk % 128 == 0:
+        return "wgmma"
+    return "cuda_core"
+
+
+def _fn(route: str):
+    lib = build.load("fp8_gemm")
+    f = lib.fp8_gemm_wgmma_launch if route == "wgmma" else lib.fp8_gemm_launch
     f.argtypes = [_P] * 5 + [_I] * 9 + [_P]
     f.restype = _I
     return f
@@ -65,11 +89,13 @@ def fp8_gemm_blocks(a_q: torch.Tensor, b_q: torch.Tensor,
                     a_scale: torch.Tensor, b_scale: torch.Tensor, *,
                     block: Tuple[int, int, int] = (128, 128, 128),
                     out_dtype=torch.bfloat16) -> torch.Tensor:
-    """Launch C = sum_kb (A_q B_q)_kb / (sa sb) on the card: a_q (M, K)
+    """Launch C = sum_kb (A_q B_q)_kb / sa / sb on the card: a_q (M, K)
     and b_q (K, N) fp8 (E4M3 or E5M2, each its own), f32 block scales;
-    returns (M, N) in ``out_dtype``."""
+    returns (M, N) in ``out_dtype``, on the route
+    :func:`fp8_gemm_route` picks."""
     M, N, K = check_fp8_gemm(a_q, b_q, a_scale, b_scale, block, out_dtype)
     bm, bn, bk = block
+    route = fp8_gemm_route(M, N, K, block)
     if bk % K_STEP:
         raise ValueError(f"the kernel steps K by {K_STEP}: block_k={bk} "
                          "must be a multiple of it")
@@ -89,7 +115,7 @@ def fp8_gemm_blocks(a_q: torch.Tensor, b_q: torch.Tensor,
             raise ValueError(f"{name} must be 16-byte aligned (the kernel "
                              "loads 16 bytes at once)")
     out = torch.empty((M, N), dtype=out_dtype, device=dev)
-    fn = _fn()
+    fn = _fn(route)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(a_q.data_ptr(), b_q.data_ptr(), a_scale.data_ptr(),
@@ -98,9 +124,12 @@ def fp8_gemm_blocks(a_q: torch.Tensor, b_q: torch.Tensor,
                  int(b_q.dtype == torch.float8_e5m2),
                  int(out_dtype == torch.float32), stream)
     if err != 0:
-        raise RuntimeError(f"fp8_gemm launch failed: CUDA error {err}")
+        raise RuntimeError(f"fp8_gemm ({route}) launch failed: CUDA error "
+                           f"{err}")
     fp8_gemm_blocks.launches += 1
+    fp8_gemm_blocks.launches_by_route[route] += 1
     return out
 
 
 fp8_gemm_blocks.launches = 0
+fp8_gemm_blocks.launches_by_route = {r: 0 for r in ROUTES}

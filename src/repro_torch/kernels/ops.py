@@ -218,9 +218,11 @@ def quantize_pack(x: torch.Tensor, part: Partition, mode: str = "sub3",
 
 
 def mixed_gemm(a: MixedOperand, b: MixedOperand, *,
-               out_dtype=torch.bfloat16, backend: str = "auto"):
+               out_dtype=torch.bfloat16, backend: str = "auto", tile=None):
     """C = A @ B^T over two mixed operands, unpadded (M, N): every block
-    decoded per its tag to its stored value, f32 accumulation."""
+    decoded per its tag to its stored value, f32 accumulation.
+    ``tile`` (the reference's TPU VMEM tiling, a ``GemmTile``) is
+    accepted and ignored: the CUDA kernels plan their own tiles."""
     be = resolve_backend(backend, b.tags)
     if be == "torch":
         return _ref.mixed_gemm_ref(a, b, out_dtype)
@@ -228,10 +230,11 @@ def mixed_gemm(a: MixedOperand, b: MixedOperand, *,
 
 
 def mixed_dot(x2: torch.Tensor, mo: MixedOperand, *,
-              out_dtype=torch.bfloat16, backend: str = "auto"):
+              out_dtype=torch.bfloat16, backend: str = "auto", tile=None):
     """x2 @ W^T for an unquantized (M, K) activation against a mixed
     (N, K)-view weight: the activation becomes an all-BF16 pack with a
-    row block sized to it (decode steps have a handful of rows)."""
+    row block sized to it (decode steps have a handful of rows).
+    ``tile`` is accepted and ignored, as in :func:`mixed_gemm`."""
     bk = mo.block[1]
     a = _ref.passthrough_mixed(
         x2, (_ref.activation_row_block(x2.shape[0], bk), bk)

@@ -37,20 +37,23 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
 
 def make_loss_fn(cfg: ArchConfig, policy: MoRDotPolicy, *,
-                 remat: bool = True):
+                 remat: bool = True, aux_coef: float = 0.01):
     """loss_fn(params, tokens, batch) -> (total loss, aux). ``tokens``
     are the zero bwd-stat tokens from :func:`make_tokens`; differentiate
     with respect to them to read the backward quantization stats. The
-    dense family has no MoE load-balance term, so the total is the
-    cross-entropy and ``aux['aux_loss']`` is zero."""
+    total is ``loss + aux_coef * aux_loss`` as in the reference, whose
+    ``aux_loss`` sums the MoE load-balance terms; the dense family has
+    none, so ``aux['aux_loss']`` is zero and any ``aux_coef`` leaves the
+    total equal to the cross-entropy."""
 
     def loss_fn(params, tokens, batch):
         logits, _, stats = T.forward(cfg, policy, params, batch,
                                      mode="train", tokens=tokens,
                                      remat=remat)
         loss = cross_entropy(logits, batch["labels"])
-        return loss, {"loss": loss, "aux_loss": torch.zeros_like(loss),
-                      "mor_fwd": stats}
+        aux_loss = torch.zeros_like(loss)
+        return loss + aux_coef * aux_loss, {
+            "loss": loss, "aux_loss": aux_loss, "mor_fwd": stats}
 
     return loss_fn
 

@@ -101,11 +101,14 @@ def global_norm(tree) -> torch.Tensor:
 
 
 def adamw_update(cfg: AdamWConfig, grads, opt_state: OptState, *,
-                 moments=None, guard=None) -> Tuple[Any, OptState, dict]:
+                 decay_mask=None, moments=None,
+                 guard=None) -> Tuple[Any, OptState, dict]:
     """Returns (new bf16 params, new opt state, metrics {'lr',
-    'grad_norm'}). Weight decay applies to every leaf of two or more
-    dimensions (the reference's default mask: the layer-stacked norm
-    scales decay too)."""
+    'grad_norm'}). ``decay_mask`` is a tree like the params whose leaves
+    (0/1 floats, or tensors that broadcast against the leaf) multiply
+    each leaf's weight decay; by default every leaf of two or more
+    dimensions decays (the reference's default mask: the layer-stacked
+    norm scales decay too)."""
     if moments is not None:
         raise NotImplementedError(
             "packed Adam moments are not ported yet (ROADMAP Queue 1)")
@@ -121,8 +124,9 @@ def adamw_update(cfg: AdamWConfig, grads, opt_state: OptState, *,
     stepf = step.to(torch.float32)
     c1 = 1.0 - torch.pow(b1, stepf)
     c2 = 1.0 - torch.pow(b2, stepf)
-    decay_mask = tree_map(lambda p: 1.0 if p.ndim >= 2 else 0.0,
-                          opt_state.master)
+    if decay_mask is None:
+        decay_mask = tree_map(lambda p: 1.0 if p.ndim >= 2 else 0.0,
+                              opt_state.master)
 
     def upd(master, m, v, g, wd):
         g = g.to(torch.float32) * scale

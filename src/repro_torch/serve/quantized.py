@@ -174,8 +174,10 @@ def quantize_weight_stacked(w3: torch.Tensor, policy: MoRPolicy
     return qt, _info(qt.stats, qt)
 
 
-def qdot(x: torch.Tensor, qw: QTensor, *, backend: str = "auto"):
-    """x @ W for a single-matrix QTensor weight."""
+def qdot(x: torch.Tensor, qw: QTensor, *, backend: str = "auto",
+         tile=None):
+    """x @ W for a single-matrix QTensor weight. ``tile`` (the
+    reference's TPU VMEM tiling) is accepted and ignored."""
     if qw.is_stacked:
         raise ValueError("qdot takes a single-matrix QTensor; slice a "
                          "stacked weight with QTensor.layer first")

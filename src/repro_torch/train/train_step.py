@@ -2,9 +2,10 @@
 AdamW update, with the MoR stats as metrics (port of the dense-state
 path of ``repro.train.train_step``).
 
-Gradient compression, packed moments, the skip-step guard and the
-shard_map statistics axes are not ported yet: a :class:`TrainConfig`
-asking for them raises.
+Gradient compression, packed moments, the skip-step guard, the
+shard_map statistics axes and the chaos harness's gradient faults are
+not ported yet: a :class:`TrainConfig` or ``grad_fault`` asking for them
+raises.
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ from repro_torch.core.formats import true_divide
 from repro_torch.core.mor import (STAT_DECISION, STAT_FALLBACK_COUNT,
                                   STAT_FRAC_BF16, STAT_GUARD_FLAGS,
                                   STAT_REL_ERR, STATS_WIDTH)
-from repro_torch.core.policy import MoRDotPolicy
+from repro_torch.core.policy import MoRDotPolicy, MoRPolicy
 from repro_torch.models.api import make_loss_fn, make_tokens
 from repro_torch.optim.adamw import (AdamWConfig, OptState, adamw_update,
                                      tree_leaves, tree_map)
@@ -34,14 +35,26 @@ class TrainConfig:
     remat: bool = True
     # Not ported yet; anything but the defaults raises.
     compress_grads: str = "none"
+    # The compression's MoR policy (the reference's default).
+    grad_policy: MoRPolicy = MoRPolicy(recipe="sub3")
     moments: object = None
-    guard: object = None
+    # Weight of the MoE load-balance loss: any value, since the dense
+    # models' aux loss is 0 (see models.api.make_loss_fn).
+    aux_coef: float = 0.01
+    # ZeRO-2 gradient sharding for GSPMD: accepted and ignored (one card).
+    zero2_grads: bool = True
     mor_mesh_axes: Tuple[str, ...] = ()
+    guard: object = None
 
     def __post_init__(self):
         if self.compress_grads != "none":
             raise NotImplementedError(
-                "gradient compression is not ported yet (ROADMAP Queue 1)")
+                "gradient compression is not ported yet (ROADMAP Queue 1 "
+                "item 4)")
+        if self.grad_policy != MoRPolicy(recipe="sub3"):
+            raise NotImplementedError(
+                "grad_policy: gradient compression is not ported yet "
+                "(ROADMAP Queue 1 item 4)")
         if self.moments is not None:
             raise NotImplementedError(
                 "packed Adam moments are not ported yet (ROADMAP Queue 1)")
@@ -113,12 +126,18 @@ def _tree_mean(trees):
 
 
 def make_train_step(cfg: ArchConfig, policy: MoRDotPolicy,
-                    tcfg: TrainConfig):
+                    tcfg: TrainConfig, grad_fault=None):
     """Returns train_step(params, opt_state, batch) -> (params,
     opt_state, metrics). ``batch`` holds 'tokens' and 'labels' (B, S)
     integer tensors on the parameters' device; the step leaves its
-    inputs untouched and returns new parameters and state."""
-    loss_fn = make_loss_fn(cfg, policy, remat=tcfg.remat)
+    inputs untouched and returns new parameters and state.
+    ``grad_fault`` (the chaos harness's gradient hook) must be None."""
+    if grad_fault is not None:
+        raise NotImplementedError(
+            "grad_fault: the chaos harness is not ported yet (ROADMAP "
+            "Queue 1 item 6)")
+    loss_fn = make_loss_fn(cfg, policy, remat=tcfg.remat,
+                           aux_coef=tcfg.aux_coef)
 
     def single_micro(params, batch):
         leaves = tree_leaves(params)

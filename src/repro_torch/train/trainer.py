@@ -2,7 +2,8 @@
 checkpointing): synthetic batches by step, the train step, a straggler
 watchdog and the MoR statistics streamed into :class:`MoRStatsTracker`.
 Checkpoint/restart and SIGTERM handling are not ported yet; a
-``ckpt_dir`` raises.
+``ckpt_dir``, or a ``ckpt_every`` / ``keep`` other than the reference's
+defaults, raises.
 """
 from __future__ import annotations
 
@@ -32,7 +33,12 @@ __all__ = ["TrainerConfig", "Trainer"]
 @dataclasses.dataclass
 class TrainerConfig:
     total_steps: int = 100
-    ckpt_dir: Optional[str] = None  # checkpointing: not ported, raises
+    # Checkpointing is not ported: a ckpt_dir raises, and so do
+    # ckpt_every / keep away from these (the reference's) defaults.
+    ckpt_dir: Optional[str] = None
+    ckpt_every: int = 50
+    keep: int = 3
+    log_every: int = 10  # read by nothing, as in the reference
     straggler_factor: float = 3.0
     seed: int = 0
 
@@ -47,9 +53,11 @@ class Trainer:
                  data_cfg: Optional[DataConfig] = None,
                  straggler_cb: Optional[Callable[[int, float], None]] = None,
                  device="cuda"):
-        if run_cfg.ckpt_dir:
+        if (run_cfg.ckpt_dir or run_cfg.ckpt_every != 50
+                or run_cfg.keep != 3):
             raise NotImplementedError(
-                "checkpoint/restart is not ported yet (ROADMAP Queue 1)")
+                "checkpoint/restart is not ported yet (ROADMAP Queue 1 "
+                "item 5)")
         self.cfg = cfg
         self.policy = policy
         self.run_cfg = run_cfg

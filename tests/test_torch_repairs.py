@@ -17,6 +17,14 @@ on the CPU (and, where the fault was device-dependent, on the card):
   fp8").
 * ``core.linear._dot`` turns cuBLAS's reduced-precision bf16 reduction
   off for its own call only (card).
+* Parameters of the reference that the port dropped, which gave
+  reference-style callers a ``TypeError``: ``adamw_update(decay_mask=)``
+  is ported (bit for bit against JAX on master and moments);
+  ``tile=``, ``zero2_grads``, ``decision_cache_steps`` and ``log_every``
+  are accepted and ignored; ``aux_coef`` takes any value (the dense
+  models' aux loss is 0); ``ckpt_every``, ``keep``, ``grad_policy`` and
+  ``grad_fault`` do nothing at the reference's defaults and raise
+  ``NotImplementedError`` naming their ROADMAP item otherwise.
 
 The JAX side is compiled whole with excess precision off (``jit_ref``).
 """
@@ -273,3 +281,178 @@ def cuda_device():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU or "
                     "interpret mode (chip_smoke.py runs them on the card)")
     return torch.device("cuda")
+
+
+# ---------------------------------------------------------------------------
+# Reference parameters the port dropped
+# ---------------------------------------------------------------------------
+
+
+def _adamw_inputs():
+    """bf16 params, f32 grads of two steps, and a decay mask that differs
+    from the default (ndim >= 2) rule on three of its four leaves."""
+    rng = np.random.default_rng(3)
+    shapes = {"layer": {"w": (8, 16), "scale": (16,)}, "emb": (4, 8),
+              "stack": (2, 3, 4)}
+
+    def tree(fn, sh):
+        return {k: tree(fn, v) if isinstance(v, dict) else fn(v)
+                for k, v in sh.items()}
+
+    params = tree(lambda sh: rng.standard_normal(sh).astype(np.float32),
+                  shapes)
+    grads = [tree(lambda sh: rng.standard_normal(sh).astype(np.float32),
+                  shapes) for _ in range(2)]
+    mask = {"layer": {"w": 0.0, "scale": 1.0}, "emb": 0.0, "stack": 1.0}
+    return params, grads, mask
+
+
+@pytest.mark.parametrize("mask_given", (False, True), ids=("default", "mask"))
+def test_adamw_decay_mask_matches_reference_bit_for_bit(mask_given):
+    """Two AdamW steps with and without a non-default decay mask: master
+    weights, both moments and the bf16 params equal JAX's bit for bit
+    (warm-up steps, so no cosine enters the learning rate; a clip norm
+    far above the gradients' norm, so the norm's f32 summation order,
+    which XLA may change, does not reach the update). JAX runs op by
+    op."""
+    from repro.optim import adamw as jadamw
+    from repro_torch.optim import adamw as tadamw
+    params, grads, mask = _adamw_inputs()
+    kw = {"decay_mask": mask} if mask_given else {}
+    kwcfg = dict(warmup_steps=10, weight_decay=0.5, clip_norm=1e9)
+    jcfg = jadamw.AdamWConfig(**kwcfg)
+    tcfg = tadamw.AdamWConfig(**kwcfg)
+    jp = jax.tree.map(lambda a: jnp.asarray(a, jnp.bfloat16), params)
+    tp = tadamw.tree_map(lambda a: torch.from_numpy(a).to(torch.bfloat16),
+                         params)
+    jstate, tstate = jadamw.init_opt_state(jp), tadamw.init_opt_state(tp)
+    for g in grads:
+        jp, jstate, _ = jadamw.adamw_update(
+            jcfg, jax.tree.map(jnp.asarray, g), jstate, **kw)
+        tp, tstate, _ = tadamw.adamw_update(
+            tcfg, tadamw.tree_map(torch.from_numpy, g), tstate, **kw)
+    for name in ("master", "m", "v"):
+        jl = jax.tree.leaves(getattr(jstate, name))
+        tl = tadamw.tree_leaves(getattr(tstate, name))
+        assert len(jl) == len(tl) == 4
+        for a, b in zip(jl, tl):
+            np.testing.assert_array_equal(bits(b), bits(a), err_msg=name)
+    for a, b in zip(jax.tree.leaves(jp), tadamw.tree_leaves(tp)):
+        np.testing.assert_array_equal(bits(b), bits(a))
+    assert int(tstate.step) == int(jstate.step) == 2
+
+
+def test_adamw_decay_mask_changes_the_update():
+    """The mask is read: a leaf masked out of decay moves differently from
+    the default rule's update of it."""
+    from repro_torch.optim import adamw as tadamw
+    params, grads, mask = _adamw_inputs()
+    tp = tadamw.tree_map(lambda a: torch.from_numpy(a).to(torch.bfloat16),
+                         params)
+    cfg = tadamw.AdamWConfig(warmup_steps=10, weight_decay=0.5)
+    g = tadamw.tree_map(torch.from_numpy, grads[0])
+    _, with_mask, _ = tadamw.adamw_update(cfg, g, tadamw.init_opt_state(tp),
+                                          decay_mask=mask)
+    _, default, _ = tadamw.adamw_update(cfg, g, tadamw.init_opt_state(tp))
+    assert not torch.equal(with_mask.master["layer"]["w"],
+                           default.master["layer"]["w"])
+    assert torch.equal(with_mask.master["stack"], default.master["stack"])
+
+
+def _tiny_cfg():
+    from repro_torch.configs import get_config, reduced
+    return reduced(get_config("llama3-8b"))
+
+
+@pytest.mark.parametrize("where", ("qdot", "mixed_dot", "mixed_gemm"))
+def test_tile_is_accepted_and_ignored(where):
+    """``tile=`` (the reference's TPU VMEM tiling) changes nothing."""
+    xj, qj, qt = served()
+    x = to_torch(xj)
+    if where == "qdot":
+        want = tq.qdot(x, qt)
+        got = tq.qdot(x, qt, tile=object())
+    else:
+        x2 = x.reshape(-1, x.shape[-1])
+        want = tops.mixed_dot(x2, qt.mo)
+        if where == "mixed_dot":
+            got = tops.mixed_dot(x2, qt.mo, tile=object())
+        else:
+            from repro_torch.kernels import ref as tref
+            a = tref.passthrough_mixed(x2, (tref.activation_row_block(
+                x2.shape[0], qt.mo.block[1]), qt.mo.block[1]))
+            got = tops.mixed_gemm(a, qt.mo, tile=object())
+    assert torch.equal(got, want)
+
+
+def test_ignored_config_fields_are_accepted():
+    """``decision_cache_steps``, ``zero2_grads``, ``log_every`` and any
+    ``aux_coef`` are accepted; their configs build train steps and
+    trainers as the defaults do."""
+    from repro_torch.core.policy import paper_default
+    from repro_torch.train import TrainConfig, TrainerConfig
+    from repro_torch.train.train_step import make_train_step
+    pol = paper_default("tensor").replace(decision_cache_steps=4)
+    assert pol.decision_cache_steps == 4
+    assert MoRDotPolicy(decision_cache_steps=2).enabled
+    cfg = _tiny_cfg()
+    for tc in (TrainConfig(zero2_grads=False), TrainConfig(aux_coef=0.5),
+               TrainConfig(aux_coef=0.0)):
+        assert callable(make_train_step(cfg, pol, tc))
+    from repro_torch.train import Trainer
+    tr = Trainer(cfg, pol, TrainConfig(), TrainerConfig(log_every=1),
+                 device="cpu")
+    assert tr.run_cfg.log_every == 1
+
+
+def test_aux_coef_leaves_the_dense_loss_unchanged():
+    """The total is loss + aux_coef * aux_loss and a dense model's aux
+    loss is 0, so every aux_coef gives the cross-entropy bit for bit, as
+    in the reference."""
+    from repro_torch.core.policy import paper_default
+    from repro_torch.models.api import init_params, make_loss_fn, make_tokens
+    cfg = _tiny_cfg()
+    params = init_params(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (2, 16)))
+             for k in ("tokens", "labels")}
+    pol = paper_default("off")
+    totals = []
+    for coef in (0.01, 0.0, 3.0):
+        fn = make_loss_fn(cfg, pol, remat=False, aux_coef=coef)
+        total, aux = fn(params, make_tokens(cfg, device="cpu"), batch)
+        assert float(aux["aux_loss"]) == 0.0
+        assert torch.equal(total, aux["loss"])
+        totals.append(total)
+    assert torch.equal(totals[0], totals[1]) and torch.equal(totals[0],
+                                                             totals[2])
+
+
+@pytest.mark.parametrize("what,match", (
+    ("ckpt_every", "item 5"), ("keep", "item 5"),
+    ("grad_policy", "item 4"), ("grad_fault", "item 6")))
+def test_unported_parameters_raise_naming_their_item(what, match):
+    """Away from the reference's defaults, the parameters of unported
+    features raise NotImplementedError naming their ROADMAP Queue 1
+    item; at the defaults they do nothing."""
+    from repro_torch.core.policy import paper_default
+    from repro_torch.train import Trainer, TrainConfig, TrainerConfig
+    from repro_torch.train.train_step import make_train_step
+    cfg = _tiny_cfg()
+    pol = paper_default("tensor")
+    with pytest.raises(NotImplementedError, match=match):
+        if what in ("ckpt_every", "keep"):
+            Trainer(cfg, pol, TrainConfig(),
+                    TrainerConfig(**{what: 7}), device="cpu")
+        elif what == "grad_policy":
+            TrainConfig(grad_policy=MoRPolicy(recipe="sub4"))
+        else:
+            make_train_step(cfg, pol, TrainConfig(),
+                            grad_fault=lambda g, b: g)
+    if what in ("ckpt_every", "keep"):
+        Trainer(cfg, pol, TrainConfig(),
+                TrainerConfig(ckpt_every=50, keep=3), device="cpu")
+    elif what == "grad_policy":
+        TrainConfig(grad_policy=MoRPolicy(recipe="sub3"))
+    else:
+        make_train_step(cfg, pol, TrainConfig(), grad_fault=None)
