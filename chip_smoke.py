@@ -5,10 +5,11 @@
 
 1. Prints the card's name and power limit, builds the five CUDA sources
    (one nvcc per source, started together) and prints the build time;
-   reads the fp8 GEMM's wgmma route's registers, spills and shared
-   memory from ``-Xptxas -v`` (a note that ptxas serialized its wgmmas
-   fails) and counts HGMMA in its SASS (``cuobjdump -sass``, where the
-   toolkit has it; none fails).
+   reads the wgmma routes' (the fp8 GEMM's and flash attention's)
+   registers, spills and shared memory from ``-Xptxas -v`` (a spill or a
+   note that ptxas serialized their wgmmas fails) and counts HGMMA in
+   each library's SASS (``cuobjdump -sass``, where the toolkit has it;
+   none fails).
 2. Holds each kernel against its plain PyTorch version on the same CUDA
    tensors (``backend='torch'``): ``mor_select_pack`` byte for byte on
    inputs that hit every tag (a real layer shape among them, and a block
@@ -49,17 +50,19 @@
    version on its real inputs.
 7. The kernel API (``ops.flash_attention``, ``ops.fp8_gemm``, which no
    model path calls, as in the JAX package): both kernels against their
-   plain versions over layouts, offsets, dtypes and blocks (the fp8 GEMM
-   on both of its routes, with mixed formats, tiny blocks whose scales'
-   product overflows f32, and a bit-identical repeat of every call);
-   then, with the counters zeroed just before and read just after, flash
-   attention at llama3-8b's heads (the 2 x 1024 training batch, the 8192
-   context, a 4-slot prefill chunk against 512 positions) and the fp8
-   GEMM of 2048 tokens against the four layer weights (all four on the
-   wgmma route), each call checked against its plain version and timed
-   beside its bound (and, for the fp8 GEMM, the f16 bound of its MMAs and
-   the cuda_core route's time at a block of that route) and a library
-   call.
+   plain versions, each on both of its routes, over layouts, offsets,
+   dtypes, head dims and blocks (flash with a long row, large scores and
+   NaN in the next batch's v; the fp8 GEMM with mixed formats and tiny
+   blocks whose scales' product overflows f32), with a bit-identical
+   repeat of every call; then, with the counters zeroed just before and
+   read just after, flash attention at llama3-8b's heads (the 2 x 1024
+   training batch, the 8192 context, a 4-slot prefill chunk against 512
+   positions; all three on the wgmma route) and the fp8 GEMM of 2048
+   tokens against the four layer weights (all four on the wgmma route),
+   each call checked against its plain version and timed beside its
+   bound, its route's own ceiling (flash: p v twice; the fp8 GEMM: f16
+   MMAs), the cuda_core route's time (flash in f32; the fp8 GEMM at a
+   block of that route) and a library call.
 
 Prints JSON lines (the ``kernels``, ``engine``, ``train`` and
 ``kernel_api`` lines among them) and ends with ``{"ok": true, "device":
@@ -1017,8 +1020,9 @@ def reset_counters():
     for fn in kernels.values():
         fn.launches = 0
     kernels["mixed_gemm"].launches_by_path = {"stream": 0, "tc": 0}
-    kernels["fp8_gemm"].launches_by_route = {
-        r: 0 for r in kernels["fp8_gemm"].launches_by_route}
+    for name in ("fp8_gemm", "flash_attention"):
+        kernels[name].launches_by_route = {
+            r: 0 for r in kernels[name].launches_by_route}
     for fn in plain.values():
         fn.calls = 0
 
@@ -1343,18 +1347,50 @@ def dequant(q, s, block):
             / s[:, None, :, None]).reshape(R, C)
 
 
+def flash_case(ops, q, k, v, causal, off, what, rows=slice(None)):
+    """One parity case of ``ops.flash_attention``: the kernel twice (the
+    repeat must be bit-identical, both on ``flash_route``'s route), the
+    plain version once; returns (route, max abs err, max err / tol) over
+    the output rows ``rows`` (a NaN case reads only the clean batch)."""
+    from repro_torch.kernels.flash_attention import (flash_attention_fwd,
+                                                     flash_route)
+    route = flash_route(q.dtype, q.shape[-1])
+    before = flash_attention_fwd.launches_by_route[route]
+    yk = ops.flash_attention(q, k, v, causal=causal, q_offset=off,
+                             backend="cuda")
+    again = ops.flash_attention(q, k, v, causal=causal, q_offset=off,
+                                backend="cuda")
+    yt = ops.flash_attention(q, k, v, causal=causal, q_offset=off,
+                             backend="torch")
+    what = f"{what} ({route})"
+    check(flash_attention_fwd.launches_by_route[route] == before + 2,
+          f"{what}: not launched on its route")
+    check(yk.shape == yt.shape and yk.dtype == q.dtype, what)
+    check(torch.equal(yk[rows], again[rows]), f"{what}: a repeat differs")
+    yk, yt, v = yk[rows], yt[rows], v[rows]
+    check(bool(torch.isfinite(yk).all()), f"{what}: nonfinite outputs")
+    err = (yk.float() - yt.float()).abs()
+    tol = flash_tol(v, yt)
+    check(bool(torch.all(err <= tol)),
+          f"{what}: max err {float(err.max())} beyond 1e-5 max|v| + 1 ulp")
+    return route, float(err.max()), float((err / tol).max())
+
+
 def phase_kernel_api_parity(ops, Partition, cfg):
-    """Kernel vs plain version of ``ops.flash_attention`` (bf16 and f32,
-    causal and full; S = T, S < T with the default, a scalar, a per-batch
-    and a per-row offset with a negative entry, ragged S = 100 / T = 300;
-    GQA with G = 4 and G = 1 and the folded 3-D layout) and of
-    ``ops.fp8_gemm`` on both routes (E4M3, E5M2 and mixed payloads, bf16
-    and f32 out, blocks (128, 128, 128) and (128, 256, 128), tiny blocks
-    whose sa * sb overflows, a 64-row block with a ragged tile, and two
-    blocks of the cuda_core route), each call twice: the repeat must be
-    bit-identical."""
+    """Kernel vs plain version of ``ops.flash_attention`` on both of its
+    routes (bf16 at d 128 and 64 on wgmma; f32, and bf16 at d 32, on
+    cuda_core; causal and full; S = T, S < T with the default, a scalar, a
+    per-batch and a per-row offset with a negative entry, ragged S = 100 /
+    T = 300; GQA with G = 4 and G = 1 and the folded 3-D layout; a long row
+    of 128 queries against 8192 keys; scores ~8x larger; a ragged T whose
+    next batch holds NaN in its first v rows, which must not reach the
+    clean batch) and of ``ops.fp8_gemm`` on both routes (E4M3, E5M2 and
+    mixed payloads, bf16 and f32 out, blocks (128, 128, 128) and (128,
+    256, 128), tiny blocks whose sa * sb overflows, a 64-row block with a
+    ragged tile, and two blocks of the cuda_core route), each call twice:
+    the repeat must be bit-identical."""
     from repro_torch.core.formats import E4M3, E5M2
-    hq, hkv, dh = cfg.n_heads, cfg.n_kv, cfg.head_dim
+    hq, hkv = cfg.n_heads, cfg.n_kv
     g = torch.Generator(device="cuda").manual_seed(0)
     layouts = {"gqa G=4": (2, hq, hkv), "gqa G=1": (2, hkv, hkv),
                "folded": (16, None, None)}
@@ -1364,42 +1400,73 @@ def phase_kernel_api_parity(ops, Partition, cfg):
                ("S=T", 256, 256, False), ("default", 64, 256, False),
                ("ragged", 100, 300, False)]
     worst = {"flash_attention": 0.0, "fp8_gemm": 0.0}
-    n = 0
-    for lname, (B, H, Hk) in layouts.items():
-        rows = B * (H or 1)
-        for oname, S, T, causal in offsets:
-            if oname == "per_batch" and H is None:
-                continue  # a per-batch offset is a 4-D layout's
-            off = {"scalar": 100,
-                   "per_batch": torch.tensor([17, 190], dtype=torch.int32),
-                   "per_row": torch.from_numpy(np.random.default_rng(
-                       rows).integers(0, T - S + 1, rows).astype(np.int32)),
-                   }.get(oname)
-            if oname == "per_row":
-                off[1] = -40  # rows 0..39 of folded row 1 see no key
-            for dt in (torch.bfloat16, torch.float32):
+    n, by_route, ratio = 0, {}, 0.0
+
+    def run(q, k, v, causal, off, what, rows=slice(None)):
+        nonlocal n, ratio
+        route, err, r = flash_case(ops, q, k, v, causal, off, what, rows)
+        worst["flash_attention"] = max(worst["flash_attention"], err)
+        ratio = max(ratio, r)
+        by_route[route] = by_route.get(route, 0) + 1
+        n += 1
+
+    # The cases the cuda_core kernel was first held to draw from g, as the
+    # fp8 cases after them do; those added with the wgmma route from their
+    # own generator, so that the fp8 cases' inputs stay as they were.
+    g_new = torch.Generator(device="cuda").manual_seed(2)
+
+    def qkv(shapes, scale=1.0, gen=g_new):
+        q, k, v = (torch.randn(sh, generator=gen, device="cuda")
+                   for sh in shapes)
+        return q * scale, k * scale, v
+
+    for dh in (cfg.head_dim, 64, 32):
+        for lname, (B, H, Hk) in layouts.items():
+            rows = B * (H or 1)
+            for oname, S, T, causal in offsets:
+                if oname == "per_batch" and H is None:
+                    continue  # a per-batch offset is a 4-D layout's
+                off = {"scalar": 100,
+                       "per_batch": torch.tensor([17, 190], dtype=torch.int32),
+                       "per_row": torch.from_numpy(np.random.default_rng(
+                           rows).integers(0, T - S + 1, rows).astype(np.int32)),
+                       }.get(oname)
+                if oname == "per_row":
+                    off[1] = -40  # rows 0..39 of folded row 1 see no key
                 if H is None:
                     shapes = [(B, S, dh), (B, T, dh), (B, T, dh)]
                 else:
                     shapes = [(B, S, H, dh), (B, T, Hk, dh), (B, T, Hk, dh)]
-                q, k, v = (torch.randn(sh, generator=g, device="cuda").to(dt)
-                           for sh in shapes)
-                yk = ops.flash_attention(q, k, v, causal=causal, q_offset=off,
-                                         backend="cuda")
-                yt = ops.flash_attention(q, k, v, causal=causal, q_offset=off,
-                                         backend="torch")
-                err = (yk.float() - yt.float()).abs()
-                what = (f"flash {lname} {oname} S={S} T={T} "
-                        f"causal={causal} {dt}")
-                check(yk.shape == yt.shape and yk.dtype == dt, what)
-                check(bool(torch.all(err <= flash_tol(v, yt))),
-                      f"{what}: max err {float(err.max())} beyond 1e-5 "
-                      "max|v| + 1 ulp")
-                worst["flash_attention"] = max(worst["flash_attention"],
-                                               float(err.max()))
-                n += 1
-    emit({"parity": "flash_attention", "cases": n, "ok": True,
-          "max_abs_err": worst["flash_attention"]})
+                for dt in (torch.bfloat16, torch.float32):
+                    q, k, v = (t.to(dt) for t in qkv(
+                        shapes, gen=g if dh == cfg.head_dim else g_new))
+                    run(q, k, v, causal, off, f"flash d={dh} {lname} {oname} "
+                        f"S={S} T={T} causal={causal} {dt}")
+    dh = cfg.head_dim
+    for dt in (torch.bfloat16, torch.float32):
+        # 128 queries against a long row (the default offset: the last
+        # query at the last key).
+        shapes = [(1, 128, hq, dh), (1, 8192, hkv, dh), (1, 8192, hkv, dh)]
+        q, k, v = (t.to(dt) for t in qkv(shapes))
+        run(q, k, v, True, None, f"flash long row S=128 T=8192 {dt}")
+        # q and k scaled by 8: scores ~64x larger, softmax near one-hot.
+        shapes = [(2, 256, hq, dh), (2, 256, hkv, dh), (2, 256, hkv, dh)]
+        q, k, v = (t.to(dt) for t in qkv(shapes, scale=8.0))
+        run(q, k, v, True, None, f"flash large scores (q, k x 8) {dt}")
+        # A ragged T in the GQA layout with NaN in batch 1's first v rows:
+        # batch 0's keys past T must read as zeros, never as batch 1's
+        # rows (p = 0 times NaN is NaN).
+        shapes = [(2, 100, hq, dh), (2, 300, hkv, dh), (2, 300, hkv, dh)]
+        q, k, v = qkv(shapes)
+        v[1, :4] = float("nan")
+        q, k, v = (t.to(dt) for t in (q, k, v))
+        run(q, k, v, True, None, f"flash NaN in the next batch's v {dt}",
+            rows=slice(0, 1))
+        run(q, k, v, False, None, f"flash NaN in the next batch's v, full "
+            f"{dt}", rows=slice(0, 1))
+    emit({"parity": "flash_attention", "cases": n, "cases_by_route": by_route,
+          "ok": True, "repeats_bit_identical": True,
+          "max_abs_err": worst["flash_attention"], "max_err_over_tol": ratio})
     from repro_torch.kernels.fp8_gemm import fp8_gemm_blocks, fp8_gemm_route
     # (M, N, K), block, A's format, B's format, value scale. The first
     # four: both formats and blocks of the reference suite; then mixed
@@ -1458,15 +1525,16 @@ def phase_kernel_api_parity(ops, Partition, cfg):
     return worst
 
 
-def fp8_build_facts(build):
-    """The wgmma route's registers, spills and shared memory (its
-    ``-Xptxas -v`` lines and the launcher's dynamic shared memory), the
-    counts of ptxas's notes that it serialized the wgmmas (any fails),
-    and the number of HGMMA instructions in the library's SASS
-    (``cuobjdump -sass``, where the toolkit has it; none fails)."""
+def wgmma_build_facts(build, name, smem_bytes):
+    """A wgmma route's registers, spills and shared memory (its kernel's
+    ``-Xptxas -v`` lines in the build of ``csrc/<name>.cu`` and the
+    launcher's dynamic shared memory, ``smem_bytes``), the counts of
+    ptxas's notes that it serialized the wgmmas (any fails), and the
+    number of HGMMA instructions in the library's SASS (``cuobjdump
+    -sass``, where the toolkit has it; none fails)."""
     import os
     import shutil
-    log = build.build_log("fp8_gemm").splitlines()
+    log = build.build_log(name).splitlines()
     regs, spills = set(), set()
     for i, line in enumerate(log):
         if "Compiling entry function" in line and "wgmma_kernel" in line:
@@ -1479,22 +1547,37 @@ def fp8_build_facts(build):
     # (C7514, C7517, C7518): any of them costs the overlap the design needs.
     notes = {c: sum(c in ln for ln in log) for c in ("C7514", "C7517", "C7518")}
     facts = {"wgmma_registers": sorted(regs), "wgmma_spills": sorted(spills),
-             "wgmma_smem_bytes": build.load("fp8_gemm").fp8_gemm_wgmma_smem(),
+             "wgmma_smem_bytes": smem_bytes,
              "wgmma_serialized_notes": notes}
-    check(regs, "fp8_gemm: no ptxas lines for the wgmma kernel")
+    check(regs, f"{name}: no ptxas lines for the wgmma kernel")
+    check(all(" 0 bytes spill stores, 0 bytes spill loads" in ln
+              for ln in spills), f"{name}: the wgmma kernel spills: {spills}")
     check(not any(notes.values()),
-          f"fp8_gemm: ptxas serialized the wgmma kernel's wgmmas: {notes}")
+          f"{name}: ptxas serialized the wgmma kernel's wgmmas: {notes}")
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if os.path.exists(cuobjdump):
         sass = subprocess.run(
-            [cuobjdump, "-sass", str(build.library_path("fp8_gemm"))],
+            [cuobjdump, "-sass", str(build.library_path(name))],
             capture_output=True, text=True, check=True).stdout
         facts["sass"] = {"HGMMA": sass.count("HGMMA")}
         check(facts["sass"]["HGMMA"] > 0,
-              "fp8_gemm: the library's SASS holds no HGMMA")
+              f"{name}: the library's SASS holds no HGMMA")
     else:
         facts["sass"] = "not checked"
     return facts
+
+
+def build_facts(build):
+    """wgmma_build_facts of fp8_gemm's and flash_attention's wgmma routes
+    (flash's shared memory per head dim of the route)."""
+    from repro_torch.kernels.flash_attention import WGMMA_HEAD_DIMS
+    fl = build.load("flash_attention")
+    return {"fp8_gemm": wgmma_build_facts(
+                build, "fp8_gemm", build.load("fp8_gemm").fp8_gemm_wgmma_smem()),
+            "flash_attention": wgmma_build_facts(
+                build, "flash_attention",
+                {str(d): fl.flash_attention_wgmma_smem(d)
+                 for d in WGMMA_HEAD_DIMS})}
 
 
 def sdpa_yardstick(q, k, v, offs):
@@ -1522,8 +1605,9 @@ def phase_kernel_api(ops, Partition, cfg):
     at llama3-8b's widths (the shapes of FLASH_API_CASES; M = 2048 tokens
     against the qkv, proj, fc1 and fc2 weights, E4M3 with GAM block
     scales), with every launch counter zeroed just before and read just
-    after; then each call held against its plain version and timed
-    beside its bound and a library call."""
+    after (every call on its wgmma route); then each call held against
+    its plain version and timed beside its bound, its route's own
+    ceiling, the cuda_core route and a library call."""
     from repro_torch.core.formats import E4M3
     from repro_torch.kernels.flash_attention import flash_attention_fwd
     from repro_torch.kernels.fp8_gemm import fp8_gemm_blocks, fp8_gemm_route
@@ -1562,9 +1646,13 @@ def phase_kernel_api(ops, Partition, cfg):
     torch.cuda.synchronize()
     k_counts, p_counts = read_counters()
     fp8_routes = dict(fp8_gemm_blocks.launches_by_route)
+    flash_routes = dict(flash_attention_fwd.launches_by_route)
     check(k_counts["flash_attention"] == len(flash_in)
           and k_counts["fp8_gemm"] == len(fp8_in),
           f"kernel_api: launches {k_counts}, want one per call")
+    check(flash_routes["wgmma"] == len(flash_in),
+          f"kernel_api: flash_attention launches by route {flash_routes}, "
+          "want every bf16 call on the wgmma route")
     check(fp8_routes["wgmma"] == len(fp8_in),
           f"kernel_api: fp8_gemm launches by route {fp8_routes}, want "
           "every call on the wgmma route")
@@ -1582,22 +1670,33 @@ def phase_kernel_api(ops, Partition, cfg):
         err = (y.float() - yt.float()).abs()
         check(bool(torch.all(err <= flash_tol(v, yt))),
               f"flash {name}: max err {float(err.max())} beyond tolerance")
-        del yt
         o = [T - S] * B if offs is None else list(offs)
-        flops = 4.0 * dh * hq * visible_pairs(S, T, o)
+        pairs = visible_pairs(S, T, o)
+        flops = 4.0 * dh * hq * pairs
         nbytes = 2 * (2 * B * S * hq * dh
                       + 2 * hkv * dh * visible_keys(S, T, o))
         b = bound(nbytes, flops)
+        # The wgmma route's own ceiling: p v runs twice (p = hi + lo).
+        b_design = bound(nbytes, 6.0 * dh * hq * pairs)
         lib = sdpa_yardstick(q, k, v, off)
         off_rows = None if off is None else off.repeat_interleave(hq)
+        # The cuda_core route (the route every f32 call takes) on the
+        # same values in f32.
+        q32, k32, v32 = (t.float() for t in (q, k, v))
         res["flash_attention"][name] = dict(
             ms=time_ms(lambda: flash_attention_fwd(q, k, v,
                                                    q_offset=off_rows)),
+            route="wgmma",
+            cuda_core_f32_ms=time_ms(lambda: flash_attention_fwd(
+                q32, k32, v32, q_offset=off_rows), iters=3),
             plain_ms=time_ms(lambda: ops.flash_attention(
                 q, k, v, q_offset=off, backend="torch")),
             library_ms=time_ms(lib), bound_ms=b[0], bound_by=b[1],
-            max_abs_err=float(err.max()), shape=[B, S, T, hq, hkv, dh],
-            flops=flops, bytes=nbytes)
+            bound_design_ms=b_design[0], bound_design_by=b_design[1],
+            max_abs_err=float(err.max()),
+            max_err_over_tol=float((err / flash_tol(v, yt)).max()),
+            shape=[B, S, T, hq, hkv, dh], flops=flops, bytes=nbytes)
+        del q32, k32, v32, yt
         torch.cuda.empty_cache()
     for name, (aq, bq, sa, sb) in fp8_in.items():
         (M, K), N = aq.shape, bq.shape[1]
@@ -1645,6 +1744,7 @@ def phase_kernel_api(ops, Partition, cfg):
     gc.collect()
     torch.cuda.empty_cache()
     res["fp8_gemm"]["launches_by_route"] = fp8_routes
+    res["flash_attention"]["launches_by_route"] = flash_routes
     return res, k_counts
 
 
@@ -1674,8 +1774,10 @@ def main():
           "torch": torch.__version__, "cuda": torch.version.cuda,
           "card": smi})
 
-    fp8_build = fp8_build_facts(build)
-    emit({"fp8_gemm_build": fp8_build, "card": smi})
+    wgmma_build = build_facts(build)
+    emit({"fp8_gemm_build": wgmma_build["fp8_gemm"], "card": smi})
+    emit({"flash_attention_build": wgmma_build["flash_attention"],
+          "card": smi})
     sel_err = phase_mor_select(ops, Partition)
     gemm_parity = phase_mixed_gemm(ops, ref, Partition)
     quant_parity = phase_quant_select(ops, Partition)
@@ -1744,7 +1846,17 @@ def main():
             entry["bound_f16_ms"] = t["bound_f16_ms"]
             entry["cuda_core_ms"] = t["cuda_core_ms"]
             entry["cuda_core_block"] = t["cuda_core_block"]
-            entry["build"] = fp8_build
+            entry["build"] = wgmma_build["fp8_gemm"]
+        if name == "flash_attention":
+            # ms / bound_ms above: the wgmma route at 1 x 8192;
+            # bound_design_ms: its ceiling with p v twice (6 d a pair);
+            # cuda_core_f32_ms: the cuda_core route on the same values in
+            # f32.
+            entry["kernel_route"] = t["route"]
+            entry["launches_by_route"] = t["launches_by_route"]
+            entry["bound_design_ms"] = t["bound_design_ms"]
+            entry["cuda_core_f32_ms"] = t["cuda_core_f32_ms"]
+            entry["build"] = wgmma_build["flash_attention"]
         kernels.append(entry)
     emit({"parity_max_abs_err": {"mor_select_pack": sel_err, **api_parity},
           **quant_parity})

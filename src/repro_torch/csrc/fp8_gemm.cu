@@ -77,6 +77,7 @@
 // wrapper checks).
 #include "common.cuh"
 #include "tma.cuh"
+#include "wgmma.cuh"
 
 // ---------------------------------------------------------------------------
 // cuda_core route
@@ -227,10 +228,6 @@ extern "C" int fp8_gemm_launch(const void* a_q, const void* b_q, const void* a_s
 #define W_H_B (W_KS * W_BN * 2)              // B's f16 bytes of a buffer
 #define W_SMEM (1024 + W_STAGES * W_FP8_STAGE + W_HBUF * W_H_B)
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
 template <int FMT>
 __device__ __forceinline__ uint32_t cvt_f16x2(uint32_t two_bytes) {
   const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2((__nv_fp8x2_storage_t)(two_bytes & 0xFFFFu),
@@ -245,69 +242,6 @@ __device__ __forceinline__ void cvt16(const uint4 v, uint4& lo, uint4& hi) {
                   cvt_f16x2<FMT>(v.y >> 16));
   hi = make_uint4(cvt_f16x2<FMT>(v.z), cvt_f16x2<FMT>(v.z >> 16), cvt_f16x2<FMT>(v.w),
                   cvt_f16x2<FMT>(v.w >> 16));
-}
-
-// A shared-memory matrix descriptor with the 128-byte swizzle (layout
-// type 1): start address, leading and stride byte offsets, all >> 4.
-__device__ __forceinline__ uint64_t w_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keeps the compiler from moving reads or writes of wgmma's registers
-// across a wgmma issue or wait, and keeps an A fragment's registers, which
-// a wgmma in flight still reads, from being reused before the wait.
-__device__ __forceinline__ void fence_regs(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-__device__ __forceinline__ void fence_regs(uint32_t (&a)[4][4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
-}
-
-// d (+)= A B for a 64 x 16 f16 A in registers (the m16n8k16 fragment of
-// each warp's 16 rows: a[0] row g, k 2q..2q+1; a[1] row g + 8; a[2], a[3]
-// the same at k + 8) and a 16 x 128 f16 B in shared memory (N-major: the
-// transpose bit), f32 accumulators; scale_d = 0 overwrites d.
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], const uint32_t (&a)[4],
-                                                 uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
-      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, "
-      "%35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, "
-      "%52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
-        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
-        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
-        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
-        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
-        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
-        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d));
 }
 
 // Within one 16-deep wgmma the order of k is free if A and B share it.

@@ -20,7 +20,14 @@ reference kernel does: ``None`` gives ``T - S``; a scalar or one entry
 per folded row ``b * Hq + h`` becomes a (BH,) int32 vector on the
 device; any other length raises. ``block_q`` / ``block_k`` are the TPU
 kernel's VMEM tiling: they are accepted for the signature and checked,
-but not emulated -- the kernel tiles 64 queries by 64 keys.
+but not emulated -- each route tiles queries and keys its own way.
+
+Two routes, picked by :func:`flash_route` from the dtype and head dim
+alone (a caller cannot force one): ``wgmma`` for bf16 with d 64 or 128
+(TMA ring of 128-key tiles, both products on the tensor cores, p split
+into two bf16 terms for p v), ``cuda_core`` for the rest (f32, whose
+products must not meet TF32 or bf16, and d = 32: both products in f32
+on CUDA cores).
 """
 from __future__ import annotations
 
@@ -30,10 +37,14 @@ import torch
 
 from . import build
 
-__all__ = ["flash_attention_fwd", "flash_layout", "flash_offsets", "HEAD_DIMS"]
+__all__ = ["flash_attention_fwd", "flash_layout", "flash_offsets",
+           "flash_route", "HEAD_DIMS", "ROUTES", "WGMMA_HEAD_DIMS"]
 
-# Head dims the kernel is compiled for (a template instance each).
+# Head dims the kernels are compiled for (a template instance each).
 HEAD_DIMS = (32, 64, 128)
+ROUTES = ("wgmma", "cuda_core")
+# Head dims of the wgmma route: one or two 64-column (128-byte) boxes.
+WGMMA_HEAD_DIMS = (64, 128)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -41,8 +52,19 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 
 
-def _fn():
-    f = build.load("flash_attention").flash_attention_launch
+def flash_route(dtype: torch.dtype, d: int) -> str:
+    """The route that computes attention over ``dtype`` operands of head
+    dim ``d``: "wgmma" for bf16 with d in (64, 128), "cuda_core" for
+    everything else. A pure function of its arguments."""
+    if dtype == torch.bfloat16 and d in WGMMA_HEAD_DIMS:
+        return "wgmma"
+    return "cuda_core"
+
+
+def _fn(route: str):
+    lib = build.load("flash_attention")
+    f = (lib.flash_attention_wgmma_launch if route == "wgmma"
+         else lib.flash_attention_launch)
     f.argtypes = [_P] * 5 + [_I] * 6 + [_L] * 6 + [_I, _F, _I, _P]
     f.restype = _I
     return f
@@ -92,8 +114,9 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, q_offset=None,
                         block_q: int = 512, block_k: int = 512
                         ) -> torch.Tensor:
-    """Launch the kernel; returns the attention output in q's layout and
-    dtype (f32 or bf16, the same for q, k and v)."""
+    """Launch the kernel of :func:`flash_route`'s route; returns the
+    attention output in q's layout and dtype (f32 or bf16, the same for
+    q, k and v)."""
     B, H, G, S, T, d, q_strides, k_strides = flash_layout(
         q, k, v, block_q, block_k)
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -114,9 +137,10 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"got {d}")
     if S == 0 or T == 0:
         raise ValueError(f"empty attention: S={S}, T={T}")
+    route = flash_route(q.dtype, d)
     off = flash_offsets(q_offset, S, T, B * H, q.device)
     out = torch.empty_like(q)
-    fn = _fn()
+    fn = _fn(route)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), off.data_ptr(),
@@ -124,9 +148,12 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  int(causal), float(d ** -0.5),
                  int(q.dtype == torch.bfloat16), stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention launch failed: CUDA error {err}")
+        raise RuntimeError(f"flash_attention ({route}) launch failed: CUDA "
+                           f"error {err}")
     flash_attention_fwd.launches += 1
+    flash_attention_fwd.launches_by_route[route] += 1
     return out
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.launches_by_route = {r: 0 for r in ROUTES}

@@ -16,8 +16,16 @@ the Pallas kernel: the reference suite's own tolerance
 bf16), since the kernel's online softmax differs from both. A row with
 no visible key is, in the reference and the port, the mean of v over
 all T keys (within the same tolerance). On the card the CUDA kernel is
-held against the plain version (the ``cuda``-marked test here, and
-``chip_smoke.py`` at llama3-8b's shapes)."""
+held against the plain version (the ``cuda``-marked tests here, and
+``chip_smoke.py`` at llama3-8b's shapes).
+
+The ``wgmma`` route (bf16, d 64 or 128; ``flash_route``) runs on the
+tensor cores: bf16 q k^T with f32 sums, an online softmax in base 2 over
+128-key tiles, and p v with p split into two bf16 terms (hi = bf16(p),
+lo = bf16(p - hi)), f32 sums. Its rounding is emulated here in plain
+PyTorch and held against the reference under the same tolerance, with
+f32 and bf16 outputs; a single bf16 p breaks that tolerance, which is
+why the kernel splits p."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -27,6 +35,7 @@ from repro.kernels import ops as jops
 from repro.kernels.flash_attention import flash_attention_fwd as jflash_fwd
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from repro_torch.kernels.flash_attention import flash_route
 
 DTYPES = {"f32": (jnp.float32, torch.float32),
           "bf16": (jnp.bfloat16, torch.bfloat16)}
@@ -54,6 +63,17 @@ def ulp(x: np.ndarray, dtype: str) -> np.ndarray:
     bits = 23 if dtype == "f32" else 7
     e = np.floor(np.log2(np.maximum(np.abs(x), 2.0**-126)))
     return np.exp2(e - bits)
+
+
+def err_over_tol(want, got, v, dtype) -> float:
+    """Largest |want - got| / (1e-5 max|v| + one ulp of ``dtype`` at
+    |want|): the tolerance of assert_attention_close, as a ratio."""
+    w = np.asarray(want, np.float32).astype(np.float64)
+    g = got.to(torch.float32).numpy().astype(np.float64)
+    v = v.to(torch.float32).numpy() if isinstance(v, torch.Tensor) else v
+    tol = 1e-5 * float(np.abs(np.asarray(v, np.float32)).max()) + ulp(
+        w, dtype)
+    return float((np.abs(w - g) / tol).max())
 
 
 def assert_attention_close(want, got, v, dtype, what):
@@ -227,6 +247,123 @@ def test_cpu_tensors_take_the_plain_version():
         tops.flash_attention(qt, kt, vt, backend="cuda")
 
 
+@pytest.mark.parametrize("dtype", tuple(DTYPES))
+@pytest.mark.parametrize("d", (32, 64, 128))
+def test_flash_route_by_dtype_and_head_dim(dtype, d):
+    """bf16 with d 64 or 128 takes the tensor cores; f32 (whose products
+    must not meet TF32 or bf16) and d = 32 take the CUDA-core kernel."""
+    want = "wgmma" if dtype == "bf16" and d in (64, 128) else "cuda_core"
+    assert flash_route(DTYPES[dtype][1], d) == want
+
+
+WGMMA_BK = 128  # keys of one tile of the wgmma route
+LOG2E = 1.4426950408889634
+
+
+def wgmma_route_emulation(split: bool, out_f32: bool):
+    """A stand-in for ``kernels.ref.flash_attention_ref`` (folded q (BH, S,
+    d), k / v (BH, T, d), (BH,) offsets) that rounds as the wgmma route
+    does: bf16 products summed in f32, an online softmax over 128-key
+    tiles in f32 with the max taken on the unscaled scores and p =
+    2^(s c - m c), c the launcher's f32 d^-0.5 log2 e, s c - m c rounded
+    once (the kernel's FFMA), then p v with p as hi + lo (two bf16 terms,
+    ``split``) or as one bf16 value, f32 sums, and the IEEE division by
+    max(l, 1e-30). Returns f32 (``out_f32``) or q's dtype."""
+    def emulated(q, k, v, causal, q_offset):
+        BH, S, d = q.shape
+        T = k.shape[1]
+        qf, kf, vf = (x.to(torch.float32) for x in (q, k, v))
+        sl2 = torch.tensor(d ** -0.5 * LOG2E, dtype=torch.float32)
+        pos = q_offset.to(torch.int64)[:, None] + torch.arange(S)
+        m = torch.full((BH, S), -1e30)
+        l = torch.zeros(BH, S)
+        o = torch.zeros(BH, S, d)
+        for k0 in range(0, T, WGMMA_BK):
+            keys = torch.arange(k0, min(k0 + WGMMA_BK, T))
+            x = torch.einsum("bqd,bkd->bqk", qf, kf[:, keys])
+            if causal:
+                x = torch.where(keys[None, None, :] > pos[:, :, None],
+                                torch.tensor(-1e30), x)
+                x = torch.where((pos < 0)[:, :, None], torch.tensor(0.0), x)
+            m_new = torch.maximum(m, x.amax(dim=-1))
+            ms_new = m_new * sl2
+            corr = torch.exp2(m * sl2 - ms_new)
+            # The FFMA: the exact f64 product less m c, rounded once.
+            p = torch.exp2((x.to(torch.float64) * sl2.to(torch.float64)
+                            - ms_new.to(torch.float64)[..., None]
+                            ).to(torch.float32))
+            l = l * corr + p.sum(dim=-1)
+            hi = p.to(torch.bfloat16).to(torch.float32)
+            pv = hi @ vf[:, keys]
+            if split:
+                lo = (p - hi).to(torch.bfloat16).to(torch.float32)
+                pv = pv + lo @ vf[:, keys]
+            o = o * corr[..., None] + pv
+            m = m_new
+        out = torch.div(o, l.clamp_min(1e-30)[..., None])
+        return out if out_f32 else out.to(q.dtype)
+    return emulated
+
+
+# (layout, causal, offset kind, q and k scale): G = 4 GQA and folded,
+# causal with the default offset and with rows that see no key, full; a
+# causal case with scores ~8x larger.
+EMULATED_CASES = [(lay, c, o, 1.0) for lay in ("gqa", "folded")
+                  for c, o in ((True, "default"), (True, "negative"),
+                               (False, "default"))]
+EMULATED_CASES += [("gqa", True, "default", 8.0)]
+
+
+def emulated_run(layout, causal, offset, scale, split, out, monkeypatch):
+    """The reference (XLA, from the bf16 operands' values in f32 or bf16)
+    and the port's ops.flash_attention with the wgmma route's emulated
+    rounding in place of its plain version; returns (want, got, v)."""
+    S, T, hq, dh = 64, 300, 4, 64
+    if layout == "gqa":
+        shapes = [(B, S, hq, dh), (B, T, 1, dh), (B, T, 1, dh)]
+    else:
+        shapes = [(B * hq, S, dh), (B * hq, T, dh), (B * hq, T, dh)]
+    (qj, kj, vj), (qt, kt, vt) = operands(shapes, "bf16", seed=31)
+    if scale != 1.0:
+        qj, kj = (x * jnp.asarray(scale, jnp.bfloat16) for x in (qj, kj))
+        qt, kt = to_torch(qj), to_torch(kj)
+    off = offsets(offset, S, T, B * hq)
+    jd = jnp.float32 if out == "f32" else jnp.bfloat16
+    want = jops.flash_attention(
+        qj.astype(jd), kj.astype(jd), vj.astype(jd), causal=causal,
+        backend="xla", q_offset=None if off is None else jnp.asarray(off))
+    monkeypatch.setattr(tref, "flash_attention_ref",
+                        wgmma_route_emulation(split, out == "f32"))
+    got = tops.flash_attention(
+        qt, kt, vt, causal=causal,
+        q_offset=None if off is None else torch.from_numpy(np.asarray(off)))
+    return want, got, vt
+
+
+@pytest.mark.parametrize("out", ("f32", "bf16"))
+@pytest.mark.parametrize("layout,causal,offset,scale", EMULATED_CASES,
+                         ids=str)
+def test_wgmma_route_rounding_within_tolerance(layout, causal, offset, scale,
+                                               out, monkeypatch):
+    """The wgmma route's arithmetic (emulated) against the reference
+    within the file's tolerance: the error budget of the split p on the
+    CPU, before the card shows it (chip_smoke.py holds the kernel to the
+    same flash_tol)."""
+    want, got, v = emulated_run(layout, causal, offset, scale, True, out,
+                                monkeypatch)
+    assert_attention_close(want, got, v, out,
+                           f"{layout} causal={causal} {offset} x{scale} {out}")
+
+
+@pytest.mark.parametrize("out", ("f32", "bf16"))
+def test_single_bf16_p_breaks_tolerance(out, monkeypatch):
+    """p rounded once to bf16 (~2^-9 a weight) misses the tolerance that
+    the split p keeps: why the route multiplies by hi and lo."""
+    want, got, v = emulated_run("gqa", True, "default", 1.0, False, out,
+                                monkeypatch)
+    assert err_over_tol(want, got, v, out) > 4.0
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -236,20 +373,58 @@ def cuda_device():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dh", (64, 128))
 @pytest.mark.parametrize("dtype", tuple(DTYPES))
 @pytest.mark.parametrize("causal", (True, False))
-def test_kernel_matches_plain_version_on_card(dtype, causal, cuda_device):
-    """The CUDA kernel against its plain version on the same CUDA
-    tensors, GQA and folded, ragged extents, per-row offsets with rows
-    that see no key; tolerance as against the reference."""
-    S, T, hq, hkv, dh = 100, 300, 8, 2, 128
+def test_kernel_matches_plain_version_on_card(dtype, causal, dh,
+                                              cuda_device):
+    """The CUDA kernel of ``flash_route``'s route (bf16: wgmma; f32:
+    cuda_core) against its plain version on the same CUDA tensors, GQA
+    and folded, ragged extents, per-row offsets with rows that see no
+    key; tolerance as against the reference."""
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    S, T, hq, hkv = 100, 300, 8, 2
     _, (qt, kt, vt) = operands(
         [(2, S, hq, dh), (2, T, hkv, dh), (2, T, hkv, dh)], dtype, seed=3)
     qt, kt, vt = qt.to(cuda_device), kt.to(cuda_device), vt.to(cuda_device)
+    route = flash_route(qt.dtype, dh)
+    assert route == ("wgmma" if dtype == "bf16" else "cuda_core")
     off = torch.tensor([150, -20] * hq, dtype=torch.int32)
-    for kw in ({}, {"q_offset": off}, {"q_offset": torch.tensor([7, 200])}):
-        k = tops.flash_attention(qt, kt, vt, causal=causal, backend="cuda",
-                                 **kw)
-        t = tops.flash_attention(qt, kt, vt, causal=causal, backend="torch",
-                                 **kw)
-        assert_attention_close(t.cpu(), k.cpu(), vt.cpu(), dtype, str(kw))
+    fold = {"q": qt.movedim(2, 1).reshape(2 * hq, S, dh).contiguous(),
+            "k": kt.repeat_interleave(hq // hkv, dim=2).movedim(2, 1)
+            .reshape(2 * hq, T, dh).contiguous()}
+    fold["v"] = vt.repeat_interleave(hq // hkv, dim=2).movedim(2, 1).reshape(
+        2 * hq, T, dh).contiguous()
+    for args in ((qt, kt, vt), (fold["q"], fold["k"], fold["v"])):
+        for kw in ({}, {"q_offset": off},
+                   {"q_offset": torch.tensor([7, 200])}):
+            if args[0].ndim == 3 and kw.get("q_offset") is not None \
+                    and kw["q_offset"].numel() == 2:
+                continue  # a per-batch offset is a 4-D layout's
+            before = flash_attention_fwd.launches_by_route[route]
+            k = tops.flash_attention(*args, causal=causal, backend="cuda",
+                                     **kw)
+            assert flash_attention_fwd.launches_by_route[route] == before + 1
+            t = tops.flash_attention(*args, causal=causal, backend="torch",
+                                     **kw)
+            assert_attention_close(t.cpu(), k.cpu(), args[2].cpu(), dtype,
+                                   f"{args[0].ndim}-D {kw}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", tuple(DTYPES))
+def test_nan_in_the_next_batch_stays_out_on_card(dtype, cuda_device):
+    """A ragged T with NaN in batch 1's first v rows: batch 0's keys past
+    T read as zeros (the wgmma route's 3-D TMA maps; the cuda_core
+    route's row bound), so batch 0 stays finite and within tolerance."""
+    S, T, hq, hkv, dh = 100, 300, 8, 2, 128
+    _, (qt, kt, vt) = operands(
+        [(2, S, hq, dh), (2, T, hkv, dh), (2, T, hkv, dh)], dtype, seed=4)
+    vt[1, :4] = float("nan")
+    qt, kt, vt = qt.to(cuda_device), kt.to(cuda_device), vt.to(cuda_device)
+    for causal in (True, False):
+        k = tops.flash_attention(qt, kt, vt, causal=causal, backend="cuda")
+        t = tops.flash_attention(qt, kt, vt, causal=causal, backend="torch")
+        assert bool(torch.isfinite(k[0]).all())
+        assert_attention_close(t[0].cpu(), k[0].cpu(), vt[0].cpu(), dtype,
+                               f"batch 0, causal={causal}")
