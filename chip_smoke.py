@@ -9,24 +9,33 @@
    registers, spills and shared memory from ``-Xptxas -v`` (a spill or a
    note that ptxas serialized their wgmmas fails) and counts HGMMA in
    each library's SASS (``cuobjdump -sass``, where the toolkit has it;
-   none fails).
+   none fails); reads the selection tile route's registers, spills and
+   shared memory (a spill fails) and holds its Eq. 1 division against
+   the IEEE division bit for bit (every f32 numerator significand in
+   twelve binades against every bf16 divisor significand, at three
+   divisor exponents).
 2. Holds each kernel against its plain PyTorch version on the same CUDA
    tensors (``backend='torch'``): ``mor_select_pack`` byte for byte on
    inputs that hit every tag (a real layer shape among them, and a block
-   whose ideal GAM scale overflows to Inf), ``mixed_gemm`` within an
+   whose ideal GAM scale overflows to Inf), on both of its routes (64 x
+   64 generic; the ragged shape and the wi view on the 128 x 128 tile
+   route), repeats bit-identical, ``mixed_gemm`` within an
    f32-summation-order tolerance on both of its paths (M <= 64 streams,
    larger M takes the tensor cores; ragged tile edges, a padded K, split
    K at K = 14336, packs of every tag, compact lanes, tiny rows with bf16
    denormals), each call checked to take its path.
 3. Times both kernels, their plain versions and a library yardstick at
-   the shapes the engine gives them; the stream path also at the prefill
+   the shapes the engine gives them (the selection also on a wi view of
+   every sub3 tag and under sub4, with the wrapper's host us per call and
+   the generic route on the same view); the stream path also at the prefill
    chunk (M = 32), on a wi weight of every sub3 tag and at the f32 head
    (M = 4 x 128256), each with its bytes per second, bound and
    ``torch.matmul`` on the decoded weight.
 4. Serves 8 requests through the llama3-8b engine at full width with
    sub3-quantized random weights, and checks that every GEMM of the run
    went through ``mixed_gemm``'s stream path and every weight through
-   ``mor_select_pack`` (launch counters), never the plain versions.
+   ``mor_select_pack``'s tile route (launch counters), never the plain
+   versions.
 5. Runs a prefill chunk (M = 32) and a decode step (M = 4) at depth 2
    three ways -- kernel path, plain path, GEMMs summed in f64 -- and
    holds every GEMM of the kernel path (all five weight shapes) against
@@ -43,8 +52,9 @@
    sub3 and fused-sub3 policies (2 x 1024 tokens a step), checking
    through the launch counters that every quantization event and every
    fused GEMM went through the kernels (the GEMMs through the
-   tensor-core path) and none through a plain
-   version; profiles one tensor step and one fused step; and runs one
+   tensor-core path, the selections through the tile route) and none
+   through a plain version; profiles one step of each policy (with the
+   step's time in the port's kernels); and runs one
    depth-2 step kernel path against plain path (``backend='torch'`` on
    the same CUDA tensors), holding every fused GEMM against the plain
    version on its real inputs.
@@ -234,7 +244,11 @@ def assert_pack_equal(mo_k, mo_t, r_k, r_t, what):
 
 
 def phase_mor_select(ops, Partition):
-    """Kernel vs plain version of the pack-emitting selection."""
+    """Kernel vs plain version of the pack-emitting selection, each call
+    checked to take the route its block names (64 x 64: generic; the
+    ragged 200 x 136 and the wi view at 128 x 128: tile)."""
+    from repro_torch.kernels.mor_select import (mor_select_pack,
+                                                mor_select_route)
     cases = [((256, 384), (64, 64), 1), ((200, 136), (128, 128), 2),
              ((28672, 4096), (128, 128), 3)]  # the last: the wi view
     want = {"sub2": {0, 2}, "sub3": {0, 1, 2}, "sub4": {0, 1, 2, 3}}
@@ -248,17 +262,28 @@ def phase_mor_select(ops, Partition):
         for mode in ("sub2", "sub3", "sub4"):
             align = (2, 16) if mode == "sub4" else (1, 1)
             part = Partition("block", block, align=align)
+            route = mor_select_route(block, mode)
+            before = mor_select_pack.launches_by_route[route]
             mo_k, r_k = ops.quantize_pack(x, part, mode, backend="cuda")
             mo_t, r_t = ops.quantize_pack(x, part, mode, backend="torch")
             torch.cuda.synchronize()
             what = f"mor_select_pack {shape} {mode}"
+            check(mor_select_pack.launches_by_route[route] == before + 1,
+                  f"{what}: not launched on the {route} route")
             assert_pack_equal(mo_k, mo_t, r_k, r_t, what)
+            mo_2, r_2 = ops.quantize_pack(x, part, mode, backend="cuda")
+            assert_pack_equal(mo_2, mo_k, r_2, r_k, what + " repeat")
+            for f in ("e4_sums", "e5_sums", "nv_sums"):
+                a, b = getattr(r_2, f), getattr(r_k, f)
+                check(a is None or torch.equal(bits16(a), bits16(b)),
+                      f"{what}: repeated {f} not bit-identical")
             tags = set(np.unique(mo_t.tags.cpu().numpy()).tolist())
             seen[mode] |= tags
             d = (mo_k.dequant().float() - mo_t.dequant().float()).abs()
             max_err = max(max_err, float(d.nan_to_num(0.0).max()))
             emit({"parity": "mor_select_pack", "shape": list(shape),
-                  "block": list(block), "mode": mode,
+                  "block": list(block), "mode": mode, "route": route,
+                  "repeat_bit_identical": True,
                   "tags": sorted(tags), "tiny_block": list(TINY_AT),
                   "tiny_block_tag": int(mo_t.tags[TINY_AT]),
                   "identical": True})
@@ -406,20 +431,87 @@ def weight_bytes(mo):
     return float((counts[:4] * bpe).sum() * per_block + mo.tags.numel() * 8)
 
 
+def selection_rows(ops, ref, Partition, variant, w):
+    """One selection kernel (``variant``: "pack" or "select") on the wi
+    view: the tile route on the random weights ``w`` under sub3 (the
+    kernels line's row) and sub4, and on a wi view of every sub3 tag
+    (``mixed_tags``) under sub3 and sub4; then the generic route on the
+    random sub3 view (the previous design, timed only: no caller reaches
+    it at this block). Each row: device ms (CUDA events around 20 eager
+    calls), the wrapper's host us per call, ``device_ms`` from a replayed
+    CUDA graph where the host time per call comes within 2x of the
+    kernel's, the byte bound, the tags, and the outputs held bit for bit
+    against the plain version."""
+    from repro_torch.kernels.mor_select import (_launch, mor_select_pack,
+                                                mor_select_select)
+    fn = mor_select_pack if variant == "pack" else mor_select_select
+    part = {m: Partition("block", (128, 128),
+                         align=(2, 16) if m == "sub4" else (1, 1))
+            for m in ("sub3", "sub4")}
+    n, nblk = w.numel(), w.numel() // (128 * 128)
+    wm = mixed_tags(tuple(w.shape), 3).cuda()
+    rows = {}
+    for label, x, mode in (("sub3", w, "sub3"), ("sub4", w, "sub4"),
+                           ("sub3_mixed_tags", wm, "sub3"),
+                           ("sub4_mixed_tags", wm, "sub4")):
+        xp, _, mg = ops._select_inputs(x, (128, 128), "gam")
+        if variant == "pack":
+            mo_k, r_k = ops.quantize_pack(x, part[mode], mode, backend="cuda")
+            mo_t, r_t = ops.quantize_pack(x, part[mode], mode,
+                                          backend="torch")
+            assert_pack_equal(mo_k, mo_t, r_k, r_t,
+                              f"mor_select_pack timing {label}")
+            tags = mo_t.tags
+            # x read once; payload_q and the bf16 lane (sub4: nibbles and
+            # micro scales too) written; tag, scale, sums, count per block.
+            lanes = 3.0 + (0.5 + 1.0 / 16 if mode == "sub4" else 0.0)
+        else:
+            k = ops.mor_select(x, part[mode], mode, backend="cuda")
+            t = ops.mor_select(x, part[mode], mode, backend="torch")
+            check(torch.equal(bits16(k.y), bits16(t.y))
+                  and torch.equal(k.sel, t.sel),
+                  f"mor_select_select timing {label} differs")
+            tags = t.sel
+            lanes = 2.0  # y
+        b = bound((2.0 + lanes) * n + (28 if mode == "sub4" else 24) * nblk,
+                  0.0)
+
+        def call():
+            return fn(xp, mg, block=(128, 128), mode=mode)
+        row = {"ms": time_ms(call, iters=20), "host_us": host_us(call),
+               "bound_ms": b[0], "bound_by": b[1],
+               "tags": np.bincount(tags.reshape(-1).cpu().numpy(),
+                                   minlength=4).tolist()}
+        if row["host_us"] * 1e-3 * 2 >= row["ms"]:
+            row["device_ms"] = device_ms(call)
+        rows[label] = row
+    # The generic route on the same view, through the module's launcher
+    # (timing only; mor_select_route sends every 128 x 128 call to tile).
+    xp, _, mg = ops._select_inputs(w, (128, 128), "gam")
+    outs = fn(xp, mg, block=(128, 128), mode="sub3")
+    t = {"x": xp, "mg": mg, **outs}
+    keys = (("x", "mg", "payload_q", "payload_bf16", "sel", "scales",
+             "e4_sums", "e5_sums", "counts", "nv_sums", "payload_nib",
+             "micro_scales") if variant == "pack" else
+            ("x", "mg", "y", "sel", "scales", "e4_sums", "e5_sums", "counts",
+             "nv_sums"))
+    ptrs = tuple(t[k].data_ptr() if k in t else None for k in keys)
+    rows["generic_route_sub3_ms"] = time_ms(lambda: _launch(
+        variant, "generic", ptrs, *xp.shape, (128, 128), "sub3", "gam",
+        xp.device), iters=20)
+    del wm
+    return rows
+
+
 def phase_timing(ops, ref, Partition, cfg):
     """Kernel, plain and library times at the engine's shapes: the
     quantization of the wi weight view and the decode GEMM against it."""
-    from repro_torch.core.formats import E4M3, E5M2, NVFP4
     from repro_torch.kernels.mixed_gemm import mixed_gemm_blocks
-    from repro_torch.kernels.mor_select import mor_select_pack
     d, f = cfg.d_model, cfg.d_ff
     w = (torch.randn(2 * f, d, device="cuda") * 0.02).to(torch.bfloat16)
     part = Partition("block", (128, 128))
-    _, safe_g = ops._group_amax(w)
-    mg = torch.stack([ops._group_mantissa(safe_g, fmt, "gam")
-                      for fmt in (E4M3, E5M2, NVFP4)] + [safe_g])
-    sel_k = time_ms(lambda: mor_select_pack(w, mg, block=(128, 128),
-                                            mode="sub3"))
+    shapes = selection_rows(ops, ref, Partition, "pack", w)
+    sel_k = shapes["sub3"]["ms"]
     sel_t = time_ms(lambda: ref.quantize_pack_ref(w, part, "sub3"),
                     iters=2)
     mo_k, r_k = ops.quantize_pack(w, part, "sub3", backend="cuda")
@@ -427,9 +519,7 @@ def phase_timing(ops, ref, Partition, cfg):
     assert_pack_equal(mo_k, mo_t, r_k, r_t, "mor_select_pack timing shape")
     sel_err = float((mo_k.dequant().float()
                      - mo_t.dequant().float()).abs().max())
-    n = w.numel()
-    # x read once; payload_q, the bf16 lane, tags/scales/stats written.
-    sel_bound = bound(2 * n + 1 * n + 2 * n + mo_k.tags.numel() * 24, 0.0)
+    sel_bound = (shapes["sub3"]["bound_ms"], shapes["sub3"]["bound_by"])
 
     wq = mo_k.compact()
     x = torch.randn(4, d, device="cuda").to(torch.bfloat16)
@@ -481,7 +571,7 @@ def phase_timing(ops, ref, Partition, cfg):
                                 bound_ms=sel_bound[0],
                                 bound_by=sel_bound[1], library_ms=None,
                                 max_abs_err=sel_err,
-                                shape=w_shape),
+                                shape=w_shape, shapes=shapes),
         "mixed_gemm": dict(ms=gk, plain_ms=gt, bound_ms=g_bound[0],
                            bound_by=g_bound[1], library_ms=glib,
                            max_abs_err=g_err,
@@ -592,6 +682,8 @@ def phase_engine(cfg, n_layers):
     check(launches["mor_select_pack"] == 4 * L + 1,
           f"mor_select_pack launches {launches['mor_select_pack']} != "
           f"{4 * L + 1} quantized matrices")
+    routes = select_routes()
+    check_tile_route(routes, launches, "engine")
     check(not any(plain.values()),
           f"plain versions ran on the main path: {plain}")
     profile = profile_decode(eng)
@@ -612,6 +704,7 @@ def phase_engine(cfg, n_layers):
         "wall_s": wall, "tokens": tokens, "tokens_per_s": tokens / wall,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "launches": launches, "mixed_gemm_paths": paths,
+        "mor_select_routes": routes,
         "plain_calls": plain, "profile": profile,
     }
     # The timing wrappers above close over eng's bound methods: a cycle
@@ -619,7 +712,7 @@ def phase_engine(cfg, n_layers):
     del eng
     gc.collect()
     torch.cuda.empty_cache()
-    return engine, launches, paths
+    return engine, launches, paths, routes
 
 
 def profile_decode(eng, calls=3):
@@ -827,9 +920,13 @@ def phase_quant_select(ops, Partition):
     algos) and of ``mor_select(emit='select')`` (sub2/3/4) on inputs that
     hit every tag, with zero blocks, a NaN and an Inf, a ragged shape and
     the 28672x4096 wi view: xq, block_exp, counts, y and sel bit for bit;
-    the error sums within 1e-6 relative (the kernel accumulates in f64,
-    the plain version in f32 in PyTorch's order)."""
+    gam_quant's error sums within 1e-6 relative (the kernel accumulates in
+    f64, the plain version in f32 in PyTorch's order), the selection's
+    within rtol 1e-5; each selection on the route its block names, and
+    repeated bit for bit."""
     from repro_torch.core.formats import E4M3, E5M2
+    from repro_torch.kernels.mor_select import (mor_select_route,
+                                                mor_select_select)
     cases = [((256, 384), (64, 64), 1), ((200, 136), (128, 128), 2),
              ((28672, 4096), (128, 128), 3)]
     want = {"sub2": {0, 2}, "sub3": {0, 1, 2}, "sub4": {0, 1, 2, 3}}
@@ -866,10 +963,25 @@ def phase_quant_select(ops, Partition):
         for mode in want:
             align = (2, 16) if mode == "sub4" else (1, 1)
             part = Partition("block", block, align=align)
+            route = mor_select_route(block, mode)
+            before = mor_select_select.launches_by_route[route]
             k = ops.mor_select(x, part, mode, backend="cuda")
             t = ops.mor_select(x, part, mode, backend="torch")
             torch.cuda.synchronize()
             what = f"mor_select_select {shape} {mode}"
+            check(mor_select_select.launches_by_route[route] == before + 1,
+                  f"{what}: not launched on the {route} route")
+            k2 = ops.mor_select(x, part, mode, backend="cuda")
+            for name in ("y", "sel", "e4_sums", "e5_sums", "counts",
+                         "nv_sums"):
+                a, b = getattr(k2, name), getattr(k, name)
+                check(a is None or torch.equal(bits16(a), bits16(b)),
+                      f"{what}: repeated {name} not bit-identical")
+            for f in ("e4_sums", "e5_sums", "nv_sums"):
+                a, b = getattr(k, f), getattr(t, f)
+                check(a is None or torch.allclose(
+                    a, b, rtol=1e-5, atol=0.0, equal_nan=True),
+                    f"{what}: {f} beyond rtol 1e-5")
             check(torch.equal(bits16(k.y), bits16(t.y)),
                   f"{what}: y differs from the plain version")
             check(torch.equal(k.sel, t.sel), f"{what}: sel differs")
@@ -894,7 +1006,6 @@ def phase_train_timing(ops, ref, Partition, cfg):
     from repro_torch.core.formats import E4M3
     from repro_torch.kernels.gam_quant import gam_quant_blocks
     from repro_torch.kernels.mixed_gemm import mixed_gemm_blocks
-    from repro_torch.kernels.mor_select import mor_select_select
     d, f = cfg.d_model, cfg.d_ff
     M = TRAIN_BATCH * TRAIN_SEQ
     part = Partition("block", (128, 128))
@@ -917,21 +1028,19 @@ def phase_train_timing(ops, ref, Partition, cfg):
         max_abs_err=float((k[0].float() - t[0].float()).abs().max()),
         shape=list(w.shape))
 
-    xp, _, mg4 = ops._select_inputs(w, (128, 128), "gam")
     k = ops.mor_select(w, part, "sub3", backend="cuda")
     t = ops.mor_select(w, part, "sub3", backend="torch")
     check(torch.equal(bits16(k.y), bits16(t.y)) and torch.equal(k.sel, t.sel),
           "mor_select_select timing shape differs")
-    # x read once; y written; tag, scale, three sums, count per block.
-    b = bound(2 * n + 2 * n + 24 * nblk, 0.0)
+    shapes = selection_rows(ops, ref, Partition, "select", w)
     out["mor_select_select"] = dict(
-        ms=time_ms(lambda: mor_select_select(xp, mg4, block=(128, 128),
-                                             mode="sub3")),
+        ms=shapes["sub3"]["ms"],
         plain_ms=time_ms(lambda: ref.mor_select_ref(w, part, "sub3"),
                          iters=2),
-        bound_ms=b[0], bound_by=b[1], library_ms=None,
+        bound_ms=shapes["sub3"]["bound_ms"],
+        bound_by=shapes["sub3"]["bound_by"], library_ms=None,
         max_abs_err=float((k.y.float() - t.y.float()).abs().max()),
-        shape=list(w.shape))
+        shape=list(w.shape), shapes=shapes)
 
     x = torch.randn(M, d, device="cuda").to(torch.bfloat16)
     dy = (torch.randn(M, 2 * f, device="cuda") * 1e-3).to(torch.bfloat16)
@@ -1020,7 +1129,8 @@ def reset_counters():
     for fn in kernels.values():
         fn.launches = 0
     kernels["mixed_gemm"].launches_by_path = {"stream": 0, "tc": 0}
-    for name in ("fp8_gemm", "flash_attention"):
+    for name in ("fp8_gemm", "flash_attention", "mor_select_pack",
+                 "mor_select_select"):
         kernels[name].launches_by_route = {
             r: 0 for r in kernels[name].launches_by_route}
     for fn in plain.values():
@@ -1031,6 +1141,22 @@ def read_counters():
     kernels, plain = kernel_counters()
     return ({k: fn.launches for k, fn in kernels.items()},
             {k: fn.calls for k, fn in plain.items()})
+
+
+def select_routes():
+    """Both selection wrappers' launches by route since the last
+    reset_counters()."""
+    kernels, _ = kernel_counters()
+    return {k: dict(kernels[k].launches_by_route)
+            for k in ("mor_select_pack", "mor_select_select")}
+
+
+def check_tile_route(routes, launches, what):
+    """Every selection launch of a main path took the 128 x 128 route."""
+    for k, by_route in routes.items():
+        check(by_route["tile"] == launches[k] and by_route["generic"] == 0,
+              f"{what}: {k} launches off the tile route: {by_route} of "
+              f"{launches[k]}")
 
 
 def gemm_paths():
@@ -1069,7 +1195,7 @@ def phase_train(cfg):
         "sub3_fused": {"mor_select_pack": events,
                        "mixed_gemm": 4 * L * 4 * TRAIN_STEPS},
     }
-    res, launches, profiles, train_paths = {}, {}, {}, {}
+    res, launches, profiles, train_paths, train_routes = {}, {}, {}, {}, {}
     for name, pol in train_policies().items():
         params = init_params(cfg, seed=0, device="cuda")
         opt = init_opt_state(params)
@@ -1099,6 +1225,9 @@ def phase_train(cfg):
             rows.append(row)
         k_counts, p_counts = read_counters()
         paths = gemm_paths()
+        routes = select_routes()
+        check_tile_route(routes, k_counts, f"train {name}")
+        train_routes[name] = routes
         for kern, n in expect[name].items():
             check(k_counts[kern] == n, f"train {name}: {kern} launched "
                   f"{k_counts[kern]} times, want {n} (every event)")
@@ -1109,15 +1238,15 @@ def phase_train(cfg):
               f"{p_counts}")
         launches[name] = k_counts
         train_paths[name] = paths
-        if name in ("tensor", "sub3_fused"):
-            profiles[name] = profile_train_step(
-                step_fn, params, opt, batches[0],
-                "gam_quant" if name == "tensor" else "mixed_gemm")
+        profiles[name] = profile_train_step(
+            step_fn, params, opt, batches[0],
+            {"tensor": "gam_quant", "sub3": "mor_select",
+             "sub3_fused": "mixed_gemm"}[name])
         res[name] = {"steps": rows,
                      "step_ms_median": float(np.median(
                          [r["step_ms"] for r in rows])),
                      "launches": k_counts, "mixed_gemm_paths": paths,
-                     "plain_calls": p_counts}
+                     "mor_select_routes": routes, "plain_calls": p_counts}
         del params, opt, step_fn, batches
         gc.collect()
         torch.cuda.empty_cache()
@@ -1132,13 +1261,18 @@ def phase_train(cfg):
              for k in next(iter(launches.values()))}
     total_paths = {k: sum(p[k] for p in train_paths.values())
                    for k in ("stream", "tc")}
-    return res, total, total_paths
+    total_routes = {k: {r: sum(t[k][r] for t in train_routes.values())
+                        for r in ("tile", "generic")}
+                    for k in ("mor_select_pack", "mor_select_select")}
+    return res, total, total_paths, total_routes
 
 
 def profile_train_step(step_fn, params, opt, batch, must, steps=1):
     """Device time by kernel over one train step, from torch.profiler,
     and the device's busy share of the host wall time (as
-    profile_decode). The step's results are dropped."""
+    profile_decode), with the step's time in each of the port's
+    quantization and GEMM kernels (``port_kernels_ms_per_step``). The
+    step's results are dropped."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1165,6 +1299,9 @@ def profile_train_step(step_fn, params, opt, batch, must, steps=1):
         f"{must}_ms_per_step": sum(
             us for us, k, _ in rows if must in k) / 1e3 / steps,
         "device_idle_share": max(0.0, 1.0 - busy_ms / wall_ms),
+        "port_kernels_ms_per_step": {
+            name: sum(us for us, k, _ in rows if name in k) / 1e3 / steps
+            for name in ("gam_quant", "mor_select", "mixed_gemm")},
         "top": [{"name": k[:60], "ms_per_step": us / 1e3 / steps,
                  "count_per_step": c / steps} for us, k, c in rows[:10]],
     }
@@ -1569,7 +1706,8 @@ def wgmma_build_facts(build, name, smem_bytes):
 
 def build_facts(build):
     """wgmma_build_facts of fp8_gemm's and flash_attention's wgmma routes
-    (flash's shared memory per head dim of the route)."""
+    (flash's shared memory per head dim of the route) and
+    tile_build_facts of the selection's tile route."""
     from repro_torch.kernels.flash_attention import WGMMA_HEAD_DIMS
     fl = build.load("flash_attention")
     return {"fp8_gemm": wgmma_build_facts(
@@ -1577,7 +1715,65 @@ def build_facts(build):
             "flash_attention": wgmma_build_facts(
                 build, "flash_attention",
                 {str(d): fl.flash_attention_wgmma_smem(d)
-                 for d in WGMMA_HEAD_DIMS})}
+                 for d in WGMMA_HEAD_DIMS}),
+            "mor_select": tile_build_facts(build)}
+
+
+def tile_build_facts(build):
+    """The selection tile route's registers, spills and static shared
+    memory per kernel instance (its ``-Xptxas -v`` lines in the build of
+    ``csrc/mor_select.cu``) and the launcher's dynamic shared memory; a
+    spill fails."""
+    import re
+    log = build.build_log("mor_select").splitlines()
+    inst = {}
+    for i, line in enumerate(log):
+        m = re.search(r"mor_select_tile_kernelILb([01])ELb([01])E", line)
+        if "Compiling entry function" not in line or m is None:
+            continue
+        name = (("select" if m.group(1) == "1" else "pack")
+                + ("_sub4" if m.group(2) == "1" else "_sub2_sub3"))
+        facts = inst.setdefault(name, {})
+        for ln in log[i + 1:i + 4]:
+            if "registers" in ln:
+                facts["registers"] = int(ln.split("Used ")[1].split()[0])
+                facts["static_smem_bytes"] = int(
+                    ln.split(" bytes smem")[0].split()[-1])
+            if "spill" in ln:
+                facts["spill"] = ln.strip()
+    check(len(inst) == 4, f"mor_select: ptxas lines for {sorted(inst)}, "
+          "want the tile kernel's four instances")
+    for name, f in inst.items():
+        check(" 0 bytes spill stores, 0 bytes spill loads" in f.get(
+            "spill", ""), f"mor_select tile kernel {name} spills: {f}")
+    return {"instances": inst,
+            "dynamic_smem_bytes": build.load("mor_select").mor_select_tile_smem()}
+
+
+def phase_div_check(build):
+    """The tile route's Eq. 1 division (``div_in_range``) against the
+    IEEE division on the card, bit for bit: every f32 significand of the
+    numerator in twelve binades, both signs, against every bf16
+    significand of the divisor, at divisor exponents -80, 0 and 79 (the
+    ends of the range where the kernel uses it)."""
+    import ctypes
+    f = build.load("mor_select").mor_select_div_check_launch
+    f.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    f.restype = ctypes.c_int
+    res = {}
+    for b_exp in (-80, 0, 79):
+        bad = torch.zeros(1, dtype=torch.int64, device="cuda")
+        t0 = time.perf_counter()
+        err = f(b_exp, bad.data_ptr(), torch.cuda.current_stream().cuda_stream)
+        torch.cuda.synchronize()
+        check(err == 0, f"div check launch failed: CUDA error {err}")
+        res[str(b_exp)] = {"mismatches": int(bad.item()),
+                           "s": time.perf_counter() - t0}
+        check(res[str(b_exp)]["mismatches"] == 0,
+              f"div_in_range differs from the division at b_exp {b_exp}: "
+              f"{res[str(b_exp)]}")
+    res["pairs_per_exponent"] = 2 * 12 * 2 ** 23 * 128
+    return res
 
 
 def sdpa_yardstick(q, k, v, offs):
@@ -1775,6 +1971,9 @@ def main():
           "card": smi})
 
     wgmma_build = build_facts(build)
+    tile_build = wgmma_build["mor_select"]
+    emit({"mor_select_build": tile_build, "card": smi})
+    emit({"mor_select_div_check": phase_div_check(build), "card": smi})
     emit({"fp8_gemm_build": wgmma_build["fp8_gemm"], "card": smi})
     emit({"flash_attention_build": wgmma_build["flash_attention"],
           "card": smi})
@@ -1790,10 +1989,11 @@ def main():
     timing = phase_timing(ops, ref, Partition, cfg)
     timing.update(phase_train_timing(ops, ref, Partition, cfg))
     timing.update(api)
-    engine, launches, engine_paths = phase_engine(cfg, N_LAYERS)
+    engine, launches, engine_paths, engine_routes = phase_engine(cfg,
+                                                                 N_LAYERS)
     depth2 = phase_depth2(cfg, ops, ref)
     serve_grad = phase_serve_grad()
-    train, train_launches, train_paths = phase_train(cfg)
+    train, train_launches, train_paths, train_routes = phase_train(cfg)
     train_depth2 = phase_train_depth2(cfg, ops, ref)
 
     kernels = []
@@ -1835,6 +2035,14 @@ def main():
             entry["train_shapes"] = {g: timing[f"mixed_gemm_{g}"]
                                      for g in ("fwd", "dgrad", "wgrad")}
             entry["stream_shapes"] = timing["stream"]
+        if name in engine_routes:
+            # ms / bound_ms above: the tile route, wi view, sub3, random
+            # weights; shapes: every sub3 tag, sub4, the generic route.
+            entry["launches_by_route"] = {
+                r: engine_routes[name][r] + train_routes[name][r]
+                for r in ("tile", "generic")}
+            entry["shapes"] = t["shapes"]
+            entry["build"] = tile_build
         if name in api:
             entry["case"] = t["case"]
             entry["cases"] = t["cases"]

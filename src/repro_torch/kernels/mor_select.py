@@ -8,6 +8,14 @@ The plain PyTorch versions are ``kernels.ref.quantize_pack_ref`` and
 ``kernels.ref.mor_select_ref``; ``kernels.ops.quantize_pack`` and
 ``kernels.ops.mor_select`` route a CPU tensor there and a CUDA tensor
 here.
+
+Two routes, picked by :func:`mor_select_route` from the block alone (a
+caller cannot force one): ``tile`` for the 128 x 128 block of every main
+path (a persistent grid over a TMA ring, the block in registers, a
+per-warp table of stored values in place of a division by the scale per
+element, 16-byte stores), ``generic`` for any other block (one CTA per
+block, the block in shared memory). Each wrapper counts its launches in
+``launches`` and by route in ``launches_by_route``.
 """
 from __future__ import annotations
 
@@ -21,7 +29,11 @@ from repro_torch.core.metrics import E5M2_RANGE_RATIO, NVFP4_RANGE_RATIO
 
 from . import build
 
-__all__ = ["mor_select_pack", "mor_select_select"]
+__all__ = ["mor_select_pack", "mor_select_select", "mor_select_route",
+           "ROUTES", "TILE_BLOCK"]
+
+ROUTES = ("tile", "generic")
+TILE_BLOCK = (128, 128)
 
 _MODES = {"sub2": 2, "sub3": 3, "sub4": 4}
 _ALGOS = {"gam": 0, "e8m0": 1, "fp32_amax": 2}
@@ -31,18 +43,51 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 
 
-def _fn():
-    f = build.load("mor_select").mor_select_pack_launch
-    f.argtypes = [_P] * 12 + [_I] * 6 + [_F, _F, _P]
-    f.restype = _I
+def mor_select_route(block: Tuple[int, int], mode: str) -> str:
+    """The route that selects over ``block`` under ``mode``: "tile" for
+    128 x 128, "generic" for any other block. A pure function of its
+    arguments; raises where no route takes the block (sub4 needs even
+    rows and 16-divisible columns)."""
+    if mode not in _MODES:
+        raise ValueError(f"unknown mode {mode!r}")
+    bm, bk = block
+    if bm < 1 or bk < 1:
+        raise ValueError(f"block must be positive, got {block}")
+    if mode == "sub4" and (bm % 2 or bk % NVFP4_MICRO):
+        raise ValueError(f"sub4 needs an even-row, 16-divisible block, "
+                         f"got {block}")
+    return "tile" if tuple(block) == TILE_BLOCK else "generic"
+
+
+_FNS = {}
+
+
+def _fn(variant: str, route: str):
+    """The C launcher of ``variant`` ("pack" / "select") on ``route``:
+    the tile launchers take no block (two int arguments fewer)."""
+    f = _FNS.get((variant, route))
+    if f is None:
+        tile = route == "tile"
+        f = getattr(build.load("mor_select"),
+                    f"mor_select_{variant}{'_tile' if tile else ''}_launch")
+        ptrs = 12 if variant == "pack" else 9
+        f.argtypes = [_P] * ptrs + [_I] * (4 if tile else 6) + [_F, _F, _P]
+        f.restype = _I
+        _FNS[(variant, route)] = f
     return f
 
 
-def _select_fn():
-    f = build.load("mor_select").mor_select_select_launch
-    f.argtypes = [_P] * 9 + [_I] * 6 + [_F, _F, _P]
-    f.restype = _I
-    return f
+def _launch(variant, route, ptrs, Mp, Kp, block, mode, algo, dev):
+    """One launch on the current stream; raises on a CUDA error."""
+    dims = (Mp, Kp) if route == "tile" else (Mp, Kp, *block)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _fn(variant, route)(
+            *ptrs, *dims, _MODES[mode], _ALGOS[algo], E5M2_RANGE_RATIO,
+            NVFP4_RANGE_RATIO, stream)
+    if err != 0:
+        raise RuntimeError(f"mor_select_{variant} ({route}) launch failed: "
+                           f"CUDA error {err}")
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape):
@@ -62,16 +107,17 @@ def _validate(xp, mg, block, mode, algo):
         raise ValueError(f"unknown mode/algo {mode!r}/{algo!r}")
     Mp, Kp = xp.shape
     bm, bk = block
+    route = mor_select_route(block, mode)
     if Mp % bm or Kp % bk:
         raise ValueError(f"operand {(Mp, Kp)} is not padded to {block}")
-    if mode == "sub4" and (bm % 2 or bk % NVFP4_MICRO):
-        raise ValueError(f"sub4 needs an even-row, 16-divisible block, "
-                         f"got {block}")
     _check(xp, "x", torch.bfloat16, (Mp, Kp))
     _check(mg, "mg", torch.float32, (4,))
     if mg.device != xp.device:
         raise ValueError("x and mg must share a device")
-    return Mp, Kp, Mp // bm, Kp // bk
+    if route == "tile" and xp.data_ptr() % 16:
+        raise ValueError("x must be 16-byte aligned (the tile route reads it "
+                         "through the TMA)")
+    return Mp, Kp, Mp // bm, Kp // bk, route
 
 
 def mor_select_select(xp: torch.Tensor, mg: torch.Tensor, *,
@@ -84,8 +130,7 @@ def mor_select_select(xp: torch.Tensor, mg: torch.Tensor, *,
     ``sel``, ``scales``, ``e4_sums``, ``e5_sums``, ``counts`` (and sub4
     ``nv_sums``) grids.
     """
-    Mp, Kp, nm, nk = _validate(xp, mg, block, mode, algo)
-    bm, bk = block
+    Mp, Kp, nm, nk, route = _validate(xp, mg, block, mode, algo)
     dev = xp.device
 
     def empty(shape, dtype):
@@ -101,24 +146,20 @@ def mor_select_select(xp: torch.Tensor, mg: torch.Tensor, *,
     }
     if mode == "sub4":
         out["nv_sums"] = empty((nm, nk), torch.float32)
-    fn = _select_fn()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(xp.data_ptr(), mg.data_ptr(), out["y"].data_ptr(),
-                 out["sel"].data_ptr(), out["scales"].data_ptr(),
-                 out["e4_sums"].data_ptr(), out["e5_sums"].data_ptr(),
-                 out["counts"].data_ptr(),
-                 out["nv_sums"].data_ptr() if mode == "sub4" else None,
-                 Mp, Kp, bm, bk, _MODES[mode], _ALGOS[algo],
-                 E5M2_RANGE_RATIO, NVFP4_RANGE_RATIO, stream)
-    if err != 0:
-        raise RuntimeError(
-            f"mor_select_select launch failed: CUDA error {err}")
+    _launch("select", route, (
+        xp.data_ptr(), mg.data_ptr(), out["y"].data_ptr(),
+        out["sel"].data_ptr(), out["scales"].data_ptr(),
+        out["e4_sums"].data_ptr(), out["e5_sums"].data_ptr(),
+        out["counts"].data_ptr(),
+        out["nv_sums"].data_ptr() if mode == "sub4" else None),
+        Mp, Kp, block, mode, algo, dev)
     mor_select_select.launches += 1
+    mor_select_select.launches_by_route[route] += 1
     return out
 
 
 mor_select_select.launches = 0
+mor_select_select.launches_by_route = {r: 0 for r in ROUTES}
 
 
 def mor_select_pack(xp: torch.Tensor, mg: torch.Tensor, *,
@@ -132,8 +173,7 @@ def mor_select_pack(xp: torch.Tensor, mg: torch.Tensor, *,
     ``micro_scales`` for sub4) and the (nm, nk) ``sel``, ``scales``,
     ``e4_sums``, ``e5_sums``, ``counts`` (and sub4 ``nv_sums``) grids.
     """
-    Mp, Kp, nm, nk = _validate(xp, mg, block, mode, algo)
-    bm, bk = block
+    Mp, Kp, nm, nk, route = _validate(xp, mg, block, mode, algo)
     dev = xp.device
 
     def empty(shape, dtype):
@@ -153,22 +193,15 @@ def mor_select_pack(xp: torch.Tensor, mg: torch.Tensor, *,
         out["payload_nib"] = empty((Mp // 2, Kp), torch.uint8)
         out["micro_scales"] = empty((Mp, Kp // NVFP4_MICRO), torch.uint8)
 
-    def ptr(key):
-        return out[key].data_ptr() if key in out else None
-
-    fn = _fn()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(xp.data_ptr(), mg.data_ptr(), ptr("payload_q"),
-                 ptr("payload_bf16"), ptr("sel"), ptr("scales"),
-                 ptr("e4_sums"), ptr("e5_sums"), ptr("counts"),
-                 ptr("nv_sums"), ptr("payload_nib"), ptr("micro_scales"),
-                 Mp, Kp, bm, bk, _MODES[mode], _ALGOS[algo],
-                 E5M2_RANGE_RATIO, NVFP4_RANGE_RATIO, stream)
-    if err != 0:
-        raise RuntimeError(f"mor_select_pack launch failed: CUDA error {err}")
+    t = {"x": xp, "mg": mg, **out}
+    _launch("pack", route, tuple(t[k].data_ptr() if k in t else None for k in (
+        "x", "mg", "payload_q", "payload_bf16", "sel", "scales", "e4_sums",
+        "e5_sums", "counts", "nv_sums", "payload_nib", "micro_scales")),
+        Mp, Kp, block, mode, algo, dev)
     mor_select_pack.launches += 1
+    mor_select_pack.launches_by_route[route] += 1
     return out
 
 
 mor_select_pack.launches = 0
+mor_select_pack.launches_by_route = {r: 0 for r in ROUTES}
