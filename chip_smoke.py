@@ -9,8 +9,9 @@
    registers, spills and shared memory from ``-Xptxas -v`` (a spill or a
    note that ptxas serialized their wgmmas fails) and counts HGMMA in
    each library's SASS (``cuobjdump -sass``, where the toolkit has it;
-   none fails); reads the selection tile route's registers, spills and
-   shared memory (a spill fails) and holds its Eq. 1 division against
+   none fails); reads the tile routes' (the selection's and
+   ``gam_quant``'s) registers, spills and shared memory (a spill fails)
+   and holds their Eq. 1 division against
    the IEEE division bit for bit (every f32 numerator significand in
    twelve binades against every bf16 divisor significand, at three
    divisor exponents).
@@ -43,16 +44,20 @@
    path's logits may be at most twice as far from the f64 path's as
    the plain path's are. A backward through a real-quantized (QTensor)
    weight must raise the reference's NotImplementedError.
-6. Training: holds ``gam_quant`` and ``mor_select(emit='select')``
-   against their plain versions bit for bit (value lanes, exponents and
-   tags; the overflowing-scale block too); times them on the wi view
+6. Training: holds ``gam_quant`` (both of its routes: ``tile`` for 128 x
+   128 blocks, ``generic`` for others and, through the module's launcher,
+   at 128 x 128 too) and ``mor_select(emit='select')`` against their
+   plain versions bit for bit (value lanes, exponents and tags; the
+   overflowing-scale block too), repeats bit-identical; times them on the
+   wi view (``gam_quant`` on both routes, E4M3 and E5M2, every algo)
    and ``mixed_gemm``'s tensor-core path at the training shapes (fwd,
    dgrad, wgrad of wi at 2048 tokens); trains 4-layer,
    full-width llama3-8b for 3 AdamW steps under each of the tensor,
    sub3 and fused-sub3 policies (2 x 1024 tokens a step), checking
    through the launch counters that every quantization event and every
    fused GEMM went through the kernels (the GEMMs through the
-   tensor-core path, the selections through the tile route) and none
+   tensor-core path, the selections and ``gam_quant`` through the tile
+   route) and none
    through a plain version; profiles one step of each policy (with the
    step's time in the port's kernels); and runs one
    depth-2 step kernel path against plain path (``backend='torch'`` on
@@ -682,7 +687,7 @@ def phase_engine(cfg, n_layers):
     check(launches["mor_select_pack"] == 4 * L + 1,
           f"mor_select_pack launches {launches['mor_select_pack']} != "
           f"{4 * L + 1} quantized matrices")
-    routes = select_routes()
+    routes = tile_routes()
     check_tile_route(routes, launches, "engine")
     check(not any(plain.values()),
           f"plain versions ran on the main path: {plain}")
@@ -704,7 +709,7 @@ def phase_engine(cfg, n_layers):
         "wall_s": wall, "tokens": tokens, "tokens_per_s": tokens / wall,
         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "launches": launches, "mixed_gemm_paths": paths,
-        "mor_select_routes": routes,
+        "tile_routes": routes,
         "plain_calls": plain, "profile": profile,
     }
     # The timing wrappers above close over eng's bound methods: a cycle
@@ -915,6 +920,51 @@ def bits16(t):
     return t
 
 
+def gam_quant_on_route(ops, x, block, fmt, algo, route):
+    """``ops.gam_quant``'s outputs from the kernel on ``route``, through
+    the module's launcher: ``gam_quant_route`` sends every 128 x 128 call
+    to ``tile``, so ``generic`` is reached at that block only this way
+    (the previous design, for parity and timing; no caller takes it)."""
+    from repro_torch.kernels.gam_quant import _launch
+    M, K = x.shape
+    bm, bk = block
+    xp = ops._pad2d(x, bm, bk).contiguous()
+    _, safe_g = ops._group_amax(x)
+    mg = torch.stack([ops._group_mantissa(safe_g, fmt, algo),
+                      safe_g]).to(torch.float32)
+    nm, nk = xp.shape[0] // bm, xp.shape[1] // bk
+    out = (torch.empty_like(xp),
+           torch.empty((nm, nk), dtype=torch.int32, device=x.device),
+           torch.empty((nm, nk), dtype=torch.float32, device=x.device),
+           torch.empty((nm, nk), dtype=torch.float32, device=x.device))
+
+    def launch():
+        _launch(route, (xp.data_ptr(), mg.data_ptr(),
+                        *(t.data_ptr() for t in out)),
+                *xp.shape, block, algo, fmt.amax,
+                fmt.dtype == torch.float8_e5m2, xp.device)
+        return (out[0][:M, :K], *out[1:])
+    return launch
+
+
+def check_gam_quant(k, t, what):
+    """gam_quant outputs ``k`` against the plain version's ``t``: xq,
+    block_exp and counts bit for bit, error sums within 1e-6 relative (the
+    kernel accumulates in f64, the plain version in f32 in PyTorch's
+    order); returns the sums' largest relative difference."""
+    for name, a, b in (("xq", k[0], t[0]), ("block_exp", k[1], t[1]),
+                       ("counts", k[3], t[3])):
+        check(a.shape == b.shape and torch.equal(bits16(a), bits16(b)),
+              f"{what}: {name} differs from the plain version")
+    check(torch.equal(k[2].isnan(), t[2].isnan()),
+          f"{what}: NaN error sums differ")
+    ok = ~t[2].isnan()
+    rel = (k[2][ok] - t[2][ok]).abs() / t[2][ok].abs().clamp_min(1e-30)
+    r = float(rel.max()) if rel.numel() else 0.0
+    check(r <= 1e-6, f"{what}: error sums {r} beyond 1e-6")
+    return r
+
+
 def phase_quant_select(ops, Partition):
     """Kernel vs plain version of ``gam_quant`` (E4M3 and E5M2, all three
     algos) and of ``mor_select(emit='select')`` (sub2/3/4) on inputs that
@@ -922,9 +972,12 @@ def phase_quant_select(ops, Partition):
     the 28672x4096 wi view: xq, block_exp, counts, y and sel bit for bit;
     gam_quant's error sums within 1e-6 relative (the kernel accumulates in
     f64, the plain version in f32 in PyTorch's order), the selection's
-    within rtol 1e-5; each selection on the route its block names, and
-    repeated bit for bit."""
+    within rtol 1e-5; each call on the route its block names, and
+    repeated bit for bit. gam_quant's ``generic`` route is also held
+    against the plain version at the 128 x 128 blocks that take ``tile``."""
     from repro_torch.core.formats import E4M3, E5M2
+    from repro_torch.kernels.gam_quant import (gam_quant_blocks,
+                                               gam_quant_route)
     from repro_torch.kernels.mor_select import (mor_select_route,
                                                 mor_select_select)
     cases = [((256, 384), (64, 64), 1), ((200, 136), (128, 128), 2),
@@ -937,29 +990,32 @@ def phase_quant_select(ops, Partition):
         x[5, 7] = float("nan")
         x[shape[0] // 2 + 3, shape[1] - 9] = float("inf")
         add_tiny_block(x, block, TINY_AT, seed)
+        route = gam_quant_route(block)
         for fmt in (E4M3, E5M2):
             for algo in ALGOS:
+                before = gam_quant_blocks.launches_by_route[route]
                 k = ops.gam_quant(x, block=block, fmt=fmt, algo=algo,
                                   backend="cuda")
                 t = ops.gam_quant(x, block=block, fmt=fmt, algo=algo,
                                   backend="torch")
                 torch.cuda.synchronize()
-                what = f"gam_quant {shape} {fmt.name} {algo}"
-                for name, a, b in (("xq", k[0], t[0]), ("block_exp", k[1],
-                                   t[1]), ("counts", k[3], t[3])):
-                    check(a.shape == b.shape and torch.equal(bits16(a),
-                                                             bits16(b)),
-                          f"{what}: {name} differs from the plain version")
+                what = f"gam_quant {shape} {fmt.name} {algo} ({route})"
+                check(gam_quant_blocks.launches_by_route[route] == before + 1,
+                      f"{what}: not launched on the {route} route")
+                sum_rel = max(sum_rel, check_gam_quant(k, t, what))
                 check(int(k[1][TINY_AT]) == -1, f"{what}: the tiny block's "
                       f"exponent is {int(k[1][TINY_AT])}, not frexp(Inf) - 1")
-                check(torch.equal(k[2].isnan(), t[2].isnan()),
-                      f"{what}: NaN error sums differ")
-                ok = ~t[2].isnan()
-                rel = ((k[2][ok] - t[2][ok]).abs()
-                       / t[2][ok].abs().clamp_min(1e-30))
-                r = float(rel.max()) if rel.numel() else 0.0
-                check(r <= 1e-6, f"{what}: error sums {r} beyond 1e-6")
-                sum_rel = max(sum_rel, r)
+                k2 = ops.gam_quant(x, block=block, fmt=fmt, algo=algo,
+                                   backend="cuda")
+                check(all(torch.equal(bits16(a), bits16(b))
+                          for a, b in zip(k, k2)),
+                      f"{what}: repeat not bit-identical")
+                if route == "tile":
+                    g = gam_quant_on_route(ops, x, block, fmt, algo,
+                                           "generic")()
+                    sum_rel = max(sum_rel, check_gam_quant(
+                        g, t, f"gam_quant {shape} {fmt.name} {algo} "
+                        "(generic)"))
         for mode in want:
             align = (2, 16) if mode == "sub4" else (1, 1)
             part = Partition("block", block, align=align)
@@ -990,11 +1046,67 @@ def phase_quant_select(ops, Partition):
             seen[mode] |= tags
         emit({"parity": "gam_quant+mor_select_select", "shape": list(shape),
               "block": list(block), "tiny_block": list(TINY_AT),
-              "identical": True})
+              "gam_quant_routes": ["tile", "generic"] if route == "tile"
+              else [route], "identical": True})
     for mode, tags in want.items():
         check(tags <= seen[mode], f"mor_select_select {mode}: tags "
               f"{sorted(seen[mode])} miss some of {sorted(tags)}")
     return {"gam_quant_err_sums_max_rel": sum_rel}
+
+
+def gam_quant_rows(ops, ref, part, w):
+    """gam_quant on the wi view ``w``: the wrapper on the ``tile`` route at
+    E4M3 / gam (the kernels line's row: ms, its host us per call, bound,
+    plain ms), and through the module's launcher the ``tile`` route at
+    E4M3 and E5M2 / gam, E4M3 / e8m0 and E4M3 / fp32_amax (``shapes``)
+    and the ``generic`` route at E4M3 / gam (``generic_ms``). Every
+    variant's outputs are held against the plain version first (xq,
+    block_exp, counts bit for bit; error sums within 1e-6); then all are
+    timed in turns (each, then each in reverse, twice: 4 runs of 20
+    calls), so drift in the card's clock reaches every row alike."""
+    from repro_torch.core.formats import E4M3, E5M2
+    from repro_torch.kernels.gam_quant import gam_quant_blocks
+    n, nblk = w.numel(), w.numel() // (128 * 128)
+    # x read once; xq written; exponent, error sum and count per block.
+    b = bound(2 * n + 2 * n + 12 * nblk, 0.0)
+    calls, rows = {}, {}
+    for label, fmt, algo, route in (
+            ("e4m3_gam", E4M3, "gam", "tile"),
+            ("e5m2_gam", E5M2, "gam", "tile"),
+            ("e4m3_e8m0", E4M3, "e8m0", "tile"),
+            ("e4m3_fp32_amax", E4M3, "fp32_amax", "tile"),
+            ("generic_e4m3_gam", E4M3, "gam", "generic")):
+        calls[label] = gam_quant_on_route(ops, w, (128, 128), fmt, algo, route)
+        k = calls[label]()
+        t = ref.gam_quant_ref(w, part, fmt, algo)
+        torch.cuda.synchronize()
+        check_gam_quant(k, t, f"gam_quant timing {label} ({route})")
+        rows[label] = {"route": route, "max_abs_err": float(
+            (k[0].float() - t[0].float()).abs().max())}
+    _, safe_g = ops._group_amax(w)
+    mg2 = torch.stack([ops._group_mantissa(safe_g, E4M3, "gam"), safe_g])
+    before = dict(gam_quant_blocks.launches_by_route)
+
+    def wrapper():
+        return gam_quant_blocks(w, mg2, block=(128, 128))
+    calls["wrapper"] = wrapper
+    runs = {label: [] for label in calls}
+    for label in (list(calls) + list(calls)[::-1]) * 2:
+        runs[label].append(time_ms(calls[label], iters=20))
+    check(gam_quant_blocks.launches_by_route["tile"] > before["tile"]
+          and gam_quant_blocks.launches_by_route["generic"]
+          == before["generic"], "gam_quant timing: wrapper off the tile route")
+    for label, row in rows.items():
+        row.update(ms=float(np.mean(runs[label])), runs=runs[label])
+    generic = rows.pop("generic_e4m3_gam")
+    return dict(
+        ms=float(np.mean(runs["wrapper"])), runs=runs["wrapper"],
+        route="tile", host_us=host_us(wrapper), generic_ms=generic["ms"],
+        generic_runs=generic["runs"],
+        plain_ms=time_ms(lambda: ref.gam_quant_ref(w, part, E4M3), iters=2),
+        bound_ms=b[0], bound_by=b[1], library_ms=None,
+        max_abs_err=rows["e4m3_gam"]["max_abs_err"], shape=list(w.shape),
+        shapes=rows)
 
 
 def phase_train_timing(ops, ref, Partition, cfg):
@@ -1003,8 +1115,6 @@ def phase_train_timing(ops, ref, Partition, cfg):
     the fwd (M = 2048 tokens), dgrad and wgrad GEMMs of wi on sub3 packs,
     with the wgrad operands transposed packs as the fused backward makes
     them."""
-    from repro_torch.core.formats import E4M3
-    from repro_torch.kernels.gam_quant import gam_quant_blocks
     from repro_torch.kernels.mixed_gemm import mixed_gemm_blocks
     d, f = cfg.d_model, cfg.d_ff
     M = TRAIN_BATCH * TRAIN_SEQ
@@ -1013,20 +1123,7 @@ def phase_train_timing(ops, ref, Partition, cfg):
     n, nblk = w.numel(), w.numel() // (128 * 128)
     out = {}
 
-    _, safe_g = ops._group_amax(w)
-    mg2 = torch.stack([ops._group_mantissa(safe_g, E4M3, "gam"), safe_g])
-    k = ops.gam_quant(w, fmt=E4M3, backend="cuda")
-    t = ops.gam_quant(w, fmt=E4M3, backend="torch")
-    check(torch.equal(bits16(k[0]), bits16(t[0]))
-          and torch.equal(k[1], t[1]), "gam_quant timing shape differs")
-    # x read once; xq written; exponent, error sum and count per block.
-    b = bound(2 * n + 2 * n + 12 * nblk, 0.0)
-    out["gam_quant"] = dict(
-        ms=time_ms(lambda: gam_quant_blocks(w, mg2, block=(128, 128))),
-        plain_ms=time_ms(lambda: ref.gam_quant_ref(w, part, E4M3), iters=2),
-        bound_ms=b[0], bound_by=b[1], library_ms=None,
-        max_abs_err=float((k[0].float() - t[0].float()).abs().max()),
-        shape=list(w.shape))
+    out["gam_quant"] = gam_quant_rows(ops, ref, part, w)
 
     k = ops.mor_select(w, part, "sub3", backend="cuda")
     t = ops.mor_select(w, part, "sub3", backend="torch")
@@ -1129,8 +1226,7 @@ def reset_counters():
     for fn in kernels.values():
         fn.launches = 0
     kernels["mixed_gemm"].launches_by_path = {"stream": 0, "tc": 0}
-    for name in ("fp8_gemm", "flash_attention", "mor_select_pack",
-                 "mor_select_select"):
+    for name in ("fp8_gemm", "flash_attention") + TILE_KERNELS:
         kernels[name].launches_by_route = {
             r: 0 for r in kernels[name].launches_by_route}
     for fn in plain.values():
@@ -1143,16 +1239,19 @@ def read_counters():
             {k: fn.calls for k, fn in plain.items()})
 
 
-def select_routes():
-    """Both selection wrappers' launches by route since the last
-    reset_counters()."""
+TILE_KERNELS = ("mor_select_pack", "mor_select_select", "gam_quant")
+
+
+def tile_routes():
+    """The quantization wrappers' (both selections' and gam_quant's)
+    launches by route since the last reset_counters()."""
     kernels, _ = kernel_counters()
-    return {k: dict(kernels[k].launches_by_route)
-            for k in ("mor_select_pack", "mor_select_select")}
+    return {k: dict(kernels[k].launches_by_route) for k in TILE_KERNELS}
 
 
 def check_tile_route(routes, launches, what):
-    """Every selection launch of a main path took the 128 x 128 route."""
+    """Every quantization launch of a main path took the 128 x 128
+    route."""
     for k, by_route in routes.items():
         check(by_route["tile"] == launches[k] and by_route["generic"] == 0,
               f"{what}: {k} launches off the tile route: {by_route} of "
@@ -1225,7 +1324,7 @@ def phase_train(cfg):
             rows.append(row)
         k_counts, p_counts = read_counters()
         paths = gemm_paths()
-        routes = select_routes()
+        routes = tile_routes()
         check_tile_route(routes, k_counts, f"train {name}")
         train_routes[name] = routes
         for kern, n in expect[name].items():
@@ -1246,7 +1345,7 @@ def phase_train(cfg):
                      "step_ms_median": float(np.median(
                          [r["step_ms"] for r in rows])),
                      "launches": k_counts, "mixed_gemm_paths": paths,
-                     "mor_select_routes": routes, "plain_calls": p_counts}
+                     "tile_routes": routes, "plain_calls": p_counts}
         del params, opt, step_fn, batches
         gc.collect()
         torch.cuda.empty_cache()
@@ -1263,7 +1362,7 @@ def phase_train(cfg):
                    for k in ("stream", "tc")}
     total_routes = {k: {r: sum(t[k][r] for t in train_routes.values())
                         for r in ("tile", "generic")}
-                    for k in ("mor_select_pack", "mor_select_select")}
+                    for k in TILE_KERNELS}
     return res, total, total_paths, total_routes
 
 
@@ -1707,7 +1806,7 @@ def wgmma_build_facts(build, name, smem_bytes):
 def build_facts(build):
     """wgmma_build_facts of fp8_gemm's and flash_attention's wgmma routes
     (flash's shared memory per head dim of the route) and
-    tile_build_facts of the selection's tile route."""
+    tile_build_facts of the selection's and gam_quant's tile routes."""
     from repro_torch.kernels.flash_attention import WGMMA_HEAD_DIMS
     fl = build.load("flash_attention")
     return {"fp8_gemm": wgmma_build_facts(
@@ -1716,24 +1815,38 @@ def build_facts(build):
                 build, "flash_attention",
                 {str(d): fl.flash_attention_wgmma_smem(d)
                  for d in WGMMA_HEAD_DIMS}),
-            "mor_select": tile_build_facts(build)}
+            "mor_select": tile_build_facts(build, "mor_select"),
+            "gam_quant": tile_build_facts(build, "gam_quant")}
 
 
-def tile_build_facts(build):
-    """The selection tile route's registers, spills and static shared
-    memory per kernel instance (its ``-Xptxas -v`` lines in the build of
-    ``csrc/mor_select.cu``) and the launcher's dynamic shared memory; a
-    spill fails."""
+# The tile kernels' instances: mangled-name pattern -> label.
+TILE_INSTANCES = {
+    "mor_select": {r"mor_select_tile_kernelILb1ELb0E": "select_sub2_sub3",
+                   r"mor_select_tile_kernelILb1ELb1E": "select_sub4",
+                   r"mor_select_tile_kernelILb0ELb0E": "pack_sub2_sub3",
+                   r"mor_select_tile_kernelILb0ELb1E": "pack_sub4"},
+    "gam_quant": {
+        r"gam_quant_tile_kernelIL\d+__nv_fp8_interpretation_t0E": "e4m3",
+        r"gam_quant_tile_kernelIL\d+__nv_fp8_interpretation_t1E": "e5m2"},
+}
+
+
+def tile_build_facts(build, name):
+    """A tile route's registers, spills and static shared memory per
+    kernel instance (its ``-Xptxas -v`` lines in the build of
+    ``csrc/<name>.cu``) and the launcher's dynamic shared memory; a spill
+    fails, and so does an instance without ptxas lines."""
     import re
-    log = build.build_log("mor_select").splitlines()
+    log = build.build_log(name).splitlines()
     inst = {}
     for i, line in enumerate(log):
-        m = re.search(r"mor_select_tile_kernelILb([01])ELb([01])E", line)
-        if "Compiling entry function" not in line or m is None:
+        if "Compiling entry function" not in line:
             continue
-        name = (("select" if m.group(1) == "1" else "pack")
-                + ("_sub4" if m.group(2) == "1" else "_sub2_sub3"))
-        facts = inst.setdefault(name, {})
+        label = next((lb for pat, lb in TILE_INSTANCES[name].items()
+                      if re.search(pat, line)), None)
+        if label is None:
+            continue
+        facts = inst.setdefault(label, {})
         for ln in log[i + 1:i + 4]:
             if "registers" in ln:
                 facts["registers"] = int(ln.split("Used ")[1].split()[0])
@@ -1741,13 +1854,14 @@ def tile_build_facts(build):
                     ln.split(" bytes smem")[0].split()[-1])
             if "spill" in ln:
                 facts["spill"] = ln.strip()
-    check(len(inst) == 4, f"mor_select: ptxas lines for {sorted(inst)}, "
-          "want the tile kernel's four instances")
-    for name, f in inst.items():
+    want = sorted(TILE_INSTANCES[name].values())
+    check(sorted(inst) == want, f"{name}: ptxas lines for {sorted(inst)}, "
+          f"want the tile kernel's instances {want}")
+    for label, f in inst.items():
         check(" 0 bytes spill stores, 0 bytes spill loads" in f.get(
-            "spill", ""), f"mor_select tile kernel {name} spills: {f}")
-    return {"instances": inst,
-            "dynamic_smem_bytes": build.load("mor_select").mor_select_tile_smem()}
+            "spill", ""), f"{name} tile kernel {label} spills: {f}")
+    return {"instances": inst, "dynamic_smem_bytes": getattr(
+        build.load(name), f"{name}_tile_smem")()}
 
 
 def phase_div_check(build):
@@ -1971,8 +2085,8 @@ def main():
           "card": smi})
 
     wgmma_build = build_facts(build)
-    tile_build = wgmma_build["mor_select"]
-    emit({"mor_select_build": tile_build, "card": smi})
+    emit({"mor_select_build": wgmma_build["mor_select"], "card": smi})
+    emit({"gam_quant_build": wgmma_build["gam_quant"], "card": smi})
     emit({"mor_select_div_check": phase_div_check(build), "card": smi})
     emit({"fp8_gemm_build": wgmma_build["fp8_gemm"], "card": smi})
     emit({"flash_attention_build": wgmma_build["flash_attention"],
@@ -2036,13 +2150,22 @@ def main():
                                      for g in ("fwd", "dgrad", "wgrad")}
             entry["stream_shapes"] = timing["stream"]
         if name in engine_routes:
-            # ms / bound_ms above: the tile route, wi view, sub3, random
-            # weights; shapes: every sub3 tag, sub4, the generic route.
+            # ms / bound_ms above: the tile route, wi view, random
+            # weights (the selections: sub3; gam_quant: E4M3, gam);
+            # shapes: the selections' every sub3 tag, sub4 and generic
+            # route; gam_quant's E5M2 and other algos (its generic route:
+            # generic_ms).
             entry["launches_by_route"] = {
                 r: engine_routes[name][r] + train_routes[name][r]
                 for r in ("tile", "generic")}
             entry["shapes"] = t["shapes"]
-            entry["build"] = tile_build
+            entry["build"] = wgmma_build[
+                "gam_quant" if name == "gam_quant" else "mor_select"]
+        if name == "gam_quant":
+            # ms: the wrapper's mean over 4 runs in turns with the shapes'
+            # rows (runs); host_us: the wrapper's host time per call.
+            for key in ("runs", "host_us", "generic_ms", "generic_runs"):
+                entry[key] = t[key]
         if name in api:
             entry["case"] = t["case"]
             entry["cases"] = t["cases"]

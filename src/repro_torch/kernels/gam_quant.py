@@ -5,6 +5,14 @@ The plain PyTorch version of the same function is
 ``kernels.ref.gam_quant_ref``; ``kernels.ops.gam_quant`` and
 ``kernels.ops.quant_err`` route a CPU tensor there and a CUDA tensor
 here.
+
+Two routes, picked by :func:`gam_quant_route` from the block alone (a
+caller cannot force one): ``tile`` for the 128 x 128 block of every main
+path (a persistent grid over a TMA ring, the block in registers, a
+per-warp table of stored values in place of a division by the scale per
+element, 16-byte stores), ``generic`` for any other block (one CTA per
+block, the block in shared memory). The wrapper counts its launches in
+``launches`` and by route in ``launches_by_route``.
 """
 from __future__ import annotations
 
@@ -16,18 +24,55 @@ import torch
 from . import build
 from .mor_select import _ALGOS, _check
 
-__all__ = ["gam_quant_blocks"]
+__all__ = ["gam_quant_blocks", "gam_quant_route", "ROUTES", "TILE_BLOCK"]
+
+ROUTES = ("tile", "generic")
+TILE_BLOCK = (128, 128)
+# The tile route leaves the clip to the saturating cast, so it takes only
+# the format's own max as q_amax.
+_FMT_MAX = {torch.float8_e4m3fn: 448.0, torch.float8_e5m2: 57344.0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 
 
-def _fn():
-    f = build.load("gam_quant").gam_quant_launch
-    f.argtypes = [_P] * 6 + [_I] * 5 + [_F, _I, _P]
-    f.restype = _I
+def gam_quant_route(block: Tuple[int, int]) -> str:
+    """The route that quantizes ``block``: "tile" for 128 x 128, "generic"
+    for any other positive block. A pure function of its argument."""
+    bm, bk = block
+    if bm < 1 or bk < 1:
+        raise ValueError(f"block must be positive, got {block}")
+    return "tile" if tuple(block) == TILE_BLOCK else "generic"
+
+
+_FNS = {}
+
+
+def _fn(route: str):
+    """The C launcher of ``route``: the tile launcher takes no block (two
+    int arguments fewer)."""
+    f = _FNS.get(route)
+    if f is None:
+        tile = route == "tile"
+        f = getattr(build.load("gam_quant"),
+                    "gam_quant_tile_launch" if tile else "gam_quant_launch")
+        f.argtypes = [_P] * 6 + [_I] * (3 if tile else 5) + [_F, _I, _P]
+        f.restype = _I
+        _FNS[route] = f
     return f
+
+
+def _launch(route, ptrs, Mp, Kp, block, algo, q_amax, e5m2, dev):
+    """One launch on the current stream; raises on a CUDA error."""
+    dims = (Mp, Kp) if route == "tile" else (Mp, Kp, *block)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _fn(route)(*ptrs, *dims, _ALGOS[algo], float(q_amax),
+                         int(e5m2), stream)
+    if err != 0:
+        raise RuntimeError(f"gam_quant ({route}) launch failed: CUDA error "
+                           f"{err}")
 
 
 def gam_quant_blocks(xp: torch.Tensor, mg: torch.Tensor, *,
@@ -43,34 +88,39 @@ def gam_quant_blocks(xp: torch.Tensor, mg: torch.Tensor, *,
     """
     if algo not in _ALGOS:
         raise ValueError(f"unknown algo {algo!r}")
-    if fmt_dtype not in (torch.float8_e4m3fn, torch.float8_e5m2):
+    if fmt_dtype not in _FMT_MAX:
         raise ValueError(f"gam_quant quantizes to E4M3 or E5M2, got "
                          f"{fmt_dtype}")
     Mp, Kp = xp.shape
     bm, bk = block
+    route = gam_quant_route(block)
     if Mp % bm or Kp % bk:
         raise ValueError(f"operand {(Mp, Kp)} is not padded to {block}")
     _check(xp, "x", torch.bfloat16, (Mp, Kp))
     _check(mg, "mg", torch.float32, (2,))
     if mg.device != xp.device:
         raise ValueError("x and mg must share a device")
+    if route == "tile":
+        if xp.data_ptr() % 16:
+            raise ValueError("x must be 16-byte aligned (the tile route reads "
+                             "it through the TMA)")
+        if float(q_amax) != _FMT_MAX[fmt_dtype]:
+            raise ValueError(f"the tile route clips at the format's max "
+                             f"{_FMT_MAX[fmt_dtype]}, got q_amax {q_amax}")
     nm, nk = Mp // bm, Kp // bk
     dev = xp.device
     xq = torch.empty((Mp, Kp), dtype=torch.bfloat16, device=dev)
     block_exp = torch.empty((nm, nk), dtype=torch.int32, device=dev)
     err_sums = torch.empty((nm, nk), dtype=torch.float32, device=dev)
     counts = torch.empty((nm, nk), dtype=torch.float32, device=dev)
-    fn = _fn()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(xp.data_ptr(), mg.data_ptr(), xq.data_ptr(),
-                 block_exp.data_ptr(), err_sums.data_ptr(),
-                 counts.data_ptr(), Mp, Kp, bm, bk, _ALGOS[algo],
-                 float(q_amax), int(fmt_dtype == torch.float8_e5m2), stream)
-    if err != 0:
-        raise RuntimeError(f"gam_quant launch failed: CUDA error {err}")
+    _launch(route, (xp.data_ptr(), mg.data_ptr(), xq.data_ptr(),
+                    block_exp.data_ptr(), err_sums.data_ptr(),
+                    counts.data_ptr()),
+            Mp, Kp, block, algo, q_amax, fmt_dtype == torch.float8_e5m2, dev)
     gam_quant_blocks.launches += 1
+    gam_quant_blocks.launches_by_route[route] += 1
     return xq, block_exp, err_sums, counts
 
 
 gam_quant_blocks.launches = 0
+gam_quant_blocks.launches_by_route = {r: 0 for r in ROUTES}

@@ -2,9 +2,11 @@
 
     PYTHONPATH=src python3 -m repro_torch.kernels.mor_select_ablation
 
-Builds copies of ``csrc/mor_select.cu`` with one part of the tile route
-(the 128 x 128 block) taken out (one nvcc per copy, started together,
-into ``build/ablation/`` beside the kernels' build directory) and times
+Builds copies of ``csrc/mor_select.cu`` and the tile route's shared
+header ``csrc/tile.cuh`` with one part of the tile route (the 128 x 128
+block) taken out (one nvcc per copy, started together, each copy in its
+own directory under ``build/ablation/`` beside the kernels' build
+directory, where its edited header shadows the source's) and times
 each beside the source as it is (``full``), in turns (all copies, then
 all in reverse, twice), on the wi view of llama3-8b (28672 x 4096 bf16,
 N(0, 0.02) weights, sub3), pack and select. Copies:
@@ -24,7 +26,7 @@ Only ``full`` and ``direct_loads`` compute the selection; their outputs
 are held bit for bit against the plain version. Prints the card's name
 and power limit, then one JSON line per variant with each copy's mean ms,
 its share of ``full``'s and its runs. Exits non-zero without a card, or
-if an edit point no longer occurs exactly once in the source.
+if an edit point no longer occurs exactly once in its file.
 """
 from __future__ import annotations
 
@@ -37,6 +39,8 @@ import torch
 
 SHAPE = (28672, 4096)
 MODE = "sub3"
+KERNEL, HEADER = "mor_select.cu", "tile.cuh"
+SOURCES = (KERNEL, HEADER)
 
 EQ1 = "  return fabsf(kInRange ? div_in_range(x - st, x) : (x - st) / x);\n"
 STORED = "  return ((uint32_t)tab[b & 0x7Fu] << 16) | ((b & 0x80u) << 24);\n"
@@ -59,47 +63,56 @@ ROW_READS = (
     "(size_t)p * 64 * Kp + 16 * sw));\n"
     "        const uint4 c = __ldg(reinterpret_cast<const uint4*>(st + "
     "(size_t)p * 64 * Kp + 16 * (sw ^ 1)));\n")
-# copy -> (text taken out, text put in its place)
+# copy -> (file, text taken out, text put in its place)
 ABLATIONS = {
     "full": [],
-    "no_eq1_divide": [(EQ1, "  return fabsf(x - st);\n")],
-    "no_stored_value": [(STORED, "  return b << 22;\n")],
-    "no_stores": [(STORE, '  asm volatile("" ::"r"(v.x), "r"(v.y), "r"(v.z), '
-                          '"r"(v.w));\n')],
-    "no_load": [(WAIT, "    if (k < T_STAGES) " + WAIT.lstrip()),
-                (REISSUE, "    if (false) {\n")],
-    "direct_loads": [(WAIT, ""), (PROLOGUE, ""), (REISSUE, "    if (false) {\n"),
-                     (SLOT, ROW), (SLOT_READS, ROW_READS)],
+    "no_eq1_divide": [(HEADER, EQ1, "  return fabsf(x - st);\n")],
+    "no_stored_value": [(HEADER, STORED, "  return b << 22;\n")],
+    "no_stores": [(HEADER, STORE, '  asm volatile("" ::"r"(v.x), "r"(v.y), '
+                                  '"r"(v.z), "r"(v.w));\n')],
+    "no_load": [(KERNEL, WAIT, "    if (k < T_STAGES) " + WAIT.lstrip()),
+                (KERNEL, REISSUE, "    if (false) {\n")],
+    "direct_loads": [(KERNEL, WAIT, ""), (KERNEL, PROLOGUE, ""),
+                     (KERNEL, REISSUE, "    if (false) {\n"),
+                     (KERNEL, SLOT, ROW), (KERNEL, SLOT_READS, ROW_READS)],
 }
 COMPUTES = ("full", "direct_loads")
 
 
-def edited_sources(src: str):
-    """name -> the edited copy of ``src``; raises if an edit point moved."""
+def edited_sources(srcs, ablations=None):
+    """name -> the edited copy of ``srcs`` (file name -> text) for each
+    copy of ``ablations`` (this module's ``ABLATIONS`` by default); raises
+    if an edit point moved."""
     out = {}
-    for name, edits in ABLATIONS.items():
-        text = src
-        for old, new in edits:
-            if text.count(old) != 1:
-                raise RuntimeError(f"{name}: the source no longer holds "
+    for name, edits in (ablations or ABLATIONS).items():
+        texts = dict(srcs)
+        for fname, old, new in edits:
+            if texts[fname].count(old) != 1:
+                raise RuntimeError(f"{name}: {fname} no longer holds "
                                    f"{old.strip()!r} exactly once")
-            text = text.replace(old, new)
-        out[name] = text
+            texts[fname] = texts[fname].replace(old, new)
+        out[name] = texts
     return out
 
 
-def build_copies(build):
-    """Write and compile each copy; returns name -> its library."""
-    src = (build.CSRC / "mor_select.cu").read_text()
+def build_copies(build, kernel="mor_select", sources=SOURCES,
+                 ablations=None):
+    """Write and compile each copy of ``csrc/<kernel>.cu`` and the other
+    ``sources`` (``ablations``: this module's ``ABLATIONS`` by default);
+    returns name -> its library."""
+    srcs = {f: (build.CSRC / f).read_text() for f in sources}
     out = build.BUILD_DIR.parent / "ablation"
-    out.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name, text in edited_sources(src).items():
-        cu = out / f"mor_select_{name}.cu"
-        cu.write_text(text)
-        cmd = [build._nvcc(), *build._COMMON, *build.SOURCES["mor_select"],
+    for name, texts in edited_sources(srcs, ablations).items():
+        d = out / f"{kernel}_{name}"
+        d.mkdir(parents=True, exist_ok=True)
+        for fname, text in texts.items():
+            (d / fname).write_text(text)
+        # The copy's own header comes first ("" includes search the
+        # including file's directory); the other headers from the source.
+        cmd = [build._nvcc(), *build._COMMON, *build.SOURCES[kernel],
                "-I", str(build.CSRC), "-o",
-               str(out / f"libmor_select_{name}.so"), str(cu)]
+               str(out / f"lib{kernel}_{name}.so"), str(d / f"{kernel}.cu")]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                        stderr=subprocess.STDOUT, text=True)
     libs = {}
@@ -107,7 +120,7 @@ def build_copies(build):
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}:\n{log}")
-        libs[name] = ctypes.CDLL(str(out / f"libmor_select_{name}.so"))
+        libs[name] = ctypes.CDLL(str(out / f"lib{kernel}_{name}.so"))
     return libs
 
 

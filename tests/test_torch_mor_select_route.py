@@ -271,14 +271,15 @@ def test_both_routes_match_plain_versions_on_card(block, mode, algo,
 
 def test_ablation_edit_points_present():
     """``kernels/mor_select_ablation.py`` finds each of its edit points
-    exactly once in the source, so every copy differs from ``full``."""
+    exactly once in its file (the kernel's source or the tile route's
+    shared header), so every copy differs from ``full``."""
     from repro_torch.kernels import build
     from repro_torch.kernels import mor_select_ablation as ablation
-    src = (build.CSRC / "mor_select.cu").read_text()
-    copies = ablation.edited_sources(src)
+    srcs = {f: (build.CSRC / f).read_text() for f in ablation.SOURCES}
+    copies = ablation.edited_sources(srcs)
     assert set(copies) == set(ablation.ABLATIONS)
-    for name, text in copies.items():
-        assert (text == src) == (name == "full"), name
+    for name, texts in copies.items():
+        assert (texts == srcs) == (name == "full"), name
 
 
 @pytest.mark.cuda
