@@ -79,8 +79,27 @@
    MMAs), the cuda_core route's time (flash in f32; the fp8 GEMM at a
    block of that route) and a library call.
 
-Prints JSON lines (the ``kernels``, ``engine``, ``train`` and
-``kernel_api`` lines among them) and ends with ``{"ok": true, "device":
+8. The compressed training state (``phase_train_state``): nemotron3-8b
+   at full width and depth 4, 2 x 1024 tokens a step under
+   ``paper_default("sub3")``: (i) dense f32 moments, (ii)
+   ``moments=FP8_MOMENTS`` with ``compress_grads="mor"``, (iii)
+   FP8_MOMENTS, ``"mor_ef"`` and ``GuardPolicy()``, 3 AdamW steps each,
+   and (iv) one step of ``SUB4_V_MOMENTS``; per run the step ms, peak
+   GB, the optimizer state's bytes per parameter counted from its
+   tensors, the moment and opt metrics and the launch counters (every
+   gradient event on the select kernel's f32 instance, every moment
+   encode on ``mor_select_pack``, no plain call); then the skip-step of
+   (iii) with a NaN embedding row: master, both packed moments, the EF
+   residuals and the step counter bit-identical, ``guard_skip`` 1. The
+   select kernel's f32 instance (the generic kernel's, at every block)
+   is held bit for bit against the plain version in step 6's parity
+   phase, timed on the wi view, and held against it on every gradient
+   leaf of one more step of run (ii) (the plain version over stripes of
+   block rows, at the whole view's group amax).
+
+Prints JSON lines (the ``kernels``, ``engine``, ``train``,
+``train_state`` and ``kernel_api`` lines among them) and ends with
+``{"ok": true, "device":
 ...}``. Exits non-zero on any failure, without a card, or without the
 rest of the repository beside it.
 """
@@ -106,6 +125,10 @@ N_LAYERS = 32                 # llama3-8b depth; cut only if time forces it
 # untied embedding and head are 1.92 B params, ~35 GB of state.
 TRAIN_LAYERS = 4
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 1024, 3
+# The compressed-state phase: nemotron3-8b at depth 4 for every run (the
+# dense-state run fits the 80 GB card there: 2.90 B params, ~16 B/param
+# of params, grads, master and moments, the optimizer updating in place).
+STATE_LAYERS = 4
 ALGOS = ("gam", "e8m0", "fp32_amax")
 # Block of the parity operands whose ideal GAM scale overflows (values
 # ~1e-37); the NaN and Inf sit in other blocks.
@@ -122,12 +145,13 @@ def check(cond, msg):
         raise AssertionError(msg)
 
 
-def mixed_tags(shape, seed=0, bf16_blocks=True):
+def mixed_tags(shape, seed=0, bf16_blocks=True, dtype=torch.bfloat16):
     """Operand whose blocks hit every tag: normal rows (E4M3), rows of
     huge (BF16) and moderate (E5M2) dynamic range, rows on a
     micro-scaled E2M1 grid (NVFP4 under sub4), single-element outliers
     and an all-zero stripe. ``bf16_blocks=False`` leaves out the huge
-    range and the outliers, so no block needs BF16."""
+    range and the outliers, so no block needs BF16. In f32 (``dtype``)
+    the values are the f64 draws rounded once to f32, not bf16-exact."""
     rng = np.random.default_rng(seed)
     m, k = shape
     kp = -(-k // 16) * 16
@@ -146,15 +170,15 @@ def mixed_tags(shape, seed=0, bf16_blocks=True):
         rows = rng.integers(0, q, 8)
         x[rows, rng.integers(0, kp, 8)] *= 1e4  # outliers in normal blocks
     x[-max(m // 8, 1):] = 0.0
-    return torch.from_numpy(x[:, :k].astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(x[:, :k].astype(np.float32)).to(dtype)
 
 
 def add_tiny_block(x, block, at, seed=0):
     """Fill block ``at`` (a block-grid index) of the CUDA operand ``x``
-    with sign * U(1, 2) * 1e-37 and four bf16 denormals: the block's ideal
-    GAM scale q_amax / amax overflows f32 to +Inf for every format, which
-    the kernels' Alg. 1 bit arithmetic must split as the plain version's
-    frexp does (exponent -1)."""
+    with sign * U(1, 2) * 1e-37 and four denormals (in x's dtype): the
+    block's ideal GAM scale q_amax / amax overflows f32 to +Inf for every
+    format, which the kernels' Alg. 1 bit arithmetic must split as the
+    plain version's frexp does (exponent -1)."""
     rng = np.random.default_rng(seed)
     r0, c0 = at[0] * block[0], at[1] * block[1]
     r1, c1 = min(r0 + block[0], x.shape[0]), min(c0 + block[1], x.shape[1])
@@ -163,7 +187,7 @@ def add_tiny_block(x, block, at, seed=0):
         1, 2, (h, w)) * 1e-37
     t[0, :4] = [1e-39, -2e-39, 5e-40, -9e-41]
     x[r0:r1, c0:c1] = torch.from_numpy(t.astype(np.float32)).to(
-        torch.bfloat16).to(x.device)
+        x.dtype).to(x.device)
     return x
 
 
@@ -967,9 +991,11 @@ def check_gam_quant(k, t, what):
 
 def phase_quant_select(ops, Partition):
     """Kernel vs plain version of ``gam_quant`` (E4M3 and E5M2, all three
-    algos) and of ``mor_select(emit='select')`` (sub2/3/4) on inputs that
-    hit every tag, with zero blocks, a NaN and an Inf, a ragged shape and
-    the 28672x4096 wi view: xq, block_exp, counts, y and sel bit for bit;
+    algos) and of ``mor_select(emit='select')`` (sub2/3/4; its bf16
+    instances, and its f32 instance, the generic kernel's at every block,
+    on f32 operands that are not bf16-exact) on inputs that hit every tag, with zero blocks, a NaN and
+    an Inf, a ragged shape and the 28672x4096 wi view: xq, block_exp,
+    counts, y and sel bit for bit;
     gam_quant's error sums within 1e-6 relative (the kernel accumulates in
     f64, the plain version in f32 in PyTorch's order), the selection's
     within rtol 1e-5; each call on the route its block names, and
@@ -984,12 +1010,17 @@ def phase_quant_select(ops, Partition):
              ((28672, 4096), (128, 128), 3)]
     want = {"sub2": {0, 2}, "sub3": {0, 1, 2}, "sub4": {0, 1, 2, 3}}
     seen = {mode: set() for mode in want}
+    seen32 = {mode: set() for mode in want}
     sum_rel = 0.0
     for shape, block, seed in cases:
         x = mixed_tags(shape, seed).cuda()
         x[5, 7] = float("nan")
         x[shape[0] // 2 + 3, shape[1] - 9] = float("inf")
         add_tiny_block(x, block, TINY_AT, seed)
+        x32 = mixed_tags(shape, seed, dtype=torch.float32).cuda()
+        x32[5, 7] = float("nan")
+        x32[shape[0] // 2 + 3, shape[1] - 9] = float("inf")
+        add_tiny_block(x32, block, TINY_AT, seed)
         route = gam_quant_route(block)
         for fmt in (E4M3, E5M2):
             for algo in ALGOS:
@@ -1016,18 +1047,23 @@ def phase_quant_select(ops, Partition):
                     sum_rel = max(sum_rel, check_gam_quant(
                         g, t, f"gam_quant {shape} {fmt.name} {algo} "
                         "(generic)"))
-        for mode in want:
+        for mode, xx in [(m, x) for m in want] + [(m, x32) for m in want]:
             align = (2, 16) if mode == "sub4" else (1, 1)
             part = Partition("block", block, align=align)
-            route = mor_select_route(block, mode)
+            route = mor_select_route(block, mode, xx.dtype)
+            dt = str(xx.dtype).split(".")[-1]
             before = mor_select_select.launches_by_route[route]
-            k = ops.mor_select(x, part, mode, backend="cuda")
-            t = ops.mor_select(x, part, mode, backend="torch")
+            before_dt = mor_select_select.launches_by_dtype[dt]
+            k = ops.mor_select(xx, part, mode, backend="cuda")
+            t = ops.mor_select(xx, part, mode, backend="torch")
             torch.cuda.synchronize()
-            what = f"mor_select_select {shape} {mode}"
-            check(mor_select_select.launches_by_route[route] == before + 1,
-                  f"{what}: not launched on the {route} route")
-            k2 = ops.mor_select(x, part, mode, backend="cuda")
+            what = f"mor_select_select {shape} {mode} {dt}"
+            check(mor_select_select.launches_by_route[route] == before + 1
+                  and mor_select_select.launches_by_dtype[dt] == before_dt + 1
+                  and k.y.dtype == xx.dtype,
+                  f"{what}: not launched on the {route} route's {dt} "
+                  "instance")
+            k2 = ops.mor_select(xx, part, mode, backend="cuda")
             for name in ("y", "sel", "e4_sums", "e5_sums", "counts",
                          "nv_sums"):
                 a, b = getattr(k2, name), getattr(k, name)
@@ -1043,14 +1079,17 @@ def phase_quant_select(ops, Partition):
             check(torch.equal(k.sel, t.sel), f"{what}: sel differs")
             check(torch.equal(k.counts, t.counts), f"{what}: counts differ")
             tags = set(np.unique(t.sel.cpu().numpy()).tolist())
-            seen[mode] |= tags
+            (seen if xx is x else seen32)[mode] |= tags
         emit({"parity": "gam_quant+mor_select_select", "shape": list(shape),
               "block": list(block), "tiny_block": list(TINY_AT),
               "gam_quant_routes": ["tile", "generic"] if route == "tile"
-              else [route], "identical": True})
+              else [route], "select_dtypes": ["bfloat16", "float32"],
+              "identical": True})
+        del x, x32
     for mode, tags in want.items():
-        check(tags <= seen[mode], f"mor_select_select {mode}: tags "
-              f"{sorted(seen[mode])} miss some of {sorted(tags)}")
+        for name, got in (("bf16", seen[mode]), ("f32", seen32[mode])):
+            check(tags <= got, f"mor_select_select {mode} {name}: tags "
+                  f"{sorted(got)} miss some of {sorted(tags)}")
     return {"gam_quant_err_sums_max_rel": sum_rel}
 
 
@@ -1109,6 +1148,45 @@ def gam_quant_rows(ops, ref, part, w):
         shapes=rows)
 
 
+def select_f32_rows(ops, ref, Partition, w):
+    """The select kernel's f32 instance (the generic kernel's, at every
+    block) on the wi view as the gradient compression gives it (f32, not
+    bf16-exact): under sub3 and sub4, ms, host us a call and the bound
+    (4 B read and 4 B of y written an element, and the block's cells);
+    the plain version's time; y and sel held bit for bit."""
+    from repro_torch.kernels.mor_select import mor_select_select
+    g = torch.Generator(device="cuda").manual_seed(11)
+    w32 = w.float() * (1 + torch.rand(w.shape, generator=g, device="cuda")
+                       * 2.0**-10)
+    n, nblk = w32.numel(), w32.numel() // (128 * 128)
+    rows = {}
+    for mode in ("sub3", "sub4"):
+        part = Partition("block", (128, 128),
+                         align=(2, 16) if mode == "sub4" else (1, 1))
+        k = ops.mor_select(w32, part, mode, backend="cuda")
+        t = ops.mor_select(w32, part, mode, backend="torch")
+        check(torch.equal(bits16(k.y), bits16(t.y))
+              and torch.equal(k.sel, t.sel),
+              f"mor_select_select f32 timing {mode} differs")
+        xp, _, mg = ops._select_inputs(w32, (128, 128), "gam")
+
+        def call():
+            return mor_select_select(xp, mg, block=(128, 128), mode=mode)
+        b = bound(8.0 * n + (28 if mode == "sub4" else 24) * nblk, 0.0)
+        rows[mode] = {"route": "generic", "ms": time_ms(call, iters=20),
+                      "host_us": host_us(call), "bound_ms": b[0],
+                      "bound_by": b[1],
+                      "tags": np.bincount(t.sel.reshape(-1).cpu().numpy(),
+                                          minlength=4).tolist()}
+        del k, t, xp
+    part = Partition("block", (128, 128))
+    rows["plain_ms"] = time_ms(lambda: ref.mor_select_ref(w32, part, "sub3"),
+                               iters=1)
+    rows["shape"] = list(w32.shape)
+    del w32
+    return rows
+
+
 def phase_train_timing(ops, ref, Partition, cfg):
     """Kernel, plain and library times at the training shapes: gam_quant
     and mor_select_select on the wi view (28672x4096), and mixed_gemm for
@@ -1137,7 +1215,8 @@ def phase_train_timing(ops, ref, Partition, cfg):
         bound_ms=shapes["sub3"]["bound_ms"],
         bound_by=shapes["sub3"]["bound_by"], library_ms=None,
         max_abs_err=float((k.y.float() - t.y.float()).abs().max()),
-        shape=list(w.shape), shapes=shapes)
+        shape=list(w.shape), shapes=shapes,
+        f32=select_f32_rows(ops, ref, Partition, w))
 
     x = torch.randn(M, d, device="cuda").to(torch.bfloat16)
     dy = (torch.randn(M, 2 * f, device="cuda") * 1e-3).to(torch.bfloat16)
@@ -1229,6 +1308,8 @@ def reset_counters():
     for name in ("fp8_gemm", "flash_attention") + TILE_KERNELS:
         kernels[name].launches_by_route = {
             r: 0 for r in kernels[name].launches_by_route}
+    sel = kernels["mor_select_select"]
+    sel.launches_by_dtype = {d: 0 for d in sel.launches_by_dtype}
     for fn in plain.values():
         fn.calls = 0
 
@@ -1366,12 +1447,303 @@ def phase_train(cfg):
     return res, total, total_paths, total_routes
 
 
+def state_bytes(tree):
+    """Device bytes of an optimizer-state tree: every tensor of its dense
+    leaves, and every lane, grid and the stats row of its packed ones."""
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.optim.moments import PackedMoment
+    total = 0
+    for leaf in tree_leaves(tree):
+        if isinstance(leaf, PackedMoment):
+            mo = leaf.mo
+            ts = (mo.payload_q, mo.payload_bf16, mo.payload_nib,
+                  mo.micro_scales, mo.tags, mo.scales, leaf.stats)
+        else:
+            ts = (leaf,)
+        total += sum(t.numel() * t.element_size() for t in ts)
+    return total
+
+
+def host_copy(tree):
+    """The tensors of a state tree (packed lanes included) copied to the
+    host, in tree_leaves order."""
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.optim.moments import PackedMoment
+    out = []
+    for leaf in tree_leaves(tree):
+        if isinstance(leaf, PackedMoment):
+            mo = leaf.mo
+            out += [t.cpu() for t in (mo.payload_q, mo.payload_bf16,
+                                      mo.payload_nib, mo.micro_scales,
+                                      mo.tags, mo.scales, leaf.stats)]
+        else:
+            out.append(leaf.cpu())
+    return out
+
+
+def same_bits(a, b):
+    return len(a) == len(b) and all(
+        x.shape == y.shape and x.dtype == y.dtype
+        and torch.equal(x.view(torch.uint8), y.view(torch.uint8))
+        for x, y in zip(a, b))
+
+
+# Elements in a stripe of the plain selection that checked_f32_select runs
+# beside the kernel (the embedding's view alone has 1.05 G elements).
+PLAIN_STRIPE = 1 << 26
+
+
+def checked_f32_select(ops, ref, seen):
+    """``ops.mor_select`` with every f32 call (the gradient compression's
+    views) held against the plain version on its real operand: y, sel and
+    counts bit for bit, the error sums within rtol 1e-5. The plain
+    version runs over stripes of whole block rows (about PLAIN_STRIPE
+    elements) at the whole view's block and group amax, so each stripe's
+    blocks decide as they do in the whole and the temporaries stay a
+    stripe's size. ``seen`` collects the calls by shape and mode."""
+    from repro_torch.core.partition import Partition
+    orig = ops.mor_select
+
+    def select(x, part, mode="sub3", algo="gam", *, backend="auto"):
+        k = orig(x, part, mode, algo, backend=backend)
+        if x.dtype != torch.float32:
+            return k
+        M, K = x.shape
+        bm, bk = part.resolve((M, K))
+        exact = Partition("block", (bm, bk), align=(bm, bk))
+        step = max(1, PLAIN_STRIPE // (bm * max(K, 1))) * bm
+        what = f"train_state f32 select {tuple(x.shape)} {mode}"
+        worst = 0.0
+        for r0 in range(0, M, step):
+            r1, i0 = min(r0 + step, M), r0 // bm
+            t = ref.mor_select_ref(x[r0:r1], exact, mode, algo,
+                                   group_amax=k.group_amax)
+            i1 = i0 + t.sel.shape[0]
+            check(torch.equal(bits16(k.y[r0:r1]), bits16(t.y)),
+                  f"{what} rows {r0}:{r1}: y differs from the plain version")
+            check(torch.equal(k.sel[i0:i1], t.sel)
+                  and torch.equal(k.counts[i0:i1], t.counts),
+                  f"{what} rows {r0}:{r1}: sel or counts differ")
+            for f in ("e4_sums", "e5_sums", "nv_sums"):
+                a, b = getattr(k, f), getattr(t, f)
+                if a is None:
+                    continue
+                a = a[i0:i1]
+                check(torch.allclose(a, b, rtol=1e-5, atol=0.0,
+                                     equal_nan=True),
+                      f"{what} rows {r0}:{r1}: {f} beyond rtol 1e-5")
+                fin = torch.isfinite(b) & (b != 0)
+                if bool(fin.any()):
+                    worst = max(worst, float(((a - b).abs() / b.abs())[fin]
+                                             .max()))
+            del t
+        row = seen.setdefault(f"{M}x{K} {mode}", {
+            "calls": 0, "block": [bm, bk], "tags": [0, 0, 0, 0],
+            "err_sums_max_rel": 0.0})
+        row["calls"] += 1
+        row["tags"] = (np.array(row["tags"]) + np.bincount(
+            k.sel.reshape(-1).cpu().numpy(), minlength=4)).tolist()
+        row["err_sums_max_rel"] = max(row["err_sums_max_rel"], worst)
+        return k
+
+    return select
+
+
+def phase_train_state(ops, ref):
+    """The compressed training state on nemotron3-8b at full width,
+    STATE_LAYERS layers (every run at that depth; 2 x 1024 tokens a step,
+    AdamW with warmup_steps=1, paper_default('sub3') GEMMs): (i) dense
+    f32 moments, (ii) FP8_MOMENTS with 'mor' gradient compression, (iii)
+    FP8_MOMENTS with 'mor_ef' and GuardPolicy() from init_opt_state(
+    params, moments=FP8_MOMENTS, ef=True), TRAIN_STEPS steps each, and
+    (iv) one step of SUB4_V_MOMENTS. Per run: step ms, peak GB, the
+    state's bytes per parameter counted from its tensors, the moment and
+    opt metrics and the launch counters (zeroed just before the steps,
+    read just after): every gradient event through the select kernel's
+    f32 instance, every moment encode through mor_select_pack, no plain
+    version. Then the skip-step: a NaN in the embedding row of the
+    batch's first token, one step of (iii): master, both packed moments
+    (every lane), the EF residuals and the step counter bit-identical to
+    before (host copies), guard_skip 1. Run (iii) also profiles one step
+    (profile_train_step) before its skip-step. Run (ii) takes one more
+    step with every f32 selection held against the plain version on its
+    real gradient (checked_f32_select): every leaf's view, the stacked
+    layer weights, the embedding and the head among them."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import paper_default
+    from repro_torch.kernels.mor_select import mor_select_select
+    from repro_torch.models import init_params
+    from repro_torch.optim import (FP8_MOMENTS, SUB4_V_MOMENTS, AdamWConfig,
+                                   init_opt_state)
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.robust import GuardPolicy
+    from repro_torch.train import TrainConfig, make_train_step
+    cfg = dataclasses.replace(get_config("nemotron3-8b"),
+                              n_layers=STATE_LAYERS)
+    L = cfg.n_units
+    opt_cfg = AdamWConfig(warmup_steps=1)
+    runs = {
+        "i_dense": (TrainConfig(optimizer=opt_cfg), {}, TRAIN_STEPS),
+        "ii_fp8_moments_mor": (TrainConfig(
+            optimizer=opt_cfg, moments=FP8_MOMENTS, compress_grads="mor"),
+            {"moments": FP8_MOMENTS}, TRAIN_STEPS),
+        "iii_fp8_moments_mor_ef_guard": (TrainConfig(
+            optimizer=opt_cfg, moments=FP8_MOMENTS, compress_grads="mor_ef",
+            guard=GuardPolicy()), {"moments": FP8_MOMENTS, "ef": True},
+            TRAIN_STEPS),
+        "iv_sub4_v_moments": (TrainConfig(
+            optimizer=opt_cfg, moments=SUB4_V_MOMENTS),
+            {"moments": SUB4_V_MOMENTS}, 1),
+    }
+    events = 4 * L * (2 * 2 + 3)  # GEMM-operand selections a step (bf16)
+    res, launches, dtypes, routes = {}, {}, {}, {}
+    skip = None
+    for name, (tcfg, init_kw, steps) in runs.items():
+        params = init_params(cfg, seed=0, device="cuda")
+        n_params = sum(p.numel() for p in tree_leaves(params))
+        n_leaves = len(tree_leaves(params))
+        opt = init_opt_state(params, **init_kw)
+        step_fn = make_train_step(cfg, paper_default("sub3"), tcfg)
+        batches = [train_batch(cfg, s) for s in range(steps)]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counters()
+        rows = []
+        for s, batch in enumerate(batches):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, m = step_fn(params, opt, batch)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            row = {"run": name, "step": s, "step_ms": dt * 1e3,
+                   "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / dt,
+                   **{k: float(v) for k, v in m.items()},
+                   "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+            emit({"train_state_step": row})
+            check(np.isfinite(row["loss"]) and np.isfinite(row["grad_norm"])
+                  and row.get("guard_skip", 0.0) == 0.0,
+                  f"train_state {name} step {s}: {row}")
+            rows.append(row)
+        k_counts, p_counts = read_counters()
+        by_dtype = dict(mor_select_select.launches_by_dtype)
+        by_route = tile_routes()
+        compress = tcfg.compress_grads != "none"
+        # Both moments of every leaf of at least min_leaf elements packed
+        # (at full width: every leaf).
+        n_packed = 0 if tcfg.moments is None else sum(
+            p.numel() >= tcfg.moments.min_leaf for p in tree_leaves(params))
+        want = {"mor_select_select": events * steps + (
+                    n_leaves * steps if compress else 0),
+                "mor_select_pack": 2 * n_packed * steps}
+        for kern, n in want.items():
+            check(k_counts[kern] == n, f"train_state {name}: {kern} "
+                  f"launched {k_counts[kern]} times, want {n}")
+        check(by_dtype == {"bfloat16": events * steps,
+                           "float32": n_leaves * steps if compress else 0},
+              f"train_state {name}: select launches by dtype {by_dtype}")
+        check(not any(p_counts.values()), f"train_state {name}: plain "
+              f"versions ran on the main path: {p_counts}")
+        bpp = {part: state_bytes(getattr(opt, part)) / n_params
+               for part in ("master", "m", "v", "ef")
+               if getattr(opt, part) is not None}
+        res[name] = {
+            "steps": rows,
+            "step_ms_median": float(np.median([r["step_ms"] for r in rows])),
+            "peak_mem_gb": rows[-1]["peak_mem_gb"],
+            "state_bytes_per_param": {**bpp, "total": sum(bpp.values())},
+            "n_params": n_params, "launches": k_counts,
+            "select_launches_by_dtype": by_dtype, "tile_routes": by_route,
+            "plain_calls": p_counts,
+            **{k: rows[-1].get(k) for k in (
+                "moment_bpe_m", "moment_bpe_v", "opt_payload_bpe",
+                "opt_frac_bf16", "ef_norm")}}
+        emit({"train_state_run": {k: v for k, v in res[name].items()
+                                  if k != "steps"}})
+        launches[name], dtypes[name], routes[name] = k_counts, by_dtype, \
+            by_route
+        if name.startswith("ii_"):
+            # One more step (its update is kept), every f32 selection of
+            # it held against the plain version on its real gradient.
+            seen = {}
+            torch.cuda.empty_cache()
+            t0 = time.perf_counter()
+            with patched(ops, "mor_select",
+                         checked_f32_select(ops, ref, seen)):
+                params, opt, m = step_fn(params, opt, train_batch(cfg, steps))
+            torch.cuda.synchronize()
+            check(sum(v["calls"] for v in seen.values()) == n_leaves,
+                  f"train_state {name}: {seen} is not one f32 selection a "
+                  f"leaf ({n_leaves})")
+            res[name]["f32_select_vs_plain"] = {
+                "identical": True, "leaves": n_leaves, "by_shape": seen,
+                "s": time.perf_counter() - t0}
+            emit({"train_state_f32_select_vs_plain":
+                  res[name]["f32_select_vs_plain"]})
+        if name.startswith("iii"):
+            # One more step under the profiler (its update is kept: the
+            # state is updated in place), then the skip-step.
+            res[name]["profile"] = profile_train_step(
+                step_fn, params, opt, train_batch(cfg, steps), "mor_select")
+            emit({"train_state_profile": res[name]["profile"]})
+            torch.cuda.empty_cache()
+            skip = skip_step_check(step_fn, params, opt, train_batch(cfg, 0))
+        del params, opt, step_fn, batches, m
+        gc.collect()
+        torch.cuda.empty_cache()
+    res["skip_step"] = skip
+    res["config"] = {"arch": cfg.name, "layers": L, "d_model": cfg.d_model,
+                     "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+                     "n_heads": cfg.n_heads, "n_kv": cfg.n_kv, "act": cfg.act,
+                     "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+                     "warmup_steps": 1, "gemm_policy": "sub3", "remat": True}
+    total = {k: sum(launches[r][k] for r in launches)
+             for k in next(iter(launches.values()))}
+    total_routes = {k: {r: sum(t[k][r] for t in routes.values())
+                        for r in ("tile", "generic")}
+                    for k in TILE_KERNELS}
+    total_dtypes = {k: sum(d[k] for d in dtypes.values())
+                    for k in ("bfloat16", "float32")}
+    return res, total, total_routes, total_dtypes
+
+
+def skip_step_check(step_fn, params, opt, batch):
+    """One step of the guarded run with a NaN in the embedding row the
+    batch's first token reads: the step is dropped (guard_skip 1) and
+    the master weights, both moments (every packed lane), the EF
+    residuals and the step counter come back bit-identical (compared on
+    host copies taken before the step)."""
+    tok = int(batch["tokens"][0, 0])
+    before = {part: host_copy(getattr(opt, part))
+              for part in ("master", "m", "v", "ef")}
+    torch.cuda.empty_cache()  # the guarded run's fragments
+    step_before = int(opt.step)
+    params["embed"][tok] = float("nan")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params2, opt2, m = step_fn(params, opt, batch)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    same = {part: same_bits(before[part], host_copy(getattr(opt2, part)))
+            for part in before}
+    out = {"token": tok, "guard_skip": float(m["guard_skip"]),
+           "grad_norm": float(m["grad_norm"]), "step_ms": dt * 1e3,
+           "step_before": step_before, "step_after": int(opt2.step),
+           "bit_identical": same,
+           "guard_flag_events": float(m["guard_flag_events"])}
+    emit({"train_state_skip_step": out})
+    check(out["guard_skip"] == 1.0 and all(same.values())
+          and out["step_after"] == step_before,
+          f"skip-step did not keep the state: {out}")
+    return out
+
+
 def profile_train_step(step_fn, params, opt, batch, must, steps=1):
     """Device time by kernel over one train step, from torch.profiler,
     and the device's busy share of the host wall time (as
     profile_decode), with the step's time in each of the port's
     quantization and GEMM kernels (``port_kernels_ms_per_step``). The
-    step's results are dropped."""
+    step's results are dropped (it updates the optimizer state in place,
+    which no caller reads after it but the skip-step check)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -2109,6 +2481,12 @@ def main():
     serve_grad = phase_serve_grad()
     train, train_launches, train_paths, train_routes = phase_train(cfg)
     train_depth2 = phase_train_depth2(cfg, ops, ref)
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    state, state_launches, state_routes, state_dtypes = phase_train_state(
+        ops, ref)
+    state["phase_s"] = time.perf_counter() - t0
 
     kernels = []
     for name, src, replaces in (
@@ -2128,6 +2506,7 @@ def main():
         t = timing[name]
         by_path = {"engine": launches.get(name, 0),
                    "train": train_launches[name],
+                   "train_state": state_launches[name],
                    "kernel_api": api_launches[name]}
         check(sum(by_path.values()) > 0,
               f"{name}: no launch on any main path")
@@ -2157,10 +2536,15 @@ def main():
             # generic_ms).
             entry["launches_by_route"] = {
                 r: engine_routes[name][r] + train_routes[name][r]
-                for r in ("tile", "generic")}
+                + state_routes[name][r] for r in ("tile", "generic")}
             entry["shapes"] = t["shapes"]
             entry["build"] = wgmma_build[
                 "gam_quant" if name == "gam_quant" else "mor_select"]
+        if name == "mor_select_select":
+            # f32: the f32 instance on the wi view (the gradient
+            # compression's operands; every train_state gradient event).
+            entry["f32"] = t["f32"]
+            entry["train_state_launches_by_dtype"] = state_dtypes
         if name == "gam_quant":
             # ms: the wrapper's mean over 4 runs in turns with the shapes'
             # rows (runs); host_us: the wrapper's host time per call.
@@ -2197,6 +2581,7 @@ def main():
     emit({"engine": engine, "card": smi})
     emit({"train_depth2": train_depth2, "card": smi})
     emit({"train": train, "card": smi})
+    emit({"train_state": state, "card": smi})
     emit({"wall_s": time.perf_counter() - t_start, "card": smi})
     emit({"kernels": kernels})
     print(smi, flush=True)

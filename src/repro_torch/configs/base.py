@@ -51,8 +51,10 @@ class ArchConfig:
 
 _REGISTRY: Dict[str, ArchConfig] = {}
 
-# Configs ported so far; the JAX registry holds eleven.
-_ARCH_MODULES = ["llama3_8b"]
+# Configs ported so far (the dense family's); the JAX registry holds
+# eleven.
+_ARCH_MODULES = ["llama3_8b", "nemotron3_8b", "minitron_4b",
+                 "deepseek_coder_33b"]
 
 
 def register(cfg: ArchConfig) -> ArchConfig:

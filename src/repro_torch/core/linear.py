@@ -41,7 +41,7 @@ import torch
 
 from repro_torch.kernels import ops as kops
 
-from .device import resolve_device
+from .device import ieee_f32_matmul, resolve_device
 from .mor import STATS_WIDTH, mor_quantize, quantize_for_gemm
 from .policy import MoRDotPolicy
 
@@ -71,7 +71,8 @@ def _dot(a: torch.Tensor, b_t: torch.Tensor, out_dtype) -> torch.Tensor:
     """a @ b_t^T: exact products of the operands, f32 accumulation, one
     rounding to ``out_dtype``. On CUDA, cuBLAS runs with
     ``allow_bf16_reduced_precision_reduction`` off for this call only; the
-    caller's setting is restored after it."""
+    caller's setting is restored after it. The f32 product runs in full
+    f32 whatever the caller's TF32 setting."""
     if a.is_cuda and a.dtype == b_t.dtype == out_dtype == torch.bfloat16:
         flags = torch.backends.cuda.matmul
         user = flags.allow_bf16_reduced_precision_reduction
@@ -80,7 +81,8 @@ def _dot(a: torch.Tensor, b_t: torch.Tensor, out_dtype) -> torch.Tensor:
             return torch.matmul(a, b_t.T)
         finally:
             flags.allow_bf16_reduced_precision_reduction = user
-    return (a.to(torch.float32) @ b_t.to(torch.float32).T).to(out_dtype)
+    with ieee_f32_matmul():
+        return (a.to(torch.float32) @ b_t.to(torch.float32).T).to(out_dtype)
 
 
 def _zero_stats(n: int, device) -> torch.Tensor:

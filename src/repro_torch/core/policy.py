@@ -46,7 +46,7 @@ class MoRPolicy:
         if self.mesh_axes:
             raise NotImplementedError(
                 "mesh_axes: multi-device quantization is not ported yet "
-                "(ROADMAP Queue 1 item 11)"
+                "(repro.core.collectives)"
             )
 
     @property

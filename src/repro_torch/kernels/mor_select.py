@@ -16,6 +16,13 @@ per-warp table of stored values in place of a division by the scale per
 element, 16-byte stores), ``generic`` for any other block (one CTA per
 block, the block in shared memory). Each wrapper counts its launches in
 ``launches`` and by route in ``launches_by_route``.
+
+The select variant also takes f32 operands, as the Pallas kernel does
+(the gradient compression's f32 views): candidates stored as f32, y in
+f32. Its f32 instance is the generic kernel's, for every block (a tile
+kernel of its own measured slower), dispatched by x's dtype and counted
+in ``mor_select_select.launches_by_dtype``; Eq. 1 keeps the IEEE
+division there.
 """
 from __future__ import annotations
 
@@ -30,7 +37,7 @@ from repro_torch.core.metrics import E5M2_RANGE_RATIO, NVFP4_RANGE_RATIO
 from . import build
 
 __all__ = ["mor_select_pack", "mor_select_select", "mor_select_route",
-           "ROUTES", "TILE_BLOCK"]
+           "ROUTES", "SELECT_DTYPES", "TILE_BLOCK"]
 
 ROUTES = ("tile", "generic")
 TILE_BLOCK = (128, 128)
@@ -43,9 +50,11 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 
 
-def mor_select_route(block: Tuple[int, int], mode: str) -> str:
-    """The route that selects over ``block`` under ``mode``: "tile" for
-    128 x 128, "generic" for any other block. A pure function of its
+def mor_select_route(block: Tuple[int, int], mode: str,
+                     dtype: torch.dtype = torch.bfloat16) -> str:
+    """The route that selects over ``block`` under ``mode`` for an
+    operand of ``dtype``: "tile" for 128 x 128 bf16, "generic" for any
+    other block and for every f32 block. A pure function of its
     arguments; raises where no route takes the block (sub4 needs even
     rows and 16-divisible columns)."""
     if mode not in _MODES:
@@ -56,33 +65,40 @@ def mor_select_route(block: Tuple[int, int], mode: str) -> str:
     if mode == "sub4" and (bm % 2 or bk % NVFP4_MICRO):
         raise ValueError(f"sub4 needs an even-row, 16-divisible block, "
                          f"got {block}")
-    return "tile" if tuple(block) == TILE_BLOCK else "generic"
+    return ("tile" if tuple(block) == TILE_BLOCK and dtype == torch.bfloat16
+            else "generic")
 
+
+# The select variant's operand dtypes, with the launchers' name infixes.
+SELECT_DTYPES = {torch.bfloat16: "", torch.float32: "_f32"}
 
 _FNS = {}
 
 
-def _fn(variant: str, route: str):
-    """The C launcher of ``variant`` ("pack" / "select") on ``route``:
-    the tile launchers take no block (two int arguments fewer)."""
-    f = _FNS.get((variant, route))
+def _fn(variant: str, route: str, infix: str = ""):
+    """The C launcher of ``variant`` ("pack" / "select") on ``route`` for
+    the dtype of ``infix`` ("" bf16, "_f32"): the tile launchers take no
+    block (two int arguments fewer)."""
+    f = _FNS.get((variant, route, infix))
     if f is None:
         tile = route == "tile"
         f = getattr(build.load("mor_select"),
-                    f"mor_select_{variant}{'_tile' if tile else ''}_launch")
+                    f"mor_select_{variant}{infix}"
+                    f"{'_tile' if tile else ''}_launch")
         ptrs = 12 if variant == "pack" else 9
         f.argtypes = [_P] * ptrs + [_I] * (4 if tile else 6) + [_F, _F, _P]
         f.restype = _I
-        _FNS[(variant, route)] = f
+        _FNS[(variant, route, infix)] = f
     return f
 
 
-def _launch(variant, route, ptrs, Mp, Kp, block, mode, algo, dev):
+def _launch(variant, route, ptrs, Mp, Kp, block, mode, algo, dev,
+            infix=""):
     """One launch on the current stream; raises on a CUDA error."""
     dims = (Mp, Kp) if route == "tile" else (Mp, Kp, *block)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _fn(variant, route)(
+        err = _fn(variant, route, infix)(
             *ptrs, *dims, _MODES[mode], _ALGOS[algo], E5M2_RANGE_RATIO,
             NVFP4_RANGE_RATIO, stream)
     if err != 0:
@@ -102,15 +118,15 @@ def _check(t: torch.Tensor, name: str, dtype, shape):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _validate(xp, mg, block, mode, algo):
+def _validate(xp, mg, block, mode, algo, dtype=torch.bfloat16):
     if mode not in _MODES or algo not in _ALGOS:
         raise ValueError(f"unknown mode/algo {mode!r}/{algo!r}")
     Mp, Kp = xp.shape
     bm, bk = block
-    route = mor_select_route(block, mode)
+    route = mor_select_route(block, mode, dtype)
     if Mp % bm or Kp % bk:
         raise ValueError(f"operand {(Mp, Kp)} is not padded to {block}")
-    _check(xp, "x", torch.bfloat16, (Mp, Kp))
+    _check(xp, "x", dtype, (Mp, Kp))
     _check(mg, "mg", torch.float32, (4,))
     if mg.device != xp.device:
         raise ValueError("x and mg must share a device")
@@ -123,21 +139,25 @@ def _validate(xp, mg, block, mode, algo):
 def mor_select_select(xp: torch.Tensor, mg: torch.Tensor, *,
                       block: Tuple[int, int], mode: str = "sub3",
                       algo: str = "gam") -> Dict[str, torch.Tensor]:
-    """Launch the select variant on a padded (Mp, Kp) bf16 operand.
+    """Launch the select variant on a padded (Mp, Kp) bf16 or f32
+    operand (the instance of x's dtype).
 
     ``mg`` as for :func:`mor_select_pack`. Returns the padded (Mp, Kp)
-    bf16 ``y`` (each block's winner as stored) and the (nm, nk)
+    ``y`` in x's dtype (each block's winner as stored) and the (nm, nk)
     ``sel``, ``scales``, ``e4_sums``, ``e5_sums``, ``counts`` (and sub4
     ``nv_sums``) grids.
     """
-    Mp, Kp, nm, nk, route = _validate(xp, mg, block, mode, algo)
+    if xp.dtype not in SELECT_DTYPES:
+        raise TypeError(f"x must be one of {list(SELECT_DTYPES)}, got "
+                        f"{xp.dtype}")
+    Mp, Kp, nm, nk, route = _validate(xp, mg, block, mode, algo, xp.dtype)
     dev = xp.device
 
     def empty(shape, dtype):
         return torch.empty(shape, dtype=dtype, device=dev)
 
     out = {
-        "y": empty((Mp, Kp), torch.bfloat16),
+        "y": empty((Mp, Kp), xp.dtype),
         "sel": empty((nm, nk), torch.int32),
         "scales": empty((nm, nk), torch.float32),
         "e4_sums": empty((nm, nk), torch.float32),
@@ -152,14 +172,17 @@ def mor_select_select(xp: torch.Tensor, mg: torch.Tensor, *,
         out["e4_sums"].data_ptr(), out["e5_sums"].data_ptr(),
         out["counts"].data_ptr(),
         out["nv_sums"].data_ptr() if mode == "sub4" else None),
-        Mp, Kp, block, mode, algo, dev)
+        Mp, Kp, block, mode, algo, dev, SELECT_DTYPES[xp.dtype])
     mor_select_select.launches += 1
     mor_select_select.launches_by_route[route] += 1
+    mor_select_select.launches_by_dtype[str(xp.dtype).split(".")[-1]] += 1
     return out
 
 
 mor_select_select.launches = 0
 mor_select_select.launches_by_route = {r: 0 for r in ROUTES}
+mor_select_select.launches_by_dtype = {
+    str(d).split(".")[-1]: 0 for d in SELECT_DTYPES}
 
 
 def mor_select_pack(xp: torch.Tensor, mg: torch.Tensor, *,

@@ -79,11 +79,26 @@ def _kernel_backend(backend: str, part: Partition, x: torch.Tensor) -> str:
     return be
 
 
+# Elements a stripe of _amax_abs spans: a leaf-sized |x| temporary of the
+# port's largest operands (1 G elements) would cost 4 GB.
+_AMAX_STRIPE = 1 << 26
+
+
+def _amax_abs(x: torch.Tensor) -> torch.Tensor:
+    """max |x| in f32 (NaN if any element is NaN), over row stripes of
+    at most _AMAX_STRIPE elements for a large x."""
+    rows = max(_AMAX_STRIPE // max(x.shape[-1], 1), 1)
+    if x.numel() <= _AMAX_STRIPE or x.ndim != 2 or x.shape[0] <= rows:
+        return torch.amax(x.to(torch.float32).abs())
+    return torch.amax(torch.stack([torch.amax(s.to(torch.float32).abs())
+                                   for s in x.split(rows)]))
+
+
 def _group_amax(x: torch.Tensor):
     """(g_amax, guarded g_amax): zero guard AND nonfinite guard -- an
     Inf amax would otherwise poison the Alg. 1 mantissa of every block;
     the raw value is returned first so the stats guard lanes see it."""
-    g_amax = torch.amax(x.to(torch.float32).abs())
+    g_amax = _amax_abs(x)
     safe = torch.where((g_amax > 0) & torch.isfinite(g_amax), g_amax,
                        torch.ones_like(g_amax))
     return g_amax, safe
@@ -156,8 +171,10 @@ def _select_inputs(x: torch.Tensor, block, algo: str):
 def mor_select(x: torch.Tensor, part: Partition, mode: str = "sub3",
                algo: str = "gam", *, backend: str = "auto") -> MorSelect:
     """Fused sub-tensor MoR selection (sub2/sub3/sub4) of a 2-D operand
-    with the fake-quant output ``y``: one ``mor_select_select`` launch
-    on a CUDA tensor."""
+    with the fake-quant output ``y`` in x's dtype: one
+    ``mor_select_select`` launch on a CUDA tensor, of the kernel's
+    instance for x's dtype (bf16, or f32 as the gradient compression's
+    views are)."""
     be = _kernel_backend(backend, part, x)
     M, K = x.shape
     bm, bk = part.resolve((M, K))

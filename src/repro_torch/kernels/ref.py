@@ -410,12 +410,13 @@ def _blocked_quant_err(xb: torch.Tensor, fmt: FormatSpec, algo: str,
 
 
 def _select(x: torch.Tensor, part: Partition, mode: str, algo: str,
-            want_y: bool) -> MorSelect:
+            want_y: bool, group_amax=None) -> MorSelect:
     if mode not in ("sub2", "sub3", "sub4"):
         raise ValueError(f"unknown selection mode {mode!r}")
     xb = to_blocks(x, part)
-    q4b, scales4, e4_sums, counts = _blocked_quant_err(xb, E4M3, algo)
-    q5b, _, e5_sums, _ = _blocked_quant_err(xb, E5M2, algo)
+    q4b, scales4, e4_sums, counts = _blocked_quant_err(xb, E4M3, algo,
+                                                       group_amax)
+    q5b, _, e5_sums, _ = _blocked_quant_err(xb, E5M2, algo, group_amax)
 
     m1 = e4_sums < e5_sums  # Eq. 3
     use_nv = nv_sums = qnb = None
@@ -433,7 +434,8 @@ def _select(x: torch.Tensor, part: Partition, mode: str, algo: str,
         ratio = torch.where(anynz, bmax / torch.where(anynz, bmin, one), one)
         use5 = (~m1) & (ratio < E5M2_RANGE_RATIO)
         if mode == "sub4":
-            qnb, _, nv_sums, _ = _blocked_quant_err(xb, NVFP4, algo)
+            qnb, _, nv_sums, _ = _blocked_quant_err(xb, NVFP4, algo,
+                                                    group_amax)
             nm_, nk_, bm_, bk_ = xb.shape
             xbg = xb.to(torch.float32)
             pad_g = (-bk_) % NVFP4_MICRO
@@ -464,12 +466,16 @@ def _select(x: torch.Tensor, part: Partition, mode: str, algo: str,
 
 
 def mor_select_ref(x: torch.Tensor, part: Partition, mode: str = "sub3",
-                   algo: str = "gam") -> MorSelect:
+                   algo: str = "gam", group_amax=None) -> MorSelect:
     """Per-block sub2/sub3/sub4 selection with the fake-quant output
-    ``y``: each block's winning candidate as stored (bf16), the NVFP4
-    snap included under sub4; BF16 blocks keep their input values."""
+    ``y``: each block's winning candidate as stored (in x's dtype), the
+    NVFP4 snap included under sub4; BF16 blocks keep their input values.
+    ``group_amax``: the raw group amax to scale by where x is a stripe of
+    block rows of a larger operand (the stripe's blocks then decide as
+    they do in the whole, as a shard's do under the reference's
+    ``mesh_axes``); by default x's own."""
     mor_select_ref.calls += 1
-    return _select(x, part, mode, algo, want_y=True)
+    return _select(x, part, mode, algo, want_y=True, group_amax=group_amax)
 
 
 mor_select_ref.calls = 0

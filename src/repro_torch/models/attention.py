@@ -8,11 +8,14 @@ path): queries in chunks of ``q_chunk``, keys and values streamed in
 chunks of ``k_chunk`` with an online softmax, in the reference's order.
 Its backward is autograd through the same operations; the reference
 recomputes each key chunk in its backward (``jax.checkpoint``), which
-changes memory, not values.
+changes memory, not values. The f32 einsums run in full f32 whatever
+the caller's TF32 setting (``core.device.ieee_f32_matmul``).
 """
 from __future__ import annotations
 
 import torch
+
+from repro_torch.core.device import ieee_f32_matmul
 
 from .common import pick_chunk
 
@@ -37,6 +40,7 @@ def _mask(kind: str, q_pos, k_pos, prefix_len: int, window: int):
     raise ValueError(kind)
 
 
+@ieee_f32_matmul()
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     kind: str = "causal", prefix_len: int = 0,
                     window: int = 0, q_chunk: int = 512,
@@ -85,6 +89,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.to(q.dtype)
 
 
+@ieee_f32_matmul()
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, cur_index, *,
                      window: int = 0) -> torch.Tensor:

@@ -15,7 +15,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core.device import resolve_device
+from repro_torch.core.device import ieee_f32_matmul, resolve_device
 from repro_torch.core.linear import N_BWD_EVENTS
 from repro_torch.core.mor import STATS_WIDTH
 from repro_torch.core.policy import MoRDotPolicy
@@ -37,8 +37,9 @@ def _check_family(cfg: ArchConfig):
     if cfg.family != "dense" or tuple(cfg.unit) != ("dense",):
         raise NotImplementedError(
             f"family {cfg.family!r} / unit {cfg.unit}: only the dense "
-            "decoder family is ported (MoE, recurrent and enc-dec "
-            "families are ROADMAP Queue 1 item 6)"
+            "decoder family is ported (the MoE, recurrent and enc-dec "
+            "families of repro.models.blocks and repro.models.recurrent "
+            "are not)"
         )
 
 
@@ -202,7 +203,8 @@ def forward(cfg: ArchConfig, policy: MoRDotPolicy, params, batch, *,
             out_dtype=torch.float32, backend=policy.weight.backend,
         ).reshape(bsz, seq, head.shape[1])
     else:
-        logits = x.to(torch.float32) @ head.to(torch.float32)
+        with ieee_f32_matmul():
+            logits = x.to(torch.float32) @ head.to(torch.float32)
     Vp = logits.shape[-1]
     col = torch.arange(Vp, device=logits.device)
     logits = torch.where(col < cfg.vocab, logits, -1e30)

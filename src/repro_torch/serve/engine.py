@@ -89,7 +89,8 @@ class Engine:
                 or scfg.kv_guard:
             raise NotImplementedError(
                 "kv_fp8 / kv_mor / kv_mor_cold / kv_guard are not ported "
-                "yet (ROADMAP Queue 1 item 9)")
+                "yet (the KV tiers of repro.serve.paged and "
+                "repro.models.attention)")
         if scfg.max_seq % scfg.prefill_chunk:
             raise ValueError(
                 f"prefill_chunk {scfg.prefill_chunk} must divide "

@@ -56,8 +56,8 @@ class Trainer:
         if (run_cfg.ckpt_dir or run_cfg.ckpt_every != 50
                 or run_cfg.keep != 3):
             raise NotImplementedError(
-                "checkpoint/restart is not ported yet (ROADMAP Queue 1 "
-                "item 5)")
+                "checkpoint/restart is not ported yet "
+                "(repro.checkpoint.ckpt)")
         self.cfg = cfg
         self.policy = policy
         self.run_cfg = run_cfg

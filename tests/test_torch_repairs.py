@@ -16,15 +16,18 @@ on the CPU (and, where the fault was device-dependent, on the card):
 * ``QTensor.is_quantized`` as the reference's ("any block stored as
   fp8").
 * ``core.linear._dot`` turns cuBLAS's reduced-precision bf16 reduction
-  off for its own call only (card).
+  off for its own call only (card); the port's f32 matmuls (attention,
+  the f32 head, ``_dot``'s f32 branch) turn TF32 off for their own call
+  only (``core.device.ieee_f32_matmul``; card).
 * Parameters of the reference that the port dropped, which gave
   reference-style callers a ``TypeError``: ``adamw_update(decay_mask=)``
   is ported (bit for bit against JAX on master and moments);
   ``tile=``, ``zero2_grads``, ``decision_cache_steps`` and ``log_every``
   are accepted and ignored; ``aux_coef`` takes any value (the dense
-  models' aux loss is 0); ``ckpt_every``, ``keep``, ``grad_policy`` and
-  ``grad_fault`` do nothing at the reference's defaults and raise
-  ``NotImplementedError`` naming their ROADMAP item otherwise.
+  models' aux loss is 0); ``ckpt_every``, ``keep``, ``mor_mesh_axes``
+  and ``grad_fault`` do nothing at the reference's defaults and raise
+  ``NotImplementedError`` naming the reference module they wait for
+  otherwise.
 
 The JAX side is compiled whole with excess precision off (``jit_ref``).
 """
@@ -275,6 +278,91 @@ def test_dot_restores_the_reduced_precision_flag(cuda_device):
         flags.allow_bf16_reduced_precision_reduction = before
 
 
+TF32_SETTERS = {
+    "precision_high": "torch.set_float32_matmul_precision('high')",
+    "legacy_allow_tf32": "torch.backends.cuda.matmul.allow_tf32 = True",
+    "new_fp32_precision": "torch.backends.cuda.matmul.fp32_precision = "
+                          "'tf32'",
+}
+
+
+@pytest.mark.parametrize("how", TF32_SETTERS)
+def test_ieee_f32_matmul_switches_tf32_off_and_restores_it(how):
+    """``core.device.ieee_f32_matmul`` turns TF32 off for cuBLAS inside
+    (the flag cuBLAS reads is readable and False) and leaves the caller's
+    setting as it found it, whichever of PyTorch's APIs set it (each case
+    in its own process: the flags are process-wide and, once the APIs
+    are mixed, PyTorch refuses to read them)."""
+    import os
+    import subprocess
+    import sys
+    code = (
+        "import torch, warnings\n"
+        "warnings.simplefilter('ignore')\n"
+        "from repro_torch.core.device import ieee_f32_matmul\n"
+        "m = torch.backends.cuda.matmul\n"
+        f"{TF32_SETTERS[how]}\n"
+        "def state():\n"
+        "    out = []\n"
+        "    for f in (torch.get_float32_matmul_precision,\n"
+        "              lambda: m.allow_tf32, lambda: m.fp32_precision):\n"
+        "        try:\n"
+        "            out.append(f())\n"
+        "        except RuntimeError:\n"
+        "            out.append('unreadable')\n"
+        "    return out\n"
+        "before = state()\n"
+        "with ieee_f32_matmul():\n"
+        "    inside = m.allow_tf32\n"
+        "assert inside is False, inside\n"
+        "assert state() == before, (state(), before)\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0 and "ok" in res.stdout, res.stderr[-2000:]
+
+
+@pytest.mark.cuda
+def test_f32_matmuls_ignore_the_callers_tf32_setting(cuda_device):
+    """The port's f32 matmuls (the chunked attention's einsums, the f32
+    head GEMM) run in full f32 under a caller's
+    ``set_float32_matmul_precision("high")``: the attention output and
+    the logits are bit-identical to the "highest" run, and the caller's
+    setting is as it was after each call."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.policy import paper_default
+    from repro_torch.models.attention import flash_attention
+    from repro_torch.models.transformer import forward, init_params
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    q, k, v = (torch.randn((2, 256, 4, 64), generator=g, device=cuda_device)
+               .to(torch.bfloat16) for _ in range(3))
+    cfg = reduced(get_config("llama3-8b"))
+    params = init_params(cfg, seed=0, device=cuda_device)
+    batch = {"tokens": torch.randint(0, cfg.vocab, (2, 32), generator=g,
+                                     device=cuda_device)}
+    pol = paper_default("off")
+    before = torch.get_float32_matmul_precision()
+    outs = {}
+    try:
+        for prec in ("highest", "high"):
+            torch.set_float32_matmul_precision(prec)
+            att = flash_attention(q, k, v, q_chunk=64, k_chunk=64)
+            assert torch.get_float32_matmul_precision() == prec
+            logits, _, _ = forward(cfg, pol, params, batch, mode="train",
+                                   remat=False)
+            assert torch.get_float32_matmul_precision() == prec
+            outs[prec] = (att, logits)
+    finally:
+        torch.set_float32_matmul_precision(before)
+    for a, b in zip(outs["highest"], outs["high"]):
+        assert torch.equal(a.view(torch.int16) if a.dtype == torch.bfloat16
+                           else a.view(torch.int32),
+                           b.view(torch.int16) if b.dtype == torch.bfloat16
+                           else b.view(torch.int32))
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -429,12 +517,13 @@ def test_aux_coef_leaves_the_dense_loss_unchanged():
 
 
 @pytest.mark.parametrize("what,match", (
-    ("ckpt_every", "item 5"), ("keep", "item 5"),
-    ("grad_policy", "item 4"), ("grad_fault", "item 6")))
+    ("ckpt_every", "repro.checkpoint"), ("keep", "repro.checkpoint"),
+    ("mor_mesh_axes", "repro.core.collectives"),
+    ("grad_fault", "repro.robust.faults")))
 def test_unported_parameters_raise_naming_their_item(what, match):
     """Away from the reference's defaults, the parameters of unported
-    features raise NotImplementedError naming their ROADMAP Queue 1
-    item; at the defaults they do nothing."""
+    features raise NotImplementedError naming the reference module they
+    wait for; at the defaults they do nothing."""
     from repro_torch.core.policy import paper_default
     from repro_torch.train import Trainer, TrainConfig, TrainerConfig
     from repro_torch.train.train_step import make_train_step
@@ -444,15 +533,15 @@ def test_unported_parameters_raise_naming_their_item(what, match):
         if what in ("ckpt_every", "keep"):
             Trainer(cfg, pol, TrainConfig(),
                     TrainerConfig(**{what: 7}), device="cpu")
-        elif what == "grad_policy":
-            TrainConfig(grad_policy=MoRPolicy(recipe="sub4"))
+        elif what == "mor_mesh_axes":
+            TrainConfig(mor_mesh_axes=("data",))
         else:
             make_train_step(cfg, pol, TrainConfig(),
                             grad_fault=lambda g, b: g)
     if what in ("ckpt_every", "keep"):
         Trainer(cfg, pol, TrainConfig(),
                 TrainerConfig(ckpt_every=50, keep=3), device="cpu")
-    elif what == "grad_policy":
-        TrainConfig(grad_policy=MoRPolicy(recipe="sub3"))
+    elif what == "mor_mesh_axes":
+        TrainConfig(mor_mesh_axes=())
     else:
         make_train_step(cfg, pol, TrainConfig(), grad_fault=None)
