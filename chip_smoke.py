@@ -97,8 +97,41 @@
    leaf of one more step of run (ii) (the plain version over stripes of
    block rows, at the whole view's group amax).
 
+9. Fault tolerance (``phase_fault_tolerance``): checkpoint/restart and
+   the chaos harness. (a) Run (iii)'s compressed state (FP8_MOMENTS,
+   'mor_ef', the guard) on deepseek-coder-33b at full width and depth 1
+   (the run's disk writes must stay under the machine's ~45 GiB; see
+   ``FT_ARCH``) with the step rebuilt around
+   ``make_grad_fault('nan' | 'inf', seed=3)``: an injected batch is
+   dropped with every lane of the state bit-identical (per-leaf sha256
+   digests), the next clean one is not; then ``Checkpointer.save``, one
+   more step at once (it updates the state in place while the writer
+   runs), ``wait()``, and a restore into a CPU target of
+   ``init_opt_state``'s structure: bit for bit what was saved (GB, the
+   seconds ``save`` blocked, write and restore seconds and GB/s). (b)
+   ``Trainer`` on the same model with its dense state: an unbroken
+   4-step run; a run with ``ckpt_dir`` that sends
+   itself SIGTERM during its second step and must leave only
+   ``step_2``; a fresh Trainer that resumes there and reaches step 4
+   bit-identical to the unbroken run (digests; losses equal). (c) The
+   pack faults (payload bit flips, one on an E4M3 NaN code, a NaN
+   scale, a 0xFF micro-scale byte) on a wi-shaped sub4 pack of every
+   tag through ``ops.mixed_dot`` on the stream path (M = 4) and the tc
+   path (M = 2048) against the plain version: the same nonfinite
+   positions, finite values within ``gemm_tol``; ``stale_amax`` through
+   ``requantize_with_backoff`` on the wi view (plain PyTorch in both
+   packages), CUDA against CPU; a trashed KV page in the llama3-8b
+   engine (depth 4, 3 slots): the victim quarantined, the other
+   requests' tokens bit-identical. (d) The checkpoint directories
+   (``build/ckpt``) are removed at the end, also on a failure. (e) The
+   head's forward on the tensor cores (``HeadMatmul``) against the f32
+   product at ``gemm_tol`` and its backward bit for bit against the old
+   expression, at llama3-8b's and nemotron3-8b's vocabularies, with both
+   forwards timed.
+
 Prints JSON lines (the ``kernels``, ``engine``, ``train``,
-``train_state`` and ``kernel_api`` lines among them) and ends with
+``train_state``, ``fault_tolerance`` and ``kernel_api`` lines among
+them) and ends with
 ``{"ok": true, "device":
 ...}``. Exits non-zero on any failure, without a card, or without the
 rest of the repository beside it.
@@ -107,6 +140,8 @@ import contextlib
 import dataclasses
 import gc
 import json
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -1435,7 +1470,8 @@ def phase_train(cfg):
                      "n_heads": cfg.n_heads, "n_kv": cfg.n_kv,
                      "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
                      "steps": TRAIN_STEPS, "warmup_steps": 1,
-                     "remat": True, "head_gemm": "f32"}
+                     "remat": True,
+                     "head_gemm": "bf16 tensor cores, f32 out (mm.dtype)"}
     res["profile"] = profiles
     total = {k: sum(launches[p][k] for p in launches)
              for k in next(iter(launches.values()))}
@@ -1776,6 +1812,686 @@ def profile_train_step(step_fn, params, opt, batch, must, steps=1):
         "top": [{"name": k[:60], "ms_per_step": us / 1e3 / steps,
                  "count_per_step": c / steps} for us, k, c in rows[:10]],
     }
+
+
+# ---------------------------------------------------------------------------
+# Fault tolerance: checkpoint/restart and the chaos harness
+# ---------------------------------------------------------------------------
+
+# Checkpoints of the fault-tolerance phase go to a directory on the
+# checkout's own disk (never /dev/shm or a tmpfs), gitignored, removed at
+# the end of the phase.
+CKPT_DIR = ROOT / "build" / "ckpt"
+# The model of the checkpoints: the card's machine accepts ~45 GiB of
+# disk writes a run, and the phase writes three checkpoints (the
+# compressed state's, the preempted Trainer's, the resumed Trainer's
+# final one). nemotron3-8b's 256k-vocab embedding and head alone make
+# ~29 GB of compressed state at any depth; deepseek-coder-33b at full
+# width and one layer (0.99 B params, a 32k vocab) makes ~13.5 GB of
+# compressed state and ~13.9 GB of the Trainer's dense state.
+FT_ARCH, FT_LAYERS, PREEMPT_STEPS = "deepseek-coder-33b", 1, 4
+_PINNED = [None]  # the host buffer digest_tree copies leaves through
+
+
+def digest_tree(tree):
+    """{key path: sha256 over the leaf's dtype, shape and bytes} for every
+    tensor of a state tree (packed lanes too), one leaf on the host at a
+    time: a CUDA leaf is copied into one reused pinned buffer, and its
+    bytes hashed in 8 slices on threads (the slices' digests hashed
+    again)."""
+    import hashlib
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.core.tree import flatten_with_path
+    out = {}
+    with ThreadPoolExecutor(8) as pool:
+        for key, t in flatten_with_path(tree):
+            t = t.detach().contiguous()
+            flat = t.reshape(-1).view(torch.uint8)
+            if t.is_cuda:
+                n = flat.numel()
+                if _PINNED[0] is None or _PINNED[0].numel() < n:
+                    _PINNED[0] = None
+                    _PINNED[0] = torch.empty(n, dtype=torch.uint8,
+                                             pin_memory=True)
+                host = _PINNED[0][:n]
+                host.copy_(flat)
+            else:
+                host = flat
+            buf = memoryview(host.numpy())
+            step = -(-len(buf) // 8) or 1
+            parts = pool.map(lambda i: hashlib.sha256(
+                buf[i:i + step]).digest(), range(0, max(len(buf), 1), step))
+            h = hashlib.sha256(f"{t.dtype} {tuple(t.shape)}".encode())
+            for p in parts:
+                h.update(p)
+            out[key] = h.hexdigest()
+    return out
+
+
+def host_mem_gb():
+    """MemAvailable of the host, GB."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024 / 1e9
+    return None
+
+
+def dir_gb(path):
+    return sum(f.stat().st_size for f in Path(path).rglob("*")
+               if f.is_file()) / 1e9
+
+
+def guarded_step_fn(cfg, fault=None):
+    """Run (iii)'s step (``phase_train_state``): FP8_MOMENTS, 'mor_ef', GuardPolicy(), sub3 GEMMs,
+    with the chaos harness's gradient hook ``fault``."""
+    from repro_torch.core.policy import paper_default
+    from repro_torch.optim import FP8_MOMENTS, AdamWConfig
+    from repro_torch.robust import GuardPolicy
+    from repro_torch.train import TrainConfig, make_train_step
+    tcfg = TrainConfig(optimizer=AdamWConfig(warmup_steps=1),
+                       moments=FP8_MOMENTS, compress_grads="mor_ef",
+                       guard=GuardPolicy())
+    return make_train_step(cfg, paper_default("sub3"), tcfg,
+                           grad_fault=fault)
+
+
+def ft_state_phase(smi):
+    """Run (iii)'s compressed state on FT_ARCH (full width, FT_LAYERS
+    layer(s)) through the gradient faults and a checkpoint.
+
+    Gradient faults: the step rebuilt with make_grad_fault(kind, seed=3)
+    for 'nan' and 'inf': a batch with inject=1 is dropped (guard_skip 1;
+    every lane of params and state bit-identical, by digests), the next
+    with inject=0 is not. Checkpoint: digests of params and the whole
+    OptState, Checkpointer(keep=1, async_save=True).save, one more real
+    step at once (it rewrites master, m, v and ef in place while the
+    writer runs), wait(), then -- the GPU state freed -- restore into a
+    CPU target with the structure init_opt_state(..., moments=FP8_MOMENTS,
+    ef=True) gives (built on the card, each leaf an unfilled CPU tensor of
+    its dtype): every lane bit for bit what was saved, the step, and
+    has_nvfp4 read from the tags. Returns (result, launch counts, tile
+    routes, GEMM paths) of the steps."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.core.tree import map_with_path
+    from repro_torch.kernels.ref import TAG_NVFP4
+    from repro_torch.models import init_params
+    from repro_torch.optim import FP8_MOMENTS, init_opt_state
+    from repro_torch.optim.adamw import tree_leaves, tree_map
+    from repro_torch.optim.moments import PackedMoment
+    from repro_torch.robust import make_grad_fault
+    cfg = dataclasses.replace(get_config(FT_ARCH), n_layers=FT_LAYERS)
+    params = init_params(cfg, seed=0, device="cuda")
+    opt = init_opt_state(params, moments=FP8_MOMENTS, ef=True)
+    hooks = {k: guarded_step_fn(cfg, make_grad_fault(k, seed=3))
+             for k in ("nan", "inf")}
+
+    def batch(s, inject):
+        return {**train_batch(cfg, s),
+                "inject": torch.tensor(float(inject), device="cuda")}
+
+    torch.cuda.synchronize()
+    reset_counters()
+    res = {"grad_faults": {}}
+    s = 0
+    params, opt, m = hooks["nan"](params, opt, batch(s, 0))
+    check(float(m["guard_skip"]) == 0.0, f"clean step skipped: {m}")
+    for kind, step_fn in hooks.items():
+        before = digest_tree((params, opt))
+        s += 1
+        t0 = time.perf_counter()
+        p2, opt2, m = step_fn(params, opt, batch(s, 1))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        after = digest_tree((p2, opt2))
+        same = before == after
+        row = {"kind": kind, "seed": 3, "guard_skip": float(m["guard_skip"]),
+               "grad_norm": float(m["grad_norm"]),
+               "loss": float(m["loss"]),
+               "guard_flag_events": float(m["guard_flag_events"]),
+               "state_bit_identical": same, "step_ms": dt * 1e3,
+               "leaves_compared": len(before)}
+        # The dropped step's params (the master weights cast again) stand
+        # in for the old ones, which must not outlive the next step.
+        params = p2
+        del p2, opt2
+        torch.cuda.empty_cache()
+        s += 1
+        params, opt, m = step_fn(params, opt, batch(s, 0))
+        row["next_clean_guard_skip"] = float(m["guard_skip"])
+        emit({"fault_tolerance_grad_fault": {**row, "card": smi}})
+        check(row["guard_skip"] == 1.0 and same
+              and row["next_clean_guard_skip"] == 0.0
+              and np.isfinite(row["loss"]),
+              f"grad fault {kind} not contained: {row}")
+        res["grad_faults"][kind] = row
+
+    # The checkpoint of the compressed state, across an in-place step.
+    d = CKPT_DIR / "compressed"
+    saved_step = int(opt.step)
+    want = digest_tree((params, opt))
+    ck = Checkpointer(str(d), keep=1, async_save=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ck.save(saved_step, (params, opt))
+    t_saved = time.perf_counter()
+    s += 1
+    params, opt, m = hooks["nan"](params, opt, batch(s, 0))
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t_saved
+    check(int(opt.step) == saved_step + 1 and float(m["guard_skip"]) == 0.0,
+          "the step after the save did not move the state")
+    ck.wait()
+    t_written = time.perf_counter()
+    k_counts, p_counts = read_counters()
+    routes, paths = tile_routes(), gemm_paths()
+    check(not any(p_counts.values()), "fault tolerance: plain versions ran "
+          f"on the compressed-state steps: {p_counts}")
+    n_params = sum(p.numel() for p in tree_leaves(params))
+    del params, opt, m, hooks
+    gc.collect()
+    torch.cuda.empty_cache()
+    # The target: init_opt_state's structure, with the params in the bf16
+    # a step leaves them (as Trainer restores them), its leaves unfilled
+    # CPU tensors of their dtypes (restore reads their device and dtype;
+    # the shapes come from the file).
+    tp = init_params(cfg, seed=0, device="cuda")
+    to = init_opt_state(tp, moments=FP8_MOMENTS, ef=True)
+    tp = tree_map(lambda p: p.to(torch.bfloat16), tp)
+    target = map_with_path(lambda k, t: torch.empty(
+        tuple(t.shape), dtype=t.dtype), (tp, to))
+    del tp, to
+    torch.cuda.empty_cache()
+    t0r = time.perf_counter()
+    got = ck.restore(saved_step, target)
+    restore_s = time.perf_counter() - t0r
+    have = digest_tree(got)
+    bad = sorted(k for k in want if have.get(k) != want[k])
+    nv = [pm.mo.has_nvfp4 == bool((pm.mo.tags == TAG_NVFP4).any())
+          for name in ("m", "v") for pm in tree_leaves(getattr(got[1], name))
+          if isinstance(pm, PackedMoment)]
+    gb = dir_gb(d / f"step_{saved_step}")
+    res["checkpoint"] = {
+        "arch": cfg.name, "layers": FT_LAYERS, "n_params": n_params,
+        "step": saved_step, "restored_step": int(got[1].step),
+        "leaves": len(want), "bit_identical": not bad and set(have) ==
+        set(want), "differing": bad[:8], "has_nvfp4_from_tags": all(nv),
+        "checkpoint_gb": gb, "save_block_s": t_saved - t0,
+        "step_during_write_s": step_s, "write_s": t_written - t_saved,
+        "write_gb_per_s": gb / (t_written - t_saved),
+        "restore_s": restore_s, "restore_gb_per_s": gb / restore_s,
+        "host_mem_available_gb_after_restore": host_mem_gb(), "card": smi}
+    emit({"fault_tolerance_checkpoint": res["checkpoint"]})
+    del got, target
+    gc.collect()
+    shutil.rmtree(d, ignore_errors=True)
+    check(res["checkpoint"]["bit_identical"]
+          and res["checkpoint"]["restored_step"] == saved_step and all(nv),
+          f"compressed checkpoint round trip: {res['checkpoint']}")
+    return res, k_counts, routes, paths
+
+
+def ft_preempt_phase(smi):
+    """Preemption and resume through Trainer: FT_ARCH, full width,
+    FT_LAYERS layer(s), paper_default('sub3'), 2 x 1024 tokens
+    (SyntheticLM seed 1234), PREEMPT_STEPS steps, the Trainer's dense
+    state. Run 1 unbroken, no ckpt_dir. Run 2 with ckpt_dir (ckpt_every
+    100, keep 1): SIGTERM to this process from a wrapper of step_fn
+    during the second step; it must leave only step_2. Run 3, a fresh
+    Trainer on the same directory, resumes at 2 and reaches
+    PREEMPT_STEPS: params, master, m, v and step equal to run 1's (by
+    digests) and its losses equal run 1's exactly. The SIGTERM handler
+    of before the phase is restored."""
+    import signal
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import paper_default
+    from repro_torch.data import DataConfig
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import Trainer, TrainConfig, TrainerConfig
+    cfg = dataclasses.replace(get_config(FT_ARCH), n_layers=FT_LAYERS)
+    d = CKPT_DIR / "preempt"
+    dcfg = DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                      global_batch=TRAIN_BATCH, seed=1234)
+
+    def trainer(**kw):
+        # The Trainer draws its data with its own seed (as the
+        # reference's): 1234 for the weights and the batches.
+        return Trainer(cfg, paper_default("sub3"),
+                       TrainConfig(optimizer=AdamWConfig(warmup_steps=1)),
+                       TrainerConfig(total_steps=PREEMPT_STEPS, seed=1234,
+                                     **kw), dcfg, device="cuda")
+
+    def timed(ck, log):
+        for name in ("save", "wait", "restore"):
+            fn = getattr(ck, name)
+
+            def wrap(*a, _fn=fn, _name=name, **kw):
+                t0 = time.perf_counter()
+                out = _fn(*a, **kw)
+                log.append((_name, time.perf_counter() - t0))
+                return out
+            setattr(ck, name, wrap)
+
+    def state(out):
+        o = out["opt_state"]
+        return digest_tree({"params": out["params"], "master": o.master,
+                            "m": o.m, "v": o.v, "step": o.step})
+
+    old = signal.getsignal(signal.SIGTERM)
+    res = {}
+    try:
+        reset_counters()
+        t0 = time.perf_counter()
+        r1 = trainer().run()
+        res["run1_s"] = time.perf_counter() - t0
+        want, losses = state(r1), [h["loss"] for h in r1["history"]]
+        del r1
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        t2 = trainer(ckpt_dir=str(d), ckpt_every=100, keep=1)
+        log2 = []
+        timed(t2.ckpt, log2)
+        inner, calls = t2.step_fn, [0]
+
+        def preempting(*a):
+            if calls[0] == 1:
+                os.kill(os.getpid(), signal.SIGTERM)
+            calls[0] += 1
+            return inner(*a)
+
+        t2.step_fn = preempting
+        t0 = time.perf_counter()
+        r2 = t2.run()
+        res["run2_s"] = time.perf_counter() - t0
+        left = sorted(os.listdir(d))
+        res["run2"] = {"final_step": r2["final_step"], "dirs": left,
+                       "ckpt_s": log2}
+        check(r2["final_step"] == 2 and left == ["step_2"],
+              f"the preempted run left {left}, final_step "
+              f"{r2['final_step']}")
+        del r2, t2
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        t3 = trainer(ckpt_dir=str(d), ckpt_every=100, keep=1)
+        log3 = []
+        timed(t3.ckpt, log3)
+        t0 = time.perf_counter()
+        r3 = t3.run()
+        res["run3_s"] = time.perf_counter() - t0
+        have = state(r3)
+        resumed = [h["loss"] for h in r3["history"]]
+        res["run3"] = {"steps": [h["step"] for h in r3["history"]],
+                       "final_step": r3["final_step"],
+                       "dirs": sorted(os.listdir(d)), "ckpt_s": log3}
+        res["checkpoint_gb"] = dir_gb(d / f"step_{PREEMPT_STEPS}")
+        res["losses_unbroken"], res["losses_resumed"] = losses, resumed
+        res["bit_identical"] = have == want
+        res["differing"] = sorted(k for k in want
+                                  if have.get(k) != want[k])[:8]
+        res["leaves"] = len(want)
+        k_counts, p_counts = read_counters()
+        routes, paths = tile_routes(), gemm_paths()
+        del r3, t3
+        gc.collect()
+        torch.cuda.empty_cache()
+    finally:
+        signal.signal(signal.SIGTERM, old)
+    res.update(arch=cfg.name, layers=FT_LAYERS, steps=PREEMPT_STEPS,
+               preempted_during_step=2, card=smi)
+    emit({"fault_tolerance_preempt": res})
+    check(res["run3"]["steps"] == list(range(2, PREEMPT_STEPS))
+          and res["run3"]["dirs"] == [f"step_{PREEMPT_STEPS}"],
+          f"the resumed run: {res['run3']}")
+    check(res["bit_identical"] and resumed == losses[2:],
+          f"the resumed run differs from the unbroken one: {res}")
+    check(not any(p_counts.values()), "fault tolerance: plain versions ran "
+          f"in the Trainer runs: {p_counts}")
+    shutil.rmtree(d, ignore_errors=True)
+    return res, k_counts, routes, paths
+
+
+def bitflip_seeds(mo, n=3):
+    """Seeds of payload_bitflip on ``mo``: the first that turns an E4M3
+    block's byte into a NaN code, the first that lands in an E5M2 block,
+    and the first that lands in an E4M3 block without a NaN code."""
+    from repro_torch.kernels.ref import TAG_E4M3, TAG_E5M2
+    pay = mo.payload_q.reshape(-1).cpu().numpy()
+    tags = mo.tags.cpu().numpy()
+    K = mo.payload_q.shape[-1]
+    br, bk = mo.block
+    want, out = ["nan", "e5m2", "e4m3"], {}
+    for seed in range(4096):
+        rng = np.random.default_rng(seed)
+        idx = int(rng.integers(pay.size))
+        b = int(pay[idx]) ^ (1 << int(rng.integers(8)))
+        tag = tags[idx // K // br, idx % K // bk]
+        kind = ("nan" if tag == TAG_E4M3 and (b & 0x7F) == 0x7F else
+                "e5m2" if tag == TAG_E5M2 else
+                "e4m3" if tag == TAG_E4M3 else None)
+        if kind in want and kind not in out:
+            out[kind] = seed
+        if len(out) == n:
+            break
+    check(len(out) == n, f"no payload_bitflip seed for {want}: {out}")
+    return out
+
+
+def lane_seed(mo, lane, ok_tags):
+    """The first seed whose scale_corrupt / micro_scale_corrupt element
+    lies in a block of one of ``ok_tags``."""
+    t = getattr(mo, lane)
+    tags = mo.tags.cpu().numpy()
+    rows, cols = t.shape[-2:]
+    nr, nk = tags.shape
+    for seed in range(4096):
+        idx = int(np.random.default_rng(seed).integers(t.numel()))
+        r, c = divmod(idx, cols)
+        if tags[r * nr // rows, c * nk // cols] in ok_tags:
+            return seed
+    raise AssertionError(f"no {lane} seed lands in {ok_tags}")
+
+
+def ft_pack_faults(ops, ref, Partition, smi):
+    """The pack faults through the mixed GEMM: a wi-shaped weight (28672 x
+    4096, llama3-8b's fused w1/w3 view) whose sub4 selection hits every
+    tag (mixed_tags), packed by ops.quantize_pack on the card, corrupted
+    by payload_bitflip (a seed giving an E4M3 NaN code, one in an E5M2
+    block, one in an E4M3 block), scale_corrupt (an fp8 block) and
+    micro_scale_corrupt (an NVFP4 block); ops.mixed_dot on the stream
+    path (M = 4, bf16 and f32 out) and the tc path (M = 2048, bf16 out)
+    against the plain version on the same CUDA tensors: nonfinite
+    positions identical, finite values within gemm_tol. Each call must
+    take its path (launch counters)."""
+    from repro_torch.kernels.mixed_gemm import gemm_path, mixed_gemm_blocks
+    from repro_torch.kernels.ref import TAG_E4M3, TAG_E5M2, TAG_NVFP4
+    from repro_torch.robust import get_fault
+    w = mixed_tags((28672, 4096), 21).cuda()
+    mo, _ = ops.quantize_pack(w, Partition("block", (128, 128),
+                                           align=(2, 16)), "sub4",
+                              backend="cuda")
+    mo = mo.compact()
+    del w
+    present = sorted(np.unique(mo.tags.cpu().numpy()).tolist())
+    check(present == [0, 1, 2, 3], f"the wi pack's tags are {present}")
+    faults = [("payload_bitflip", s, k)
+              for k, s in bitflip_seeds(mo).items()]
+    faults.append(("scale_corrupt", lane_seed(mo, "scales", (
+        TAG_E4M3, TAG_E5M2, TAG_NVFP4)), "fp8/nvfp4 block"))
+    faults.append(("micro_scale_corrupt", lane_seed(
+        mo, "micro_scales", (TAG_NVFP4,)), "nvfp4 block"))
+    g = torch.Generator(device="cuda").manual_seed(5)
+    xs = {M: torch.randn(M, 4096, device="cuda", generator=g).to(
+        torch.bfloat16) for M in (4, 2048)}
+    rows = []
+    for name, seed, where in faults:
+        bad = get_fault(name).inject(mo, seed=seed)
+        W = ref.decode_mixed_ref(bad)[:bad.shape[0]].float()
+        for M, x in xs.items():
+            path = gemm_path(M)
+            for out_dtype in ((torch.bfloat16, torch.float32) if M == 4
+                              else (torch.bfloat16,)):
+                n0 = mixed_gemm_blocks.launches_by_path[path]
+                yk = ops.mixed_dot(x, bad, out_dtype=out_dtype,
+                                   backend="cuda")
+                check(mixed_gemm_blocks.launches_by_path[path] == n0 + 1,
+                      f"{name}: the kernel did not take the {path} path")
+                yt = ops.mixed_dot(x, bad, out_dtype=out_dtype,
+                                   backend="torch")
+                fk, ft = torch.isfinite(yk), torch.isfinite(yt)
+                same_nf = bool(torch.equal(fk, ft))
+                tol = gemm_tol(x, torch.nan_to_num(W, 0.0, 0.0, 0.0), yt,
+                               out_dtype)
+                both = fk & ft
+                err = torch.where(both, (yk.float() - yt.float()).abs(), 0.0)
+                tol = torch.where(both, tol, 1.0)  # nonfinite: compared above
+                ok = same_nf and bool((err <= tol).all())
+                row = {"fault": name, "seed": seed, "lands": where,
+                       "path": path, "M": M,
+                       "out": str(out_dtype).split(".")[-1],
+                       "nonfinite_kernel": int((~fk).sum()),
+                       "nonfinite_plain": int((~ft).sum()),
+                       "same_nonfinite": same_nf,
+                       "max_err_over_tol": float(torch.where(
+                           err > 0, err / tol, 0.0).max()), "ok": ok}
+                emit({"fault_tolerance_pack": row})
+                check(ok, f"pack fault not contained as the plain version "
+                      f"contains it: {row}")
+                rows.append(row)
+        del W, bad
+    torch.cuda.empty_cache()
+    return {"cases": len(rows), "faults": [f[:3] for f in faults],
+            "nonfinite_outputs": {f"{r['fault']} {r['lands']} {r['path']} "
+                                  f"{r['out']}": r["nonfinite_kernel"]
+                                  for r in rows},
+            "max_err_over_tol": max(r["max_err_over_tol"] for r in rows),
+            "card": smi}
+
+
+def ft_stale_amax(smi):
+    """stale_amax on the wi view (28672 x 4096, f32): the group amax shrunk
+    by 8 is past requantize_with_backoff's two doublings, so the event
+    passes through with GUARD_STALE_SCALE; shrunk by 4 it recovers after
+    two. The function is plain PyTorch in the port as in the reference
+    (no kernel on this path): held bit for bit against the same call on
+    the CPU."""
+    from repro_torch.core.mor import GUARD_STALE_SCALE, STAT_GUARD_FLAGS
+    from repro_torch.robust import (get_fault, guard_flag_set,
+                                    requantize_with_backoff)
+    g = torch.Generator(device="cuda").manual_seed(6)
+    x = torch.randn(28672, 4096, device="cuda", generator=g) * 0.02
+    out = {}
+    for shrink, want_attempts in ((8.0, 2), (4.0, 2)):
+        amax = torch.amax(x.abs())
+        stale = get_fault("stale_amax").inject(amax, shrink=shrink)
+        y, st, att = requantize_with_backoff(x, stale)
+        yc, stc, attc = requantize_with_backoff(x.cpu(), stale.cpu())
+        flagged = bool(guard_flag_set(st[STAT_GUARD_FLAGS],
+                                      GUARD_STALE_SCALE))
+        same = (torch.equal(bits16(y.cpu()), bits16(yc))
+                and torch.equal(bits16(st.cpu()), bits16(stc))
+                and int(att) == int(attc))
+        row = {"shrink": shrink, "attempts": int(att),
+               "stale_scale_flag": flagged,
+               "passthrough": bool(torch.equal(y, x)),
+               "cuda_equals_cpu": same}
+        check(same and int(att) == want_attempts
+              and flagged == (shrink == 8.0)
+              and row["passthrough"] == (shrink == 8.0),
+              f"stale_amax: {row}")
+        out[f"shrink_{int(shrink)}"] = row
+    out["card"] = smi
+    return out
+
+
+def ft_kv_trash(smi):
+    """kv_page_trash in the llama3-8b engine at full width, STATE_LAYERS
+    layers, sub3 QTensor weights: 3 slots, 3 requests; the victim's first
+    page trashed after 5 scheduler steps. The victim is quarantined with
+    its reason in req.error; every other request's tokens bit-identical
+    to the clean run. Returns (result, launch counts, tile routes, GEMM
+    paths) of both engine runs."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import MoRDotPolicy, MoRPolicy
+    from repro_torch.models import init_params
+    from repro_torch.robust import get_fault
+    from repro_torch.serve import Engine, Request, ServeConfig
+    cfg = dataclasses.replace(get_config("llama3-8b"), n_layers=STATE_LAYERS)
+    params = init_params(cfg, seed=0, device="cuda")
+    reset_counters()
+
+    def serve(inject_after=None):
+        eng = Engine(cfg, MoRDotPolicy(), params,
+                     ServeConfig(slots=3, max_seq=512, prefill_chunk=32),
+                     quantize=MoRPolicy(recipe="sub3"), device="cuda")
+        rng = np.random.default_rng(11)
+        reqs = [Request(i, rng.integers(0, cfg.vocab, L).astype(np.int32),
+                        max_tokens=16) for i, L in enumerate((3, 17, 9))]
+        for r in reqs:
+            eng.submit(r)
+        page = None
+        if inject_after is not None:
+            for _ in range(inject_after):
+                eng.step()
+            check(eng.slot_state[0] == "decode",
+                  f"the victim is {eng.slot_state[0]}, not decoding")
+            page = eng.pool._owned[0][0]
+            get_fault("kv_page_trash").inject(eng.pool, page)
+        eng.run_to_completion()
+        return reqs, eng, page
+
+    ref_reqs, _, _ = serve()
+    inj, eng, page = serve(inject_after=5)
+    k_counts, p_counts = read_counters()
+    routes, paths = tile_routes(), gemm_paths()
+    v = inj[0]
+    res = {"victim_error": v.error, "victim_tokens": len(v.out),
+           "clean_victim_tokens": len(ref_reqs[0].out), "page": page,
+           "others_identical": all(a.out == b.out and a.error is None
+                                   for a, b in zip(inj[1:], ref_reqs[1:])),
+           "quarantined": [r.rid for r in eng.quarantined],
+           "pages_free_after": len(eng.pool.free),
+           "launches": k_counts, "gemm_paths": paths, "card": smi}
+    emit({"fault_tolerance_kv_trash": res})
+    check(all(r.error is None for r in ref_reqs)
+          and v.error is not None and v.error.startswith("quarantined:")
+          and "nonfinite logits" in v.error and res["others_identical"]
+          and res["quarantined"] == [0]
+          and res["pages_free_after"] == eng.pool.n_pages
+          and paths["stream"] == k_counts["mixed_gemm"]
+          and not any(p_counts.values()), f"kv_page_trash: {res}")
+    del params, eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res, k_counts, routes, paths
+
+
+def ft_head_repair(smi):
+    """The head's forward (HeadMatmul: bf16 x bf16 -> f32 on the tensor
+    cores, aten::mm.dtype) on the training batch's head input (a
+    one-layer model's final-norm output, 2 x 1024 tokens) of llama3-8b
+    and nemotron3-8b: logits within gemm_tol of the f32 product; the
+    backward bit for bit against autograd through the old f32 expression
+    on the same dlogits; the forward's and backward's device times, old
+    and new (CUDA events)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.device import ieee_f32_matmul
+    from repro_torch.core.policy import paper_default
+    from repro_torch.models import init_params
+    from repro_torch.models import transformer as T
+    out = {}
+    for arch in ("llama3-8b", "nemotron3-8b"):
+        cfg = dataclasses.replace(get_config(arch), n_layers=1)
+        params = init_params(cfg, seed=0, device="cuda")
+        seen, real = [], T.HeadMatmul
+
+        class Capture:
+            @staticmethod
+            def apply(x, head):
+                seen.append((x.detach(), head.detach()))
+                return real.apply(x, head)
+
+        with torch.no_grad(), patched(T, "HeadMatmul", Capture):
+            T.forward(cfg, paper_default("sub3"), params,
+                      train_batch(cfg, 0), mode="train", remat=False)
+        x, head = seen[0]
+        del params
+        torch.cuda.empty_cache()
+        x2 = x.reshape(-1, x.shape[-1])
+
+        def f32_product():
+            with ieee_f32_matmul():
+                return x2.to(torch.float32) @ head.to(torch.float32)
+
+        y = T.HeadMatmul.apply(x2, head)
+        y0 = f32_product()
+        tol = gemm_tol(x2, head.T, y0, torch.float32)
+        err = (y - y0).abs()
+        fwd_ok = bool((err <= tol).all())
+        ratio = float(torch.where(err > 0, err / tol, 0.0).max())
+        del err, tol
+        g = torch.Generator(device="cuda").manual_seed(7)
+        dl = torch.randn(y.shape, device="cuda", generator=g) * 1e-4
+        xr, hr = x2.clone().requires_grad_(True), \
+            head.clone().requires_grad_(True)
+        gx, gh = torch.autograd.grad(T.HeadMatmul.apply(xr, hr), (xr, hr),
+                                     dl)
+        with ieee_f32_matmul():
+            y_old = xr.to(torch.float32) @ hr.to(torch.float32)
+            gx0, gh0 = torch.autograd.grad(y_old, (xr, hr), dl)
+        bwd_ok = torch.equal(gx, gx0) and torch.equal(gh, gh0)
+        del gx0, gh0, y_old, y, y0
+
+        def bwd_new():
+            torch.autograd.grad(T.HeadMatmul.apply(xr, hr), (xr, hr), dl)
+
+        Mm, K, N = x2.shape[0], x2.shape[1], head.shape[1]
+        ms_new = time_ms(lambda: T.HeadMatmul.apply(x2, head), iters=10)
+        ms_old = time_ms(f32_product, iters=5)
+        ms_fb = time_ms(bwd_new, iters=5)
+        b = bound(2 * (Mm * K + K * N) + 4 * Mm * N, 2.0 * Mm * N * K)
+        out[arch] = {"shape": [Mm, N, K], "fwd_ok": fwd_ok,
+                     "fwd_max_err_over_tol": ratio, "bwd_bit_identical":
+                     bool(bwd_ok), "fwd_ms_bf16_tc": ms_new,
+                     "fwd_ms_f32": ms_old, "fwd_bound_ms": b[0],
+                     "fwd_bwd_ms": ms_fb,
+                     "bwd_ms": ms_fb - ms_new, "card": smi}
+        emit({"fault_tolerance_head": {"arch": arch, **out[arch]}})
+        check(fwd_ok and bwd_ok, f"head repair {arch}: {out[arch]}")
+        del x, head, x2, xr, hr, dl, gx, gh, seen
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_fault_tolerance(ops, ref, Partition, smi):
+    """Checkpoint/restart and the chaos harness on the card (module
+    docstring, step 9): the compressed state's gradient faults and its
+    checkpoint round trip, the preempt-and-resume Trainer runs, the pack
+    faults through both mixed GEMM paths, stale_amax, a trashed KV page
+    in the engine, and the head repair. The counters are zeroed just
+    before each main-path part and read just after; the parts' counts
+    are summed (the pack faults' kernel-vs-plain calls are not). The
+    checkpoint directories are removed at the end, also on a failure
+    (which is re-raised). Returns (result, launches, tile routes, GEMM
+    paths)."""
+    t0 = time.perf_counter()
+    CKPT_DIR.mkdir(parents=True, exist_ok=True)
+    du = shutil.disk_usage(CKPT_DIR)
+    res = {"disk_total_gb": du.total / 1e9, "disk_free_gb": du.free / 1e9,
+           "host_mem_available_gb": host_mem_gb(), "ckpt_dir": str(CKPT_DIR),
+           "card": smi}
+    emit({"fault_tolerance_resources": res})
+    parts = []
+    try:
+        st, *c = ft_state_phase(smi)
+        parts.append(c)
+        res.update(st)
+        pre, *c = ft_preempt_phase(smi)
+        parts.append(c)
+        res["preempt"] = pre
+        res["pack_faults"] = ft_pack_faults(ops, ref, Partition, smi)
+        res["stale_amax"] = ft_stale_amax(smi)
+        kv, *c = ft_kv_trash(smi)
+        parts.append(c)
+        res["kv_trash"] = kv
+        res["head"] = ft_head_repair(smi)
+    finally:
+        shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    launches = {k: sum(p[0][k] for p in parts) for k in parts[0][0]}
+    routes = {k: {r: sum(p[1][k][r] for p in parts)
+                  for r in ("tile", "generic")} for k in TILE_KERNELS}
+    paths = {k: sum(p[2][k] for p in parts) for k in ("stream", "tc")}
+    for kern in ("mor_select_select", "mor_select_pack", "mixed_gemm"):
+        check(launches[kern] > 0,
+              f"fault tolerance: {kern} launched no time on its path")
+    res["launches"] = launches
+    res["phase_s"] = time.perf_counter() - t0
+    return res, launches, routes, paths
 
 
 def step_grads(cfg, pol, params, batch):
@@ -2487,6 +3203,10 @@ def main():
     state, state_launches, state_routes, state_dtypes = phase_train_state(
         ops, ref)
     state["phase_s"] = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    ft, ft_launches, ft_routes, ft_paths = phase_fault_tolerance(
+        ops, ref, Partition, smi)
 
     kernels = []
     for name, src, replaces in (
@@ -2507,7 +3227,8 @@ def main():
         by_path = {"engine": launches.get(name, 0),
                    "train": train_launches[name],
                    "train_state": state_launches[name],
-                   "kernel_api": api_launches[name]}
+                   "kernel_api": api_launches[name],
+                   "fault_tolerance": ft_launches[name]}
         check(sum(by_path.values()) > 0,
               f"{name}: no launch on any main path")
         entry = {
@@ -2523,7 +3244,8 @@ def main():
             # ms / bound_ms above: the stream path at the decode shape;
             # train_shapes: the tc path.
             entry["launches_by_gemm_path"] = {
-                k: engine_paths[k] + train_paths[k] for k in ("stream", "tc")}
+                k: engine_paths[k] + train_paths[k] + ft_paths[k]
+                for k in ("stream", "tc")}
             entry["parity_max_err_over_tol"] = gemm_parity
             entry["train_shapes"] = {g: timing[f"mixed_gemm_{g}"]
                                      for g in ("fwd", "dgrad", "wgrad")}
@@ -2536,7 +3258,8 @@ def main():
             # generic_ms).
             entry["launches_by_route"] = {
                 r: engine_routes[name][r] + train_routes[name][r]
-                + state_routes[name][r] for r in ("tile", "generic")}
+                + state_routes[name][r] + ft_routes[name][r]
+                for r in ("tile", "generic")}
             entry["shapes"] = t["shapes"]
             entry["build"] = wgmma_build[
                 "gam_quant" if name == "gam_quant" else "mor_select"]
@@ -2582,6 +3305,7 @@ def main():
     emit({"train_depth2": train_depth2, "card": smi})
     emit({"train": train, "card": smi})
     emit({"train_state": state, "card": smi})
+    emit({"fault_tolerance": ft, "card": smi})
     emit({"wall_s": time.perf_counter() - t_start, "card": smi})
     emit({"kernels": kernels})
     print(smi, flush=True)

@@ -21,7 +21,9 @@ from .policy import (
 _LAZY = {
     "N_FWD_EVENTS": "linear", "N_BWD_EVENTS": "linear", "mor_dot": "linear",
     "new_token": "linear", "STATS_WIDTH": "mor", "mor_quantize": "mor",
-    "quantize_for_gemm": "mor",
+    "quantize_for_gemm": "mor", "quant_dequant": "mor",
+    "relative_error": "metrics", "block_relative_error_sums": "metrics",
+    "block_dynamic_range_ok": "metrics",
 }
 
 __all__ = [*_LAZY, "BF16_BASELINE", "SUBTENSOR2_MOR", "SUBTENSOR3_MOR",

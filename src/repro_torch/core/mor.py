@@ -26,8 +26,9 @@ from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as _kref
 from repro_torch.kernels.ref import TAG_NVFP4, MixedOperand
 
-from .formats import E4M3, true_divide
-from .partition import Partition
+from .formats import E4M3, FormatSpec, cast_to_format, true_divide
+from .gam import GamScales, compute_scales
+from .partition import Partition, from_blocks, to_blocks
 from .policy import MoRPolicy
 
 __all__ = [
@@ -38,7 +39,8 @@ __all__ = [
     "STAT_GUARD_FLAGS", "STAT_FALLBACK_COUNT", "GUARD_OK",
     "GUARD_NONFINITE_AMAX", "GUARD_BLOCK_FALLBACK", "GUARD_STALE_SCALE",
     "EVENT_GEMM", "EVENT_GRAD", "EVENT_MOMENT_M", "EVENT_MOMENT_V",
-    "mor_quantize", "quantize_for_gemm", "partition_of",
+    "mor_quantize", "quantize_for_gemm", "partition_of", "quant_dequant",
+    "quant_dequant_with_scales",
 ]
 
 STATS_WIDTH = 14
@@ -75,6 +77,24 @@ def partition_of(policy: MoRPolicy) -> Partition:
     align = (2, 16) if policy.recipe == "sub4" else (1, 1)
     return Partition(kind=policy.partition, block_shape=policy.block_shape,
                      sub=policy.sub, align=align)
+
+
+def quant_dequant_with_scales(x2d: torch.Tensor, part: Partition,
+                              fmt: FormatSpec,
+                              scales: GamScales) -> torch.Tensor:
+    """Fake-quantize with precomputed per-block scales. Returns f32 (M,
+    K)."""
+    xb = to_blocks(x2d.to(torch.float32), part)
+    s = scales.scale[:, :, None, None]
+    xq = true_divide(cast_to_format(xb * s, fmt), s)
+    return from_blocks(xq, tuple(x2d.shape))
+
+
+def quant_dequant(x2d: torch.Tensor, part: Partition, fmt: FormatSpec,
+                  algo: str = "gam") -> Tuple[torch.Tensor, GamScales]:
+    """GAM-scale + fake-quantize. Returns (f32 (M, K), scales)."""
+    scales = compute_scales(x2d, part, fmt, algo=algo)
+    return quant_dequant_with_scales(x2d, part, fmt, scales), scales
 
 
 def _f32(v, device) -> torch.Tensor:

@@ -19,6 +19,7 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from repro_torch.core.device import ieee_f32_matmul
 from repro_torch.core.formats import (
     E2M1_AMAX,
     E4M3,
@@ -38,6 +39,7 @@ from repro_torch.core.partition import Partition, _pad2d, from_blocks, to_blocks
 
 __all__ = [
     "TAG_E4M3", "TAG_E5M2", "TAG_BF16", "TAG_NVFP4", "MorSelect",
+    "expand_micro_onehot",
     "QuantErr", "MixedOperand", "nvfp4_block_capable", "pack_mixed",
     "passthrough_mixed", "activation_row_block", "decode_mixed_ref",
     "mixed_gemm_ref", "mor_select_ref", "quantize_pack_ref",
@@ -57,6 +59,23 @@ def nvfp4_block_capable(block: Tuple[int, int]) -> bool:
     (micro scales group NVFP4_MICRO contraction elements)."""
     br, bk = block
     return br % 2 == 0 and bk % NVFP4_MICRO == 0
+
+
+def expand_micro_onehot(d: torch.Tensor, bk: int, g0) -> torch.Tensor:
+    """(rows, G) per-micro-group row stripe -> (rows, bk) for the block
+    whose first group index is ``g0``, through an f32 matmul with a
+    one-hot (G, bk) matrix: each output sums its one group value and
+    zeros, so for finite values it equals a repeat bit for bit (a
+    nonfinite value spreads over its row, as in the reference's
+    ``dot_general``). Run in full f32 whatever the caller's TF32
+    setting."""
+    G = d.shape[-1]
+    r = torch.arange(G, device=d.device)[:, None]
+    c = torch.arange(bk, device=d.device)[None, :]
+    onehot = (g0 + torch.div(c, NVFP4_MICRO, rounding_mode="floor")
+              == r).to(torch.float32)
+    with ieee_f32_matmul():
+        return d.to(torch.float32) @ onehot
 
 
 def _nib_compact_shape(block: Tuple[int, int]) -> Tuple[int, int]:

@@ -146,6 +146,57 @@ def _train_layer(p_l, x, tok_l, policy, cfg):
     return x, st
 
 
+class HeadMatmul(torch.autograd.Function):
+    """logits = x @ head with an f32 result: the reference's ``einsum(...,
+    preferred_element_type=f32)`` of the unquantized head.
+
+    Forward: on CUDA with bf16 operands, one bf16 tensor-core GEMM with
+    an f32 output (``aten::mm.dtype``; each product of two bf16 values is
+    exact in f32, so only the f32 summation order differs from an f32
+    GEMM); otherwise (the CPU, which registers no ``mm.dtype`` kernel, or
+    other dtypes) the f32 product of the operands cast to f32. Backward:
+    the f32 GEMMs autograd runs through ``x.to(f32) @ head.to(f32)``
+    (``dlogits`` is f32), cast back to the operands' dtypes; only the bf16
+    operands are saved."""
+
+    @staticmethod
+    def forward(ctx, x, head):
+        ctx.save_for_backward(x, head)
+        x2 = x.reshape(-1, x.shape[-1])
+        if x.is_cuda and x.dtype == head.dtype == torch.bfloat16:
+            flags = torch.backends.cuda.matmul
+            user = flags.allow_bf16_reduced_precision_reduction
+            flags.allow_bf16_reduced_precision_reduction = False
+            try:
+                y = torch.mm(x2, head, out_dtype=torch.float32)
+            finally:
+                flags.allow_bf16_reduced_precision_reduction = user
+        else:
+            with ieee_f32_matmul():
+                y = x2.to(torch.float32).mm(head.to(torch.float32))
+        return y.reshape(*x.shape[:-1], head.shape[1])
+
+    @staticmethod
+    def backward(ctx, g):
+        x, head = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1])
+        gx = gh = None
+        with ieee_f32_matmul():
+            hf = head.to(torch.float32)
+            if ctx.needs_input_grad[0]:
+                gx = g2.mm(hf.t()).reshape(x.shape).to(x.dtype)
+            if ctx.needs_input_grad[1]:
+                xf = x.reshape(-1, x.shape[-1]).to(torch.float32)
+                # mm's backward for its second operand: a column-major
+                # operand (a tied head, embed.T) gets a column-major grad.
+                if hf.stride(0) == 1 and hf.stride(1) == hf.shape[0]:
+                    gh = g2.t().mm(xf).t()
+                else:
+                    gh = xf.t().mm(g2)
+                gh = gh.to(head.dtype)
+        return gx, gh
+
+
 def forward(cfg: ArchConfig, policy: MoRDotPolicy, params, batch, *,
             mode: str = "decode", cache=None, cur_index=None, tokens=None,
             remat: bool = True):
@@ -203,8 +254,7 @@ def forward(cfg: ArchConfig, policy: MoRDotPolicy, params, batch, *,
             out_dtype=torch.float32, backend=policy.weight.backend,
         ).reshape(bsz, seq, head.shape[1])
     else:
-        with ieee_f32_matmul():
-            logits = x.to(torch.float32) @ head.to(torch.float32)
+        logits = HeadMatmul.apply(x, head)
     Vp = logits.shape[-1]
     col = torch.arange(Vp, device=logits.device)
     logits = torch.where(col < cfg.vocab, logits, -1e30)

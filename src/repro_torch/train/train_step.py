@@ -4,9 +4,9 @@ of ``repro.train.train_step``).
 
 Gradient compression (``optim.compress``), packed Adam moments
 (``optim.moments``) and the skip-step guard (``robust.guard``) are
-ported. The shard_map statistics axes (``mor_mesh_axes``) and the chaos
-harness's gradient faults (``grad_fault``) are not: asking for them
-raises. The step updates the optimizer state in place
+ported, and so is the chaos harness's gradient hook (``grad_fault``).
+The shard_map statistics axes (``mor_mesh_axes``) are not: asking for
+them raises. The step updates the optimizer state in place
 (``optim.adamw``).
 """
 from __future__ import annotations
@@ -140,12 +140,14 @@ def make_train_step(cfg: ArchConfig, policy: MoRDotPolicy,
     opt_state, metrics). ``batch`` holds 'tokens' and 'labels' (B, S)
     integer tensors on the parameters' device; the step leaves params
     and batch untouched, returns new parameters and updates the
-    optimizer state in place (``optim.adamw``). ``grad_fault`` (the chaos
-    harness's gradient hook) must be None."""
-    if grad_fault is not None:
-        raise NotImplementedError(
-            "grad_fault: the chaos harness is not ported yet "
-            "(repro.robust.faults)")
+    optimizer state in place (``optim.adamw``).
+
+    ``grad_fault``: an optional ``hook(grads, batch) -> grads`` applied
+    to the (accumulated) parameter gradients before compression and the
+    update -- the chaos harness's injection point
+    (``robust.faults.make_grad_fault`` builds hooks gated on a
+    ``batch['inject']`` flag, so one step function serves clean and
+    injected steps). It must be the identity on clean batches."""
     loss_fn = make_loss_fn(cfg, policy, remat=tcfg.remat,
                            aux_coef=tcfg.aux_coef)
 
@@ -189,6 +191,8 @@ def make_train_step(cfg: ArchConfig, policy: MoRDotPolicy,
                 g_acc
         else:
             total, aux, g_params, g_tokens = single_micro(params, batch)
+        if grad_fault is not None:
+            g_params = grad_fault(g_params, batch)
 
         grad_stats, new_ef = None, opt_state.ef
         if tcfg.compress_grads != "none":

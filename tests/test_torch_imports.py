@@ -33,7 +33,9 @@ def test_port_tree_is_present():
     for must in ("src/repro_torch/kernels/ops.py",
                  "src/repro_torch/serve/engine.py",
                  "src/repro_torch/train/train_step.py",
-                 "src/repro_torch/kernels/gam_quant.py", "chip_smoke.py"):
+                 "src/repro_torch/kernels/gam_quant.py",
+                 "src/repro_torch/checkpoint/ckpt.py",
+                 "src/repro_torch/robust/faults.py", "chip_smoke.py"):
         assert must in names
 
 
@@ -51,6 +53,7 @@ def test_import_leaves_jax_unloaded():
         "import repro_torch.serve, repro_torch.models, repro_torch.convert\n"
         "import repro_torch.kernels.ops, repro_torch.train, repro_torch.data\n"
         "import repro_torch.optim, repro_torch.core.stats\n"
+        "import repro_torch.checkpoint, repro_torch.robust.faults\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "print(bad)\n"

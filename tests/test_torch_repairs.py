@@ -517,31 +517,68 @@ def test_aux_coef_leaves_the_dense_loss_unchanged():
 
 
 @pytest.mark.parametrize("what,match", (
-    ("ckpt_every", "repro.checkpoint"), ("keep", "repro.checkpoint"),
-    ("mor_mesh_axes", "repro.core.collectives"),
-    ("grad_fault", "repro.robust.faults")))
+    ("mor_mesh_axes", "repro.core.collectives"),))
 def test_unported_parameters_raise_naming_their_item(what, match):
     """Away from the reference's defaults, the parameters of unported
     features raise NotImplementedError naming the reference module they
-    wait for; at the defaults they do nothing."""
-    from repro_torch.core.policy import paper_default
-    from repro_torch.train import Trainer, TrainConfig, TrainerConfig
-    from repro_torch.train.train_step import make_train_step
-    cfg = _tiny_cfg()
-    pol = paper_default("tensor")
+    wait for; at the defaults they do nothing. (``ckpt_every``, ``keep``
+    and ``grad_fault`` are ported: tests/test_torch_checkpoint.py and
+    tests/test_torch_faults.py.)"""
+    from repro_torch.train import TrainConfig
     with pytest.raises(NotImplementedError, match=match):
-        if what in ("ckpt_every", "keep"):
-            Trainer(cfg, pol, TrainConfig(),
-                    TrainerConfig(**{what: 7}), device="cpu")
-        elif what == "mor_mesh_axes":
-            TrainConfig(mor_mesh_axes=("data",))
-        else:
-            make_train_step(cfg, pol, TrainConfig(),
-                            grad_fault=lambda g, b: g)
-    if what in ("ckpt_every", "keep"):
-        Trainer(cfg, pol, TrainConfig(),
-                TrainerConfig(ckpt_every=50, keep=3), device="cpu")
-    elif what == "mor_mesh_axes":
-        TrainConfig(mor_mesh_axes=())
-    else:
-        make_train_step(cfg, pol, TrainConfig(), grad_fault=None)
+        TrainConfig(mor_mesh_axes=("data",))
+    TrainConfig(mor_mesh_axes=())
+
+
+def _head_inputs(device, tied, V=300, d=64):
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(2, 16, d, generator=g).to(torch.bfloat16).to(device)
+    e = (torch.randn(V, d, generator=g) if tied else
+         torch.randn(d, V, generator=g)).to(torch.bfloat16).to(device)
+    dlogits = torch.randn(2, 16, V, generator=g).to(device)
+    return x.requires_grad_(True), e.requires_grad_(True), dlogits
+
+
+def _head_today(x, e, tied, dlogits):
+    """The expression the head ran before HeadMatmul: the f32 product of
+    the operands cast to f32, and its autograd."""
+    from repro_torch.core.device import ieee_f32_matmul
+    head = e.T if tied else e
+    with ieee_f32_matmul():
+        y = x.to(torch.float32) @ head.to(torch.float32)
+        return (y.detach(),) + torch.autograd.grad(y, (x, e), dlogits)
+
+
+@pytest.mark.parametrize("tied", (False, True))
+def test_head_matmul_is_the_f32_product_on_cpu(tied):
+    """On the CPU (no mm.dtype kernel) the head's forward is the f32
+    product, and its backward (f32 GEMMs on the f32 dlogits, cast back)
+    is the old expression's bit for bit, for an untied head and a tied
+    one (embed.T, column-major)."""
+    from repro_torch.models.transformer import HeadMatmul
+    x, e, g = _head_inputs("cpu", tied)
+    y = HeadMatmul.apply(x, e.T if tied else e)
+    gx, ge = torch.autograd.grad(y, (x, e), g)
+    y0, gx0, ge0 = _head_today(x, e, tied, g)
+    assert y.dtype == torch.float32 and torch.equal(y, y0)
+    assert gx.dtype == torch.bfloat16 and ge.dtype == torch.bfloat16
+    assert torch.equal(gx, gx0) and torch.equal(ge, ge0)
+
+
+@pytest.mark.cuda
+def test_head_matmul_forward_on_card():
+    """On the card the forward is one bf16 tensor-core GEMM with an f32
+    result (exact products; only the f32 summation order differs: within
+    1e-5 sum |x||head|); the backward is the old expression's bit for
+    bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the tensor-core forward runs on "
+                    "the card only")
+    from repro_torch.models.transformer import HeadMatmul
+    x, e, g = _head_inputs("cuda", False, V=4096, d=1024)
+    y = HeadMatmul.apply(x, e)
+    gx, ge = torch.autograd.grad(y, (x, e), g)
+    y0, gx0, ge0 = _head_today(x, e, False, g)
+    tol = 1e-5 * (x.detach().double().abs() @ e.detach().double().abs())
+    assert bool(((y.double() - y0.double()).abs() <= tol).all())
+    assert torch.equal(gx, gx0) and torch.equal(ge, ge0)

@@ -167,7 +167,7 @@ def test_grad_accum_reports_the_same_stats(model):
         assert a == pytest.approx(b, rel=1e-5, abs=1e-6), (key, a, b)
 
 
-def test_trainer_runs_on_cpu():
+def test_trainer_runs_on_cpu(tmp_path):
     """A few Trainer steps on the CPU: finite losses, weights moving, the
     tracker fed with one enabled event per step."""
     cfg = reduced(get_config("llama3-8b"))
@@ -182,8 +182,11 @@ def test_trainer_runs_on_cpu():
     assert out["final_step"] == 3 and int(out["opt_state"].step) == 3
     assert tr.tracker.total_events == 3
     assert "global" in tr.tracker.hists
-    with pytest.raises(NotImplementedError, match="checkpoint"):
-        Trainer(cfg, paper_default("tensor"), TrainConfig(),
-                TrainerConfig(ckpt_dir="ckpt"), device="cpu")
+    # Checkpointing is ported (tests/test_torch_checkpoint.py): the config
+    # is accepted.
+    tr = Trainer(cfg, paper_default("tensor"), TrainConfig(),
+                 TrainerConfig(ckpt_dir=str(tmp_path / "ckpt"), ckpt_every=7,
+                               keep=2), device="cpu")
+    assert tr.ckpt is not None and tr.ckpt.keep == 2
     # Gradient compression is ported: the config is accepted.
     assert TrainConfig(compress_grads="fp8").compress_grads == "fp8"
