@@ -129,9 +129,38 @@
    expression, at llama3-8b's and nemotron3-8b's vocabularies, with both
    forwards timed.
 
-Prints JSON lines (the ``kernels``, ``engine``, ``train``,
-``train_state``, ``fault_tolerance`` and ``kernel_api`` lines among
-them) and ends with
+10. The generic routes' shared memory (``phase_generic_smem``): the
+   static shared bytes of each generic kernel as the card reports them
+   within the host's bound; each generic instance (pack, select bf16
+   and f32, ``gam_quant``; sub3 and sub4) at the gradient compression's
+   blocks at d 64 and at the 48 KB boundary ((128, 192) bf16, (128, 96)
+   f32), one row of blocks and a ragged operand, against its plain
+   version; one compressed-state step ('mor_ef', ``GuardPolicy()``) of
+   reduced nemotron3-8b (d 64) on the card, every f32 select launching.
+
+11. The serving tiers (``phase_serve_tiers``), llama3-8b at full width
+   and depth with sub3 QTensor weights quantized once: (a) the engine on
+   bf16, kv_fp8, kv_mor and kv_mor + kv_mor_cold=64 + kv_guard pools
+   (phase_engine's 8 requests and one of 300 + 32 tokens): every GEMM
+   on the stream path, bytes per token 131,072 / 67,584 / 68,096, pages
+   sealed and every sealed slab equal to the CPU's
+   ``recompress_kv_nvfp4`` of its hot lanes, step and chunk ms, tokens/s,
+   peak GB, the pool's census and the share of tokens equal to the bf16
+   run's; (b) layer 0's fp8 and MoR lanes written on the card equal to
+   ``quantize_kv`` / ``quantize_kv_mor`` on the CPU on the bf16 run's
+   rows, bit for bit; (c) ``make_prefill_fn`` on a 2048-token prompt
+   with all 4L + 1 GEMMs on the tc path, that prompt served through
+   ``_full_prefill`` into a kv_mor pool beside the chunked engine, and a
+   depth-2 512-token prefill three ways (kernel, plain, f64 GEMMs); (d)
+   the KV-page guard on a trashed page of a MoR and an fp8 pool (4
+   layers, 3 slots), beside clean runs: under fp8 the other slots'
+   tokens bit-identical; under MoR, whose quantize_kv_mor groups every
+   row of a decode step (as the reference's does), those sampled before
+   the catching step.
+
+Prints JSON lines (the ``kernels``, ``engine``, ``serve_tiers``,
+``train``, ``train_state``, ``fault_tolerance``, ``generic_smem`` and
+``kernel_api`` lines among them) and ends with
 ``{"ok": true, "device":
 ...}``. Exits non-zero on any failure, without a card, or without the
 rest of the repository beside it.
@@ -3146,6 +3175,749 @@ def phase_kernel_api(ops, Partition, cfg):
     return res, k_counts
 
 
+# Generic routes' shared memory (the repair): the static bytes the card
+# reports, each generic instance at the blocks of the gradient
+# compression at reduced widths and at the 48 KB boundary, then one
+# compressed-state step of reduced nemotron3-8b.
+SMEM_BLOCKS = (((4, 64), torch.float32), ((1, 64), torch.float32),
+               ((128, 96), torch.float32), ((128, 64), torch.float32),
+               ((128, 192), torch.bfloat16), ((128, 96), torch.bfloat16))
+
+
+def smem_operand(shape, dtype, seed):
+    """N(0, 1) rows with a moderate-range stripe (E5M2 blocks), an
+    all-zero row, and in f32 values that are not bf16-exact."""
+    rng = np.random.default_rng(seed)
+    m, k = shape
+    x = rng.standard_normal((m, k))
+    n3 = len(range(0, k, 3))
+    x[:, ::3] = np.sign(x[:, ::3]) * rng.uniform(1, 2, (m, n3)) * np.exp2(
+        rng.integers(-12, 4, (m, n3)))
+    if m > 2:
+        x[m // 2] = 0.0
+    if dtype == torch.float32:
+        x = x * (1 + rng.uniform(0, 2.0**-10, x.shape))
+    return torch.from_numpy(x.astype(np.float32)).to(dtype).cuda()
+
+
+def generic_static_smem(build):
+    """The generic kernels' static shared bytes as the card reports them
+    (cudaFuncGetAttributes), by instance."""
+    import ctypes
+    sel = build.load("mor_select").mor_select_generic_static_smem
+    sel.argtypes, sel.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    gq = build.load("gam_quant").gam_quant_generic_static_smem
+    gq.argtypes, gq.restype = [], ctypes.c_int
+    return {"pack": sel(0, 0), "select_bf16": sel(1, 0),
+            "select_f32": sel(1, 1), "gam_quant": gq()}
+
+
+def phase_generic_smem(ops, Partition, build, smi):
+    """The repair of the generic routes' shared-memory opt-in. (1) The
+    static shared bytes of every generic instance as the card reports
+    them are within the host's bound (``mor_select_smem_bytes`` /
+    ``gam_quant_smem_bytes``), which the wrappers' refusal uses. (2) Each generic instance (pack, select
+    bf16, select f32, gam_quant E4M3 and E5M2; sub3 and sub4) at the
+    gradient compression's blocks at d 64 -- (4, 64), (1, 64), (128, 96),
+    (128, 64) f32 -- and at the 48 KB boundary -- (128, 192) bf16,
+    (128, 96) f32 -- (and (128, 96) bf16), on one row of blocks and on a
+    ragged multi-block operand: every launch succeeds on the generic
+    route and matches its plain version (y, sel, payload lanes, tags,
+    scales, xq, block_exp and counts bit for bit; the selection's error
+    sums within rtol 1e-5, gam_quant's within 1e-6). (3) One
+    compressed-state step ('mor_ef', ``GuardPolicy()``, FP8_MOMENTS) of
+    reduced nemotron3-8b (d 64), the call that failed, with the counters
+    zeroed just before and read just after: every f32 select launch
+    succeeds (one per gradient leaf), no plain version runs. Returns
+    (result, launches, tile routes)."""
+    from repro_torch.core.formats import E4M3, E5M2
+    from repro_torch.kernels.gam_quant import (GENERIC_STATIC_SMEM as GQ_STATIC,
+                                               gam_quant_blocks,
+                                               gam_quant_smem_bytes)
+    from repro_torch.kernels.mor_select import (GENERIC_STATIC_SMEM,
+                                                mor_select_pack,
+                                                mor_select_route,
+                                                mor_select_select,
+                                                mor_select_smem_bytes)
+    t0 = time.perf_counter()
+    static = generic_static_smem(build)
+    want = {"pack": GENERIC_STATIC_SMEM, "select_bf16": GENERIC_STATIC_SMEM,
+            "select_f32": GENERIC_STATIC_SMEM, "gam_quant": GQ_STATIC}
+    emit({"generic_smem_static": static, "host_bound": want, "card": smi})
+    check(all(0 < static[k] <= want[k] for k in want),
+          f"static shared bytes {static} beyond the host's bound {want}")
+    rows = []
+    for block, dtype in SMEM_BLOCKS:
+        bm, bk = block
+        dt = str(dtype).split(".")[-1]
+        for shape in ((bm, 3 * bk), (2 * bm + 3, 2 * bk + 5)):
+            x = smem_operand(shape, dtype, seed=bm + bk + shape[0])
+            row = {"block": list(block), "dtype": dt, "shape": list(shape),
+                   "calls": []}
+            for mode in ("sub3", "sub4"):
+                if mode == "sub4" and (bm % 2 or bk % 16):
+                    continue
+                check(mor_select_route(block, mode, dtype) == "generic",
+                      f"{block} {mode} is not a generic block")
+                part = Partition("block", block, align=(
+                    (2, 16) if mode == "sub4" else (1, 1)))
+                what = f"select {dt} {block} {shape} {mode}"
+                before = mor_select_select.launches_by_route["generic"]
+                k = ops.mor_select(x, part, mode, backend="cuda")
+                t = ops.mor_select(x, part, mode, backend="torch")
+                torch.cuda.synchronize()
+                check(mor_select_select.launches_by_route["generic"]
+                      == before + 1, f"{what}: not on the generic route")
+                check(torch.equal(bits16(k.y), bits16(t.y))
+                      and torch.equal(k.sel, t.sel)
+                      and torch.equal(k.counts, t.counts),
+                      f"{what}: differs from the plain version")
+                for f in ("e4_sums", "e5_sums", "nv_sums"):
+                    a, b = getattr(k, f), getattr(t, f)
+                    check(a is None or torch.allclose(
+                        a, b, rtol=1e-5, atol=0.0, equal_nan=True),
+                        f"{what}: {f} beyond rtol 1e-5")
+                row["calls"].append(f"select_{mode}")
+                if dtype != torch.bfloat16:
+                    continue
+                what = f"pack {block} {shape} {mode}"
+                before = mor_select_pack.launches_by_route["generic"]
+                mo_k, r_k = ops.quantize_pack(x, part, mode, backend="cuda")
+                mo_t, r_t = ops.quantize_pack(x, part, mode, backend="torch")
+                torch.cuda.synchronize()
+                check(mor_select_pack.launches_by_route["generic"]
+                      == before + 1, f"{what}: not on the generic route")
+                assert_pack_equal(mo_k, mo_t, r_k, r_t, what)
+                row["calls"].append(f"pack_{mode}")
+            if dtype == torch.bfloat16:
+                for fmt in (E4M3, E5M2):
+                    what = f"gam_quant {block} {shape} {fmt.name}"
+                    before = gam_quant_blocks.launches_by_route["generic"]
+                    k = ops.gam_quant(x, block=block, fmt=fmt, backend="cuda")
+                    t = ops.gam_quant(x, block=block, fmt=fmt,
+                                      backend="torch")
+                    torch.cuda.synchronize()
+                    check(gam_quant_blocks.launches_by_route["generic"]
+                          == before + 1, f"{what}: not on the generic route")
+                    check_gam_quant(k, t, what)
+                    row["calls"].append(f"gam_quant_{fmt.name}")
+            row["smem_bytes"] = {
+                "select": sum(mor_select_smem_bytes(block, "sub3", dtype)),
+                "gam_quant": sum(gam_quant_smem_bytes(block))}
+            rows.append(row)
+    emit({"generic_smem_parity": rows, "card": smi})
+    step = reduced_state_step()
+    res = {"static_smem": static, "parity_cases": len(rows),
+           "reduced_step": step[0], "phase_s": time.perf_counter() - t0,
+           "card": smi}
+    emit({"generic_smem": res})
+    return res, step[1], step[2]
+
+
+def reduced_state_step():
+    """One step of reduced nemotron3-8b (d 64, 2 layers) with the
+    compressed state (FP8_MOMENTS, 'mor_ef', ``GuardPolicy()``; paper
+    sub3 GEMMs; 2 x 64 tokens) with the counters zeroed just before and
+    read just after. Returns (result, launches, tile routes)."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.policy import paper_default
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.kernels.mor_select import mor_select_select
+    from repro_torch.models import init_params
+    from repro_torch.optim import FP8_MOMENTS, AdamWConfig, init_opt_state
+    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.robust import GuardPolicy
+    from repro_torch.train import TrainConfig, make_train_step
+    cfg = reduced(get_config("nemotron3-8b"))
+    params = init_params(cfg, seed=0, device="cuda")
+    n_leaves = len(tree_leaves(params))
+    opt = init_opt_state(params, moments=FP8_MOMENTS, ef=True)
+    step_fn = make_train_step(cfg, paper_default("sub3"), TrainConfig(
+        optimizer=AdamWConfig(warmup_steps=1), moments=FP8_MOMENTS,
+        compress_grads="mor_ef", guard=GuardPolicy()))
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=64,
+                                  global_batch=2, seed=1234))
+    batch = {k: torch.from_numpy(v.astype(np.int64)).cuda()
+             for k, v in data.batch_at(0).items()}
+    torch.cuda.synchronize()
+    reset_counters()
+    params, opt, m = step_fn(params, opt, batch)
+    torch.cuda.synchronize()
+    launches, plain = read_counters()
+    by_dtype = dict(mor_select_select.launches_by_dtype)
+    routes = tile_routes()
+    res = {"arch": cfg.name, "d_model": cfg.d_model, "layers": cfg.n_units,
+           "loss": float(m["loss"]), "guard_skip": float(m.get(
+               "guard_skip", 0.0)), "n_leaves": n_leaves,
+           "select_launches_by_dtype": by_dtype, "tile_routes": routes,
+           "launches": launches, "plain_calls": plain}
+    check(np.isfinite(res["loss"]) and res["guard_skip"] == 0.0
+          and by_dtype["float32"] == n_leaves and not any(plain.values()),
+          f"reduced nemotron3-8b compressed step: {res}")
+    return res, launches, routes
+
+
+# The serving tiers (phase_serve_tiers): llama3-8b, sub3 QTensor weights.
+SERVE_TIERS = {"bf16": {}, "kv_fp8": {"kv_fp8": True},
+               "kv_mor": {"kv_mor": True},
+               "kv_mor_cold": {"kv_mor": True, "kv_mor_cold": 64,
+                               "kv_guard": True}}
+SERVE_LENGTHS = (5, 7, 19, 33, 48, 64, 77, 100)  # phase_engine's requests
+PREFILL_LEN, PREFILL_DEPTH2_LEN = 2048, 512
+
+
+def serve_requests(vocab):
+    """phase_engine's 8 requests (16 tokens, request 3 sampled) and one
+    of 300 prompt tokens and 32 new ones, whose pages go cold."""
+    rng = np.random.default_rng(0)
+    from repro_torch.serve import Request
+    reqs = []
+    for i, L in enumerate(SERVE_LENGTHS):
+        kw = dict(temperature=0.8, top_k=40, seed=1) if i == 3 else {}
+        reqs.append(Request(i, rng.integers(0, vocab, L).astype(np.int32),
+                            max_tokens=16, **kw))
+    reqs.append(Request(len(reqs), rng.integers(0, vocab, 300).astype(
+        np.int32), max_tokens=32))
+    return reqs
+
+
+class Totals:
+    """Launch counts, tile routes and GEMM paths summed over the parts of
+    a phase: each part zeroes the counters just before it runs and adds
+    them just after (``add_current``), which also fails if a plain
+    version ran."""
+
+    def __init__(self):
+        self.launches, self.routes, self.paths = None, None, None
+
+    def add_current(self, what):
+        launches, plain = read_counters()
+        check(not any(plain.values()),
+              f"{what}: plain versions ran on the main path: {plain}")
+        routes, paths = tile_routes(), gemm_paths()
+        if self.launches is None:
+            self.launches = dict(launches)
+            self.routes = {k: dict(v) for k, v in routes.items()}
+            self.paths = dict(paths)
+        else:
+            for k in self.launches:
+                self.launches[k] += launches[k]
+            for k, by in routes.items():
+                for r in by:
+                    self.routes[k][r] += by[r]
+            for k in self.paths:
+                self.paths[k] += paths[k]
+        return launches, paths
+
+
+def raw(t):
+    """An integer view of a lane for bit-for-bit comparison."""
+    if t.dtype in (torch.float8_e4m3fn, torch.float8_e5m2):
+        return t.view(torch.uint8)
+    return bits16(t)
+
+
+def serve_tier_run(cfg, qparams, name, tier, smi, totals, ref_out=None):
+    """(a) One engine run of the 9 requests on the tier's pool: step and
+    chunk ms (medians), tokens/s, peak GB, the census of the MoR pool at
+    every step, the pages sealed, and every sealing's slab held against
+    ``recompress_kv_nvfp4`` on the CPU bit for bit. Returns (row, the
+    requests' tokens)."""
+    from repro_torch.core.policy import MoRDotPolicy
+    from repro_torch.models.attention import recompress_kv_nvfp4
+    from repro_torch.serve import Engine, ServeConfig
+    reqs = serve_requests(cfg.vocab)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    eng = Engine(cfg, MoRDotPolicy(), qparams,
+                 ServeConfig(slots=4, max_seq=512, prefill_chunk=32, **tier),
+                 device="cuda")
+    step_ms = {"decode": [], "prefill": []}
+
+    def timed(fn, key):
+        def wrapper(*a):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a)
+            torch.cuda.synchronize()
+            step_ms[key].append((time.perf_counter() - t) * 1e3)
+            return out
+        return wrapper
+
+    eng._decode_batch = timed(eng._decode_batch, "decode")
+    eng._prefill_chunk_step = timed(eng._prefill_chunk_step, "prefill")
+    seals = []
+    if tier.get("kv_mor_cold"):
+        pool, recompress = eng.pool, eng.pool.recompress_pages
+
+        def recompress_checked(pages):
+            idx = torch.as_tensor([p for p in pages if p != pool.trash],
+                                  device="cuda")
+            hot = [tuple(t[:, idx].cpu() for t in g)
+                   for g in pool._kv_lane_groups()]
+            n = recompress(pages)
+            for (p, tg, sc), g in zip(hot, pool._kv_lane_groups()):
+                want = recompress_kv_nvfp4(p, tg, sc)
+                got = tuple(t[:, idx].cpu() for t in g)
+                check(all(torch.equal(raw(a), raw(b))
+                          for a, b in zip(got, want)),
+                      f"{name}: sealed pages {pages} differ from the CPU's "
+                      "recompress_kv_nvfp4 of their hot lanes")
+            seals.append(n)
+            return n
+
+        pool.recompress_pages = recompress_checked
+    for r in reqs:
+        eng.submit(r)
+    census, census_s, steps = [], 0.0, 0
+    t0 = time.perf_counter()
+    while eng.step():
+        steps += 1
+        if tier.get("kv_mor"):
+            t = time.perf_counter()
+            census.append(eng.kv_cache_stats())
+            census_s += time.perf_counter() - t
+        check(steps < 1000, f"{name}: the engine did not drain")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0 - census_s
+    launches, paths = totals.add_current(name)
+    for r in reqs:
+        check(r.done and r.error is None, f"{name} request {r.rid}: "
+              f"{r.error}")
+        check(len(r.out) == r.max_tokens
+              and all(0 <= t < cfg.vocab for t in r.out),
+              f"{name} request {r.rid}: tokens {r.out}")
+    calls = eng.prefill_chunks + eng.decode_steps
+    L = cfg.n_units
+    check(launches["mixed_gemm"] == (4 * L + 1) * calls
+          and paths["stream"] == launches["mixed_gemm"],
+          f"{name}: mixed_gemm {launches['mixed_gemm']} launches, paths "
+          f"{paths}, {calls} model calls")
+    bpt = eng.pool.bytes_per_token()
+    hkv, dh = cfg.n_kv, cfg.head_dim
+    want_bpt = 2 * L * {"bf16": hkv * dh * 2, "kv_fp8": hkv * dh + 4 * hkv}.get(
+        name, hkv * dh + hkv + 4 * hkv)
+    check(bpt == want_bpt, f"{name}: bytes_per_token {bpt} != {want_bpt}")
+    if L == N_LAYERS:
+        check(bpt == {"bf16": 131072, "kv_fp8": 67584}.get(name, 68096),
+              f"{name}: bytes_per_token {bpt}")
+    tokens = sum(len(r.out) for r in reqs)
+    row = {"tier": name, **{k: v for k, v in tier.items()},
+           "requests": len(reqs), "steps": steps,
+           "prefill_chunks": eng.prefill_chunks,
+           "decode_steps": eng.decode_steps,
+           "decode_step_ms": float(np.median(step_ms["decode"])),
+           "prefill_chunk_ms": float(np.median(step_ms["prefill"])),
+           "wall_s": wall, "tokens": tokens, "tokens_per_s": tokens / wall,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "bytes_per_token": bpt, "launches": launches,
+           "mixed_gemm_paths": paths, "card": smi}
+    if census:
+        # The pool's census (models.attention.kv_stats_row semantics) at
+        # the step with the most written rows and at the step with the
+        # largest NVFP4 share.
+        for key, stat in (("at_most_written", "written"),
+                          ("at_max_nvfp4", "frac_nvfp4")):
+            at = max(census, key=lambda c: c.get(stat, 0))
+            row[f"kv_cache_stats_{key}"] = {
+                k: (v.tolist() if k == "stats_row" else v)
+                for k, v in at.items()}
+        row["kv_cache_stats_max_frac_nvfp4"] = max(
+            c.get("frac_nvfp4", 0.0) for c in census)
+        row["census_steps"], row["census_s"] = len(census), census_s
+    if tier.get("kv_mor_cold"):
+        row["pages_sealed"] = sum(seals)
+        row["sealing_calls"] = len(seals)
+        check(row["kv_cache_stats_max_frac_nvfp4"] > 0 and sum(seals) > 0
+              and not eng._sealed, f"{name}: no page went cold: {row}")
+    row["profile"] = profile_decode(eng)
+    row["aten_ops_per_decode_call"] = dispatched_ops(eng)
+    out = [list(r.out) for r in reqs]
+    if ref_out is not None:
+        same = sum(a == b for x, y in zip(out, ref_out) for a, b in zip(x, y))
+        row["tokens_equal_to_bf16"] = same / tokens
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return row, out
+
+
+def dispatched_ops(eng):
+    """ATen operators dispatched by one decode-shaped model call (all
+    slots on the trash page, as profile_decode's calls): what the host
+    pays per step, beside the kernels' device time."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    slots = eng.scfg.slots
+    bt = torch.full((slots, eng.pool.pages_per_seq), eng.pool.trash,
+                    dtype=torch.int64, device=eng.device)
+    with Count():
+        eng._step_fn(bt, np.zeros((slots, 1), np.int32),
+                     np.zeros(slots, np.int32))
+    torch.cuda.synchronize()
+    return Count.n
+
+
+def layer0_rows(cfg, qparams, tier, totals, P=100):
+    """(b) A one-request engine of the tier run chunk by chunk until the
+    P-token prompt is prefilled (and no decode step has written the
+    chunks' padding); the slot's layer-0 lanes at its first ceil(P / 32)
+    * 32 positions, on the host: {lane: tensor}."""
+    from repro_torch.core.policy import MoRDotPolicy
+    from repro_torch.serve import Engine, Request, ServeConfig
+    reset_counters()
+    eng = Engine(cfg, MoRDotPolicy(), qparams,
+                 ServeConfig(slots=4, max_seq=512, prefill_chunk=32, **tier),
+                 device="cuda")
+    req = Request(0, serve_requests(cfg.vocab)[7].prompt, max_tokens=4)
+    check(len(req.prompt) == P, f"layer-0 lanes: a {len(req.prompt)}-token "
+          "prompt")
+    eng.submit(req)
+    eng._admit()
+    while eng.slot_state[0] == "prefill":
+        eng._prefill_chunk_step(0, req)
+    n = -(-P // 32) * 32
+    pages = eng.pool.block_table[0][:eng.pool.pages_for(n)]
+    idx = torch.as_tensor(pages, dtype=torch.int64, device="cuda")
+    out = {}
+    for key, leaf in eng.pool._by_key():
+        lane = leaf[0, idx]  # (pages, page_size, ...)
+        out[key.split("/")[-1]] = lane.reshape(-1, *lane.shape[2:])[:n].cpu()
+    totals.add_current("layer-0 lanes")
+    del eng
+    return out
+
+
+def lanes_vs_cpu(cfg, qparams, smi, totals):
+    """(b) Layer 0's K/V rows depend only on the prompt, so they are the
+    same in every tier's run; each chunk of 32 rows is quantized as one
+    call (one GAM group) by the decode path. The fp8 and MoR lanes the
+    card wrote must equal, bit for bit, ``quantize_kv`` /
+    ``quantize_kv_mor`` run on the CPU on the bf16 run's rows, chunk by
+    chunk."""
+    from repro_torch.models.attention import quantize_kv, quantize_kv_mor
+    rows = {name: layer0_rows(cfg, qparams, tier, totals)
+            for name, tier in SERVE_TIERS.items()}
+    bf = rows["bf16"]
+    n = bf["k"].shape[0]
+    res = {"positions": n, "card": smi}
+    for name in ("kv_fp8", "kv_mor", "kv_mor_cold"):
+        got = rows[name]
+        for lane in ("k", "v"):
+            chunks = [bf[lane][c:c + 32][None] for c in range(0, n, 32)]
+            if name == "kv_fp8":
+                want = [quantize_kv(x) for x in chunks]
+                names = ("", "_scale")
+            else:
+                want = [quantize_kv_mor(x) for x in chunks]
+                names = ("", "_tags", "_scale")
+            for i, suffix in enumerate(names):
+                w = torch.cat([q[i][0] for q in want])
+                g = got[lane + suffix]
+                same = g.dtype == w.dtype and torch.equal(raw(w), raw(g))
+                res[f"{name}/{lane}{suffix}"] = same
+                check(same, f"layer-0 lane {lane}{suffix} of {name} differs "
+                      "from the CPU's quantizer on the bf16 run's rows")
+    emit({"serve_tiers_lanes": res})
+    return res
+
+
+def prefill_full(cfg, qparams, smi, totals):
+    """(c) make_prefill_fn on one 2048-token prompt at full depth: all
+    4L + 1 GEMMs on the tc path, the emitted cache (L, 1, 2048, 8, 128)
+    bf16; its ms and tokens/s. Then that prompt served by a kv_mor engine
+    through _full_prefill (splice) and by a chunked one (max_seq 4096),
+    16 tokens each: the first sampled token's logits row of each, and
+    their largest difference."""
+    from repro_torch.core.policy import MoRDotPolicy
+    from repro_torch.models import make_prefill_fn
+    from repro_torch.serve import Engine, Request, ServeConfig
+    L = cfg.n_units
+    prompt = np.random.default_rng(2).integers(0, cfg.vocab, PREFILL_LEN)
+    batch = {"tokens": torch.from_numpy(prompt[None]).cuda()}
+    fn = make_prefill_fn(cfg, MoRDotPolicy())
+    fn(qparams, batch)  # warm-up
+    torch.cuda.synchronize()
+    reset_counters()
+    t = time.perf_counter()
+    logits, cache, _ = fn(qparams, batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    launches, paths = totals.add_current("prefill")
+    shape = tuple(cache["dense"]["k"].shape)
+    res = {"prompt": PREFILL_LEN, "prefill_ms": ms,
+           "tokens_per_s": PREFILL_LEN / ms * 1e3, "gemm_paths": paths,
+           "cache_shape": list(shape), "cache_dtype": str(
+               cache["dense"]["k"].dtype), "logits_shape": list(
+               logits.shape), "card": smi}
+    check(launches["mixed_gemm"] == 4 * L + 1 and paths["tc"] == 4 * L + 1,
+          f"prefill GEMMs: {res}")
+    check(shape == (L, 1, PREFILL_LEN, cfg.n_kv, cfg.head_dim)
+          and cache["dense"]["k"].dtype == torch.bfloat16
+          and bool(torch.isfinite(logits[..., :cfg.vocab]).all()),
+          f"prefill cache / logits: {res}")
+    del logits, cache
+    rows = {}
+    for how in ("full_prefill", "chunked"):
+        reset_counters()
+        eng = Engine(cfg, MoRDotPolicy(), qparams, ServeConfig(
+            slots=1, max_seq=4096, prefill_chunk=32, kv_mor=True),
+            device="cuda")
+        eng.chunked_prefill = how == "chunked"
+        seen = []
+        start = eng._start_decode
+
+        def record(slot, req, P, row, start=start):
+            seen.append(row.copy())
+            return start(slot, req, P, row)
+
+        eng._start_decode = record
+        r = Request(0, prompt.astype(np.int32), max_tokens=17)
+        eng.submit(r)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        eng.run_to_completion()
+        torch.cuda.synchronize()
+        totals.add_current(how)
+        check(r.done and r.error is None and len(r.out) == 17,
+              f"{how}: {r.error}")
+        rows[how] = {"wall_s": time.perf_counter() - t,
+                     "prefill_chunks": eng.prefill_chunks,
+                     "decode_steps": eng.decode_steps, "tokens": r.out}
+        rows[how]["logits"] = seen[0][:cfg.vocab]
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+    d = np.abs(rows["full_prefill"].pop("logits")
+               - rows["chunked"].pop("logits"))
+    res.update({"engines": rows, "first_logits_max_diff": float(d.max()),
+                "first_token_equal": rows["full_prefill"]["tokens"][0]
+                == rows["chunked"]["tokens"][0]})
+    emit({"serve_tiers_prefill": res})
+    return res
+
+
+def prefill_depth2(cfg, ops, ref, qparams_fn, smi):
+    """(c) At depth 2, full width: a 512-token prompt's prefill logits and
+    emitted cache three ways (kernel path, plain path, GEMMs summed in
+    f64), every kernel GEMM held against the plain version on its real
+    inputs; the kernel path is run twice and must repeat bit for bit and
+    may be at most twice as far from the f64 path as the plain path."""
+    from repro_torch.core.policy import MoRDotPolicy, MoRPolicy
+    from repro_torch.models import make_prefill_fn
+    c2 = dataclasses.replace(cfg, n_layers=2)
+    params = qparams_fn(c2)
+    toks = np.random.default_rng(3).integers(0, cfg.vocab,
+                                             (1, PREFILL_DEPTH2_LEN))
+    batch = {"tokens": torch.from_numpy(toks).cuda()}
+
+    def run(backend):
+        fn = make_prefill_fn(c2, MoRDotPolicy(
+            weight=MoRPolicy(backend=backend)))
+        logits, cache, _ = fn(params, batch)
+        return (logits[..., :cfg.vocab], cache["dense"]["k"].float(),
+                cache["dense"]["v"].float())
+
+    def f64_dot(x2, mo, *, out_dtype=torch.bfloat16, backend="auto"):
+        w = ref.decode_mixed_ref(mo)[:mo.shape[0], :x2.shape[1]]
+        return (x2.double() @ w.double().T).float().to(out_dtype)
+
+    gemms = {}
+    with patched(ops, "mixed_dot", checked_dot(ops, ref, gemms)):
+        kern = run("auto")
+    check(all(k[0] == PREFILL_DEPTH2_LEN for k in gemms) and len(gemms) == 5,
+          f"depth-2 prefill GEMM shapes {sorted(gemms)}")
+    again = run("auto")
+    plain = run("torch")
+    with patched(ops, "mixed_dot", f64_dot):
+        f64 = run("auto")
+    res = {"prompt": PREFILL_DEPTH2_LEN,
+           "gemms": [{"M": k[0], "N": k[1], "K": k[2], "out": k[3], **v}
+                     for k, v in sorted(gemms.items())], "card": smi}
+    for i, what in enumerate(("logits", "k", "v")):
+        check(torch.equal(kern[i], again[i]),
+              f"depth-2 prefill {what}: the kernel path does not repeat")
+        r = res[what] = {
+            "max_abs": float(plain[i].abs().max()),
+            "kernel_vs_plain": float((kern[i] - plain[i]).abs().max()),
+            "kernel_vs_f64": float((kern[i] - f64[i]).abs().max()),
+            "plain_vs_f64": float((plain[i] - f64[i]).abs().max())}
+        check(r["kernel_vs_f64"] <= 2.0 * r["plain_vs_f64"],
+              f"depth-2 prefill {what}: kernel path {r['kernel_vs_f64']} "
+              f"from the f64 path, plain path {r['plain_vs_f64']}")
+    emit({"serve_tiers_prefill_depth2": res})
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def guard_trash(qparams_fn, smi, totals):
+    """(d) ft_kv_trash's setup (llama3-8b, STATE_LAYERS layers, 3 slots,
+    prompts of 3, 17 and 9 tokens, 16 new) with the KV-page guard, the
+    victim's first page trashed after 5 steps, on the MoR tier and on the
+    fp8 tier, each beside a clean run of its tier. The victim's error
+    names the guard and the first float lane in key order
+    (``'dense/k_scale'`` under MoR, ``'dense/k'`` under fp8). Under fp8
+    (per-row scales) the other requests' tokens are bit-identical to the
+    clean run. Under MoR every quantize_kv_mor call is one GAM group over
+    all the batch's rows, as in the reference, so the victim's NaN row in
+    the step that catches it (and its empty slot after) moves the other
+    rows' scales: their tokens sampled before that step must equal the
+    clean run's, and the step must show a nonfinite row in a group; the
+    rest is reported."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import MoRDotPolicy
+    from repro_torch.models import blocks
+    from repro_torch.robust import get_fault
+    from repro_torch.serve import Engine, Request, ServeConfig
+    cfg = dataclasses.replace(get_config("llama3-8b"), n_layers=STATE_LAYERS)
+    params = qparams_fn(cfg)
+    nonfinite_groups = []
+    quantize = blocks.quantize_kv_mor
+
+    def watched(x, with_stats=False):
+        nonfinite_groups.append(not bool(torch.isfinite(x).all()))
+        return quantize(x, with_stats)
+
+    def serve(tier, inject):
+        reset_counters()
+        eng = Engine(cfg, MoRDotPolicy(), params, ServeConfig(
+            slots=3, max_seq=512, prefill_chunk=32, kv_guard=inject,
+            **tier), device="cuda")
+        rng = np.random.default_rng(11)
+        reqs = [Request(i, rng.integers(0, cfg.vocab, L).astype(np.int32),
+                        max_tokens=16) for i, L in enumerate((3, 17, 9))]
+        for r in reqs:
+            eng.submit(r)
+        before = None
+        if inject:
+            for _ in range(5):
+                eng.step()
+            check(eng.slot_state[0] == "decode",
+                  f"the victim is {eng.slot_state[0]}, not decoding")
+            before = [len(r.out) for r in reqs]
+            get_fault("kv_page_trash").inject(eng.pool, eng.pool._owned[0][0])
+            nonfinite_groups.clear()
+            with patched(blocks, "quantize_kv_mor", watched):
+                eng.step()  # the step that catches the victim
+        eng.run_to_completion()
+        totals.add_current("kv guard")
+        return reqs, eng, before
+
+    res = {"card": smi}
+    for name, tier, lane in (("kv_mor", {"kv_mor": True}, "dense/k_scale"),
+                             ("kv_fp8", {"kv_fp8": True}, "dense/k")):
+        clean, _, _ = serve(tier, False)
+        inj, eng, before = serve(tier, True)
+        v = inj[0]
+        same = [a.out == b.out for a, b in zip(inj[1:], clean[1:])]
+        prefix = [a.out[:n] == b.out[:n] for a, b, n in
+                  zip(inj[1:], clean[1:], before[1:])]
+        first_diff = [next((i for i, (x, y) in enumerate(zip(a.out, b.out))
+                            if x != y), None)
+                      for a, b in zip(inj[1:], clean[1:])]
+        row = res[name] = {
+            "victim_error": v.error, "victim_tokens": len(v.out),
+            "others_identical": all(same),
+            "others_tokens_before_catch": before[1:],
+            "others_first_differing_token": first_diff,
+            "quarantined": [r.rid for r in eng.quarantined],
+            "pages_free_after": eng.pool.free_pages(),
+            "catching_step_nonfinite_groups": sum(nonfinite_groups)}
+        check(all(r.error is None for r in clean + inj[1:])
+              and v.error is not None
+              and v.error.startswith("quarantined: KV-page guard")
+              and repr(lane) in v.error and row["quarantined"] == [0]
+              and row["pages_free_after"] == eng.pool.n_pages
+              and all(prefix), f"kv guard {name}: {row}")
+        if name == "kv_fp8":
+            check(all(same), f"kv guard {name}: other slots' tokens "
+                  f"differ from the clean run: {row}")
+        else:
+            check(row["catching_step_nonfinite_groups"] > 0,
+                  f"kv guard {name}: no nonfinite row reached a "
+                  f"quantize_kv_mor group in the catching step: {row}")
+        del eng
+    emit({"serve_tiers_kv_guard": res})
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_serve_tiers(cfg, ops, ref, smi, n_layers=N_LAYERS):
+    """The serving tiers on llama3-8b at full width and ``n_layers`` with
+    sub3 QTensor weights quantized once (the engines take the tree with
+    ``quantize=None``): (a) four engine runs (bf16, kv_fp8, kv_mor,
+    kv_mor + kv_mor_cold=64 + kv_guard) of the 9 requests; (b) the
+    layer-0 lanes against the CPU quantizers; (c) a 2048-token
+    make_prefill_fn on the tc path, _full_prefill against chunked prefill
+    on a kv_mor pool, and the depth-2 three-way prefill; (d) the KV-page
+    guard. The counters are zeroed just before each main-path part and
+    read just after (the depth-2 comparison's calls are not counted).
+    Returns (result, Totals of the parts)."""
+    from repro_torch.core.policy import MoRPolicy
+    from repro_torch.models import init_params
+    from repro_torch.serve.quantized import param_bytes, quantize_params
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    totals = Totals()
+
+    def qparams_fn(c):
+        params = init_params(c, seed=0, device="cuda")
+        q, _ = quantize_params(params, MoRPolicy(recipe="sub3"))
+        return q
+
+    reset_counters()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    qparams = qparams_fn(cfg)
+    torch.cuda.synchronize()
+    res = {"arch": cfg.name, "layers": cfg.n_units,
+           "quantize_s": time.perf_counter() - t,
+           "weight_bytes": param_bytes(qparams), "card": smi}
+    k, _ = totals.add_current("weight quantization")
+    check(k["mor_select_pack"] == 4 * cfg.n_units + 1,
+          f"weight packs: {k['mor_select_pack']}")
+    runs, ref_out = {}, None
+    for name, tier in SERVE_TIERS.items():
+        row, out = serve_tier_run(cfg, qparams, name, tier, smi, totals,
+                                  ref_out)
+        emit({"serve_tiers_run": row})
+        runs[name] = {k2: v for k2, v in row.items() if k2 not in (
+            "launches", "card")}
+        if name == "bf16":
+            ref_out = out
+    res["runs"] = runs
+    res["lanes"] = lanes_vs_cpu(cfg, qparams, smi, totals)
+    pre = prefill_full(cfg, qparams, smi, totals)
+    res["prefill"] = {k: v for k, v in pre.items() if k != "card"}
+    del qparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["prefill_depth2"] = prefill_depth2(cfg, ops, ref, qparams_fn, smi)
+    res["kv_guard"] = guard_trash(qparams_fn, smi, totals)
+    for kern in ("mor_select_pack", "mixed_gemm"):
+        check(totals.launches[kern] > 0,
+              f"serve tiers: {kern} launched no time on its path")
+    check(totals.paths["tc"] >= 4 * cfg.n_units + 1,
+          f"serve tiers: the tc path {totals.paths}")
+    res["launches"] = totals.launches
+    res["gemm_paths"] = totals.paths
+    res["phase_s"] = time.perf_counter() - t0
+    return res, totals
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3182,6 +3954,10 @@ def main():
     sel_err = phase_mor_select(ops, Partition)
     gemm_parity = phase_mixed_gemm(ops, ref, Partition)
     quant_parity = phase_quant_select(ops, Partition)
+    gc.collect()
+    torch.cuda.empty_cache()
+    generic, generic_launches, generic_routes = phase_generic_smem(
+        ops, Partition, build, smi)
     cfg = get_config("llama3-8b")
     api_parity = phase_kernel_api_parity(ops, Partition, cfg)
     t0 = time.perf_counter()
@@ -3193,6 +3969,10 @@ def main():
     timing.update(api)
     engine, launches, engine_paths, engine_routes = phase_engine(cfg,
                                                                  N_LAYERS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_tiers, serve_totals = phase_serve_tiers(cfg, ops, ref, smi)
+    emit({"serve_tiers": serve_tiers})
     depth2 = phase_depth2(cfg, ops, ref)
     serve_grad = phase_serve_grad()
     train, train_launches, train_paths, train_routes = phase_train(cfg)
@@ -3225,8 +4005,10 @@ def main():
     ):
         t = timing[name]
         by_path = {"engine": launches.get(name, 0),
+                   "serve_tiers": serve_totals.launches[name],
                    "train": train_launches[name],
                    "train_state": state_launches[name],
+                   "generic_smem": generic_launches[name],
                    "kernel_api": api_launches[name],
                    "fault_tolerance": ft_launches[name]}
         check(sum(by_path.values()) > 0,
@@ -3244,8 +4026,9 @@ def main():
             # ms / bound_ms above: the stream path at the decode shape;
             # train_shapes: the tc path.
             entry["launches_by_gemm_path"] = {
-                k: engine_paths[k] + train_paths[k] + ft_paths[k]
-                for k in ("stream", "tc")}
+                k: engine_paths[k] + serve_totals.paths[k] + train_paths[k]
+                + ft_paths[k] for k in ("stream", "tc")}
+            entry["serve_tiers_gemm_paths"] = serve_totals.paths
             entry["parity_max_err_over_tol"] = gemm_parity
             entry["train_shapes"] = {g: timing[f"mixed_gemm_{g}"]
                                      for g in ("fwd", "dgrad", "wgrad")}
@@ -3257,8 +4040,9 @@ def main():
             # route; gam_quant's E5M2 and other algos (its generic route:
             # generic_ms).
             entry["launches_by_route"] = {
-                r: engine_routes[name][r] + train_routes[name][r]
-                + state_routes[name][r] + ft_routes[name][r]
+                r: engine_routes[name][r] + serve_totals.routes[name][r]
+                + train_routes[name][r] + state_routes[name][r]
+                + generic_routes[name][r] + ft_routes[name][r]
                 for r in ("tile", "generic")}
             entry["shapes"] = t["shapes"]
             entry["build"] = wgmma_build[
@@ -3306,6 +4090,7 @@ def main():
     emit({"train": train, "card": smi})
     emit({"train_state": state, "card": smi})
     emit({"fault_tolerance": ft, "card": smi})
+    emit({"generic_smem": generic, "card": smi})
     emit({"wall_s": time.perf_counter() - t_start, "card": smi})
     emit({"kernels": kernels})
     print(smi, flush=True)

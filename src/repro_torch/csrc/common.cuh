@@ -118,6 +118,36 @@ __device__ __forceinline__ float rel_err(float x, float stored) {
 // groups of eight). `scratch` holds at least 8 values.
 #define REDUCE_THREADS 256
 
+// Opt a one-CTA-per-block kernel in to `dyn` bytes of dynamic shared
+// memory. A CTA may use 48 KB of shared memory by default, and that limit
+// counts the kernel's static __shared__ scratch as well as the dynamic
+// buffer, so a dynamic buffer of 48 KB or a little less fails to launch
+// (cudaErrorInvalidValue) unless the kernel is opted in. So the attribute
+// is raised to every dynamic size a launch asks for, whatever its size;
+// `set` (one entry per device) keeps the largest already set, so repeats
+// skip the attribute call. A total beyond the card's opt-in limit still
+// fails here: the Python wrappers refuse such a block by name before the
+// launch.
+template <typename K>
+static cudaError_t opt_in_smem(K kernel, size_t dyn, int* set) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  if ((int)dyn <= set[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)dyn);
+  if (err == cudaSuccess) set[dev] = (int)dyn;
+  return err;
+}
+
+// The static __shared__ bytes of a kernel, as the card reports them (-1 on
+// an error).
+template <typename K>
+static int static_smem(K kernel) {
+  cudaFuncAttributes a;
+  return cudaFuncGetAttributes(&a, kernel) == cudaSuccess ? (int)a.sharedSizeBytes : -1;
+}
+
 template <typename T, typename Op>
 __device__ T block_reduce(T v, Op op, T* scratch) {
   static_assert(REDUCE_THREADS == 256, "the second stage combines 8 warps");

@@ -108,17 +108,20 @@ extern "C" int gam_quant_launch(const void* x, const void* mg, void* xq, void* b
                                 void* err_sums, void* counts, int Mp, int Kp, int bm, int bk,
                                 int algo, float q_amax, int e5m2, void* stream) {
   const size_t smem = (size_t)bm * bk * sizeof(__nv_bfloat16);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        gam_quant_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
+  static int set[64] = {0};
+  const cudaError_t err = opt_in_smem(gam_quant_kernel, smem, set);
+  if (err != cudaSuccess) return (int)err;
   dim3 grid(Kp / bk, Mp / bm);
   gam_quant_kernel<<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)x, (const float*)mg, (__nv_bfloat16*)xq, (int32_t*)block_exp,
       (float*)err_sums, (float*)counts, Kp, bm, bk, algo, q_amax, e5m2);
   return (int)cudaGetLastError();
 }
+
+// The generic kernel's static shared memory per CTA (bytes) as the card
+// reports it; kernels/gam_quant.py:gam_quant_smem_bytes counts the same
+// bytes on the host.
+extern "C" int gam_quant_generic_static_smem() { return static_smem(gam_quant_kernel); }
 
 // ---------------------------------------------------------------------------
 // The tile route: 128 x 128 blocks (geometry, register layout and helpers

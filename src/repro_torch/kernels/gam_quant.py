@@ -22,9 +22,10 @@ from typing import Tuple
 import torch
 
 from . import build
-from .mor_select import _ALGOS, _check
+from .mor_select import _ALGOS, SMEM_OPTIN_BYTES, _check
 
-__all__ = ["gam_quant_blocks", "gam_quant_route", "ROUTES", "TILE_BLOCK"]
+__all__ = ["gam_quant_blocks", "gam_quant_route", "gam_quant_smem_bytes",
+           "ROUTES", "TILE_BLOCK", "GENERIC_STATIC_SMEM"]
 
 ROUTES = ("tile", "generic")
 TILE_BLOCK = (128, 128)
@@ -44,6 +45,23 @@ def gam_quant_route(block: Tuple[int, int]) -> str:
     if bm < 1 or bk < 1:
         raise ValueError(f"block must be positive, got {block}")
     return "tile" if tuple(block) == TILE_BLOCK else "generic"
+
+
+# A bound on the generic kernel's static scratch (csrc/gam_quant.cu:
+# fscratch[32], iscratch[32], dscratch[32] doubles, bcast), each array
+# rounded up to 16 bytes (the card reports 528 bytes, built by nvcc
+# 12.8; gam_quant_generic_static_smem reads it).
+GENERIC_STATIC_SMEM = 128 + 128 + 256 + 16
+
+
+def gam_quant_smem_bytes(block: Tuple[int, int]):
+    """(dynamic, static) shared bytes of one generic-route CTA over
+    ``block``: the bf16 block, and the bound on the kernel's static
+    scratch. The
+    launcher opts in to the dynamic bytes; :func:`gam_quant_blocks`
+    refuses a block whose total exceeds ``SMEM_OPTIN_BYTES``."""
+    bm, bk = block
+    return bm * bk * 2, GENERIC_STATIC_SMEM
 
 
 _FNS = {}
@@ -96,6 +114,14 @@ def gam_quant_blocks(xp: torch.Tensor, mg: torch.Tensor, *,
     route = gam_quant_route(block)
     if Mp % bm or Kp % bk:
         raise ValueError(f"operand {(Mp, Kp)} is not padded to {block}")
+    if route == "generic":
+        dyn, static = gam_quant_smem_bytes(block)
+        if dyn + static > SMEM_OPTIN_BYTES:
+            raise ValueError(
+                f"gam_quant: a {tuple(block)} block needs {dyn} + {static} "
+                f"= {dyn + static} bytes of shared memory per CTA, more than "
+                f"the {SMEM_OPTIN_BYTES} an sm_90 CTA can opt in to; use a "
+                "smaller block")
     _check(xp, "x", torch.bfloat16, (Mp, Kp))
     _check(mg, "mg", torch.float32, (2,))
     if mg.device != xp.device:

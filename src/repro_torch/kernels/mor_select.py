@@ -37,7 +37,8 @@ from repro_torch.core.metrics import E5M2_RANGE_RATIO, NVFP4_RANGE_RATIO
 from . import build
 
 __all__ = ["mor_select_pack", "mor_select_select", "mor_select_route",
-           "ROUTES", "SELECT_DTYPES", "TILE_BLOCK"]
+           "mor_select_smem_bytes", "ROUTES", "SELECT_DTYPES", "TILE_BLOCK",
+           "GENERIC_STATIC_SMEM", "SMEM_OPTIN_BYTES"]
 
 ROUTES = ("tile", "generic")
 TILE_BLOCK = (128, 128)
@@ -67,6 +68,41 @@ def mor_select_route(block: Tuple[int, int], mode: str,
                          f"got {block}")
     return ("tile" if tuple(block) == TILE_BLOCK and dtype == torch.bfloat16
             else "generic")
+
+
+# Shared memory of the generic kernel (csrc/mor_select.cu): a bound on
+# its static scratch, each array it declares (fscratch[32], iscratch[32],
+# bcast[8], sel_sh) rounded up to 16 bytes -- the compiler lays them out
+# (the card reports 272 bytes for every instance, built by nvcc 12.8;
+# mor_select_generic_static_smem reads it) -- and the most a CTA may opt
+# in to on sm_90 (cudaDevAttrMaxSharedMemoryPerBlockOptin, 227 KB).
+GENERIC_STATIC_SMEM = 128 + 128 + 32 + 16
+SMEM_OPTIN_BYTES = 227 * 1024
+
+
+def mor_select_smem_bytes(block: Tuple[int, int], mode: str,
+                          dtype: torch.dtype = torch.bfloat16):
+    """(dynamic, static) shared bytes of one generic-route CTA over
+    ``block``: the block in x's dtype, rounded up to 16 bytes, plus under
+    sub4 one f32 micro amax per micro group; and the bound on the
+    kernel's static scratch. The launcher opts in to the dynamic bytes;
+    the wrappers refuse a block whose total exceeds
+    ``SMEM_OPTIN_BYTES``."""
+    bm, bk = block
+    dyn = -(-bm * bk * torch.empty((), dtype=dtype).element_size() // 16) * 16
+    if mode == "sub4":
+        dyn += bm * (bk // NVFP4_MICRO) * 4
+    return dyn, GENERIC_STATIC_SMEM
+
+
+def _check_smem(variant, block, mode, dtype):
+    dyn, static = mor_select_smem_bytes(block, mode, dtype)
+    if dyn + static > SMEM_OPTIN_BYTES:
+        raise ValueError(
+            f"mor_select_{variant}: a {tuple(block)} {dtype} block under "
+            f"{mode} needs {dyn} + {static} = {dyn + static} bytes of shared "
+            f"memory per CTA, more than the {SMEM_OPTIN_BYTES} an sm_90 CTA "
+            "can opt in to; use a smaller block")
 
 
 # The select variant's operand dtypes, with the launchers' name infixes.
@@ -118,12 +154,14 @@ def _check(t: torch.Tensor, name: str, dtype, shape):
         raise ValueError(f"{name} must be contiguous")
 
 
-def _validate(xp, mg, block, mode, algo, dtype=torch.bfloat16):
+def _validate(xp, mg, block, mode, algo, variant, dtype=torch.bfloat16):
     if mode not in _MODES or algo not in _ALGOS:
         raise ValueError(f"unknown mode/algo {mode!r}/{algo!r}")
     Mp, Kp = xp.shape
     bm, bk = block
     route = mor_select_route(block, mode, dtype)
+    if route == "generic":
+        _check_smem(variant, block, mode, dtype)
     if Mp % bm or Kp % bk:
         raise ValueError(f"operand {(Mp, Kp)} is not padded to {block}")
     _check(xp, "x", dtype, (Mp, Kp))
@@ -150,7 +188,8 @@ def mor_select_select(xp: torch.Tensor, mg: torch.Tensor, *,
     if xp.dtype not in SELECT_DTYPES:
         raise TypeError(f"x must be one of {list(SELECT_DTYPES)}, got "
                         f"{xp.dtype}")
-    Mp, Kp, nm, nk, route = _validate(xp, mg, block, mode, algo, xp.dtype)
+    Mp, Kp, nm, nk, route = _validate(xp, mg, block, mode, algo,
+                                       "select", xp.dtype)
     dev = xp.device
 
     def empty(shape, dtype):
@@ -196,7 +235,7 @@ def mor_select_pack(xp: torch.Tensor, mg: torch.Tensor, *,
     ``micro_scales`` for sub4) and the (nm, nk) ``sel``, ``scales``,
     ``e4_sums``, ``e5_sums``, ``counts`` (and sub4 ``nv_sums``) grids.
     """
-    Mp, Kp, nm, nk, route = _validate(xp, mg, block, mode, algo)
+    Mp, Kp, nm, nk, route = _validate(xp, mg, block, mode, algo, "pack")
     dev = xp.device
 
     def empty(shape, dtype):

@@ -1,7 +1,8 @@
 """Public model API (port of ``repro.models.api``): the loss of the train
-step and the decode builder of the serving engine. MoR statistics leave
-the loss as ``aux['mor_fwd']`` (the forward stats tree); the backward
-stats are the gradients of the tokens from :func:`make_tokens`.
+step and the prefill and decode functions of the serving engine. MoR
+statistics leave the loss as ``aux['mor_fwd']`` (the forward stats
+tree); the backward stats are the gradients of the tokens from
+:func:`make_tokens`.
 """
 from __future__ import annotations
 
@@ -14,8 +15,9 @@ from repro_torch.core.policy import MoRDotPolicy
 
 from . import transformer as T
 
-__all__ = ["cross_entropy", "make_loss_fn", "make_decode_fn", "init_params",
-           "make_tokens", "cache_specs", "init_cache"]
+__all__ = ["cross_entropy", "make_loss_fn", "make_prefill_fn",
+           "make_decode_fn", "init_params", "make_tokens", "cache_specs",
+           "init_cache"]
 
 init_params = T.init_params
 make_tokens = T.make_tokens
@@ -56,6 +58,23 @@ def make_loss_fn(cfg: ArchConfig, policy: MoRDotPolicy, *,
             "loss": loss, "aux_loss": aux_loss, "mor_fwd": stats}
 
     return loss_fn
+
+
+def make_prefill_fn(cfg: ArchConfig, policy: MoRDotPolicy):
+    """prefill_fn(params, batch) -> (logits[:, -1:], cache, stats): one
+    causal pass over ``batch['tokens']`` (B, S) with no cache input. The
+    logits are computed in full, as in the reference, and the last
+    position's returned; ``cache`` is every layer's bf16 K/V
+    (``{"dense": {"k", "v": (n_units, B, S, Hkv, dh)}}``), ready for
+    ``PagedKVPool.splice``. The reference's stats-token argument has no
+    counterpart (no backward in serving)."""
+
+    def prefill_fn(params, batch):
+        logits, cache, stats = T.forward(cfg, policy, params, batch,
+                                         mode="prefill", remat=False)
+        return logits[:, -1:], cache, stats
+
+    return prefill_fn
 
 
 def make_decode_fn(cfg: ArchConfig, policy: MoRDotPolicy):

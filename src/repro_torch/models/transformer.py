@@ -1,11 +1,12 @@
-"""Model assembly for the dense decoder family (port of the train and
-decode paths of ``repro.models.transformer``).
+"""Model assembly for the dense decoder family (port of the train,
+prefill and decode paths of ``repro.models.transformer``).
 
 Parameters are nested dicts with the reference's key paths
 (``blocks/dense/wqkv``, ``blocks/dense/mlp/wi``, ``lm_head``, ``embed``,
 ``blocks/dense/ln1/scale``, ...); per-layer leaves are stacked on a
 leading layer axis. Embeddings are padded to a multiple of 128 rows and
-the padded logit columns are masked to -1e30.
+the padded logit columns are masked to -1e30. The decode cache has the
+reference's three tiers: bf16 K/V, fp8 (``kv_fp8``) and MoR (``kv_mor``).
 """
 from __future__ import annotations
 
@@ -105,21 +106,37 @@ def make_tokens(cfg: ArchConfig, device="cuda"):
 def cache_specs(cfg: ArchConfig, batch: int, seq: int,
                 kv_fp8: bool = False, kv_mor: bool = False):
     """{unit type: {leaf: (shape, dtype)}} of the decode cache, stacked
-    over layers (bf16 K/V only in this slice)."""
+    over layers: bf16 K/V; with ``kv_fp8`` float8_e4m3fn K/V payloads and
+    per-(position, head) f32 scales; with ``kv_mor`` uint8 K/V payloads,
+    uint8 tags and f32 GAM scales (the reference's lanes and dtypes)."""
     _check_family(cfg)
-    if kv_fp8 or kv_mor:
-        raise NotImplementedError(
-            "kv_fp8 / kv_mor cache tiers are not ported yet")
-    shape = (cfg.n_units, batch, seq, cfg.n_kv, cfg.head_dim)
-    return {"dense": {"k": (shape, torch.bfloat16),
-                      "v": (shape, torch.bfloat16)}}
+    if kv_fp8 and kv_mor:
+        raise ValueError("kv_fp8 and kv_mor are mutually exclusive")
+    L, hkv, hd = cfg.n_units, cfg.n_kv, cfg.head_dim
+    kv = (L, batch, seq, hkv, hd)
+    row = (L, batch, seq, hkv)
+    if kv_mor:
+        leaves = {"k": (kv, torch.uint8), "v": (kv, torch.uint8),
+                  "k_tags": (row, torch.uint8), "v_tags": (row, torch.uint8),
+                  "k_scale": (row, torch.float32),
+                  "v_scale": (row, torch.float32)}
+    elif kv_fp8:
+        leaves = {"k": (kv, torch.float8_e4m3fn),
+                  "v": (kv, torch.float8_e4m3fn),
+                  "k_scale": (row, torch.float32),
+                  "v_scale": (row, torch.float32)}
+    else:
+        leaves = {"k": (kv, torch.bfloat16), "v": (kv, torch.bfloat16)}
+    return {"dense": leaves}
 
 
-def init_cache(cfg: ArchConfig, batch: int, seq: int, device="cuda"):
+def init_cache(cfg: ArchConfig, batch: int, seq: int, kv_fp8: bool = False,
+               kv_mor: bool = False, device="cuda"):
     dev = resolve_device(device)
     return {t: {k: torch.zeros(s, dtype=dt, device=dev)
                 for k, (s, dt) in leaves.items()}
-            for t, leaves in cache_specs(cfg, batch, seq).items()}
+            for t, leaves in cache_specs(cfg, batch, seq, kv_fp8,
+                                         kv_mor).items()}
 
 
 def _is_quantized(w) -> bool:
@@ -210,22 +227,24 @@ def forward(cfg: ArchConfig, policy: MoRDotPolicy, params, batch, *,
     layer's forward, so its quantization events run twice per step, and
     the forward stats returned are those of the first run.
 
+    Prefill mode: ``batch['tokens']`` (B, S), causal over the whole
+    sequence with no cache input; the returned cache is every layer's
+    bf16 K/V, ``{"dense": {"k", "v": (n_units, B, S, Hkv, dh)}}``.
+
     Decode mode: ``batch['token']`` (B, S) against ``cache`` -- S == 1
     for a decode step, S > 1 for a prefill chunk -- with ``cur_index``
     (scalar or (B,)) the position of each row's last incoming token.
     The cache is updated in place and returned.
     """
     _check_family(cfg)
-    if mode not in ("train", "decode"):
-        raise NotImplementedError(
-            f"mode {mode!r}: train and decode (with chunked prefill "
-            "through it) are ported")
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"mode {mode!r}")
     ids = batch["token"] if mode == "decode" else batch["tokens"]
     x = params["embed"][ids]
     if cfg.tie_embed:
         x = x * torch.tensor(cfg.d_model**0.5, dtype=x.dtype)
 
-    rows = []
+    rows, kvs = [], []
     blocks = params["blocks"]["dense"]
     toks = None if tokens is None else tokens["blocks"]["dense"]
     for l in range(cfg.n_units):
@@ -237,11 +256,18 @@ def forward(cfg: ArchConfig, policy: MoRDotPolicy, params, batch, *,
                                    use_reentrant=False)
             else:
                 x, st = _train_layer(p_l, x, tok_l, policy, cfg)
+        elif mode == "prefill":
+            x, kv, st = B.dense_block(p_l, x, tok_l, policy, cfg, mode, None,
+                                      None, kind="causal")
+            kvs.append(kv)
         else:
             c_l = {k: v[l] for k, v in cache["dense"].items()}
             x, _, st = B.dense_block(p_l, x, tok_l, policy, cfg, mode, c_l,
                                      cur_index, kind="causal")
         rows.append(st)
+    if mode == "prefill":
+        cache = {"dense": {k: torch.stack([kv[k] for kv in kvs])
+                           for k in ("k", "v")}}
     stats = {"blocks": {"dense": {
         k: torch.stack([r[k] for r in rows]) for k in rows[0]}}}
 

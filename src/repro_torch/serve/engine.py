@@ -7,24 +7,35 @@ fixed-size prompt chunk per prefilling slot and one batched decode step
 over the decoding slots. Sampling is the reference's host-side numpy
 code, so greedy and seeded sampled tokens match it given equal logits.
 With ``quantize`` set, every GEMM weight becomes a QTensor and every
-prefill and decode matmul runs through the mixed GEMM kernel.
+prefill and decode matmul runs through the mixed GEMM kernel; a params
+tree already quantized (QTensor leaves) is taken as it is with
+``quantize=None``.
 
-Not ported yet (they raise): the fp8 / MoR KV tiers, the KV-page guard,
-tensor-parallel ``mesh`` serving and the recurrent families' one-shot
-prefill.
+KV tiers (``ServeConfig``): bf16 pages by default; ``kv_fp8`` (E4M3
+payloads with per-(position, head) scales); ``kv_mor`` (per-row E4M3 /
+E5M2 tag-select with GAM scales), with ``kv_mor_cold`` sealing pages the
+write frontier has left that far behind into NVFP4; ``kv_guard`` sweeps
+each decoding slot's pages for nonfinite lanes before its logits are
+read, so the quarantine names the corrupted lane. ``_full_prefill`` is
+the one-shot prefill (``make_prefill_fn`` plus ``PagedKVPool.splice``,
+the tier's quantizer at the splice) of families whose state cannot be
+paged; the dense family prefills in chunks.
+
+Not ported yet (it raises): tensor-parallel ``mesh`` serving.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
-from typing import Deque, List, Optional
+from typing import Deque, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.policy import MoRDotPolicy, MoRPolicy
-from repro_torch.models import make_decode_fn
+from repro_torch.models import make_decode_fn, make_prefill_fn
+from repro_torch.models.attention import quantize_kv, quantize_kv_mor
 from repro_torch.models.transformer import resolve_device
 
 from .paged import PagedKVPool
@@ -67,6 +78,7 @@ class ServeConfig:
 
 
 def _to_device(tree, dev):
+    """Tensors and QTensors alike (``QTensor.to``)."""
     if isinstance(tree, dict):
         return {k: _to_device(v, dev) for k, v in tree.items()}
     return tree.to(dev)
@@ -85,16 +97,14 @@ class Engine:
         if mesh is not None:
             raise NotImplementedError(
                 "tensor-parallel serving (mesh) is not ported yet")
-        if scfg.kv_fp8 or scfg.kv_mor or scfg.kv_mor_cold is not None \
-                or scfg.kv_guard:
-            raise NotImplementedError(
-                "kv_fp8 / kv_mor / kv_mor_cold / kv_guard are not ported "
-                "yet (the KV tiers of repro.serve.paged and "
-                "repro.models.attention)")
         if scfg.max_seq % scfg.prefill_chunk:
             raise ValueError(
                 f"prefill_chunk {scfg.prefill_chunk} must divide "
                 f"max_seq {scfg.max_seq}")
+        if scfg.kv_fp8 and scfg.kv_mor:
+            raise ValueError("kv_fp8 and kv_mor are mutually exclusive")
+        if scfg.kv_mor_cold is not None and not scfg.kv_mor:
+            raise ValueError("kv_mor_cold needs kv_mor=True")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.scfg = scfg
@@ -105,10 +115,14 @@ class Engine:
                 params, quantize, min_size=quantize_min_size)
         self.params = params
         self.pool = PagedKVPool(cfg, scfg.slots, scfg.max_seq,
-                                page_size=scfg.page_size,
-                                n_pages=scfg.pool_pages, device=self.device)
-        # Every ported cache leaf is positional, so prefill is chunked.
+                                page_size=scfg.page_size, kv_fp8=scfg.kv_fp8,
+                                n_pages=scfg.pool_pages, kv_mor=scfg.kv_mor,
+                                device=self.device)
+        self._sealed = set()  # (slot, page index) sub4-recompressed
+        # Every cache leaf of the dense family is positional, so prefill
+        # is chunked; _full_prefill serves families whose state is not.
         self.chunked_prefill = True
+        self._prefill = make_prefill_fn(cfg, policy)
         self._decode = make_decode_fn(cfg, policy)
 
         n = scfg.slots
@@ -195,9 +209,40 @@ class Engine:
             self.queue.popleft()
             self.slot_req[slot] = req
             self.slot_filled[slot] = 0
-            self.slot_state[slot] = "prefill"
+            if self.chunked_prefill:
+                self.slot_state[slot] = "prefill"
+            else:
+                self._full_prefill(slot, req)
 
     # ---------------------------------------------------------- prefill --
+    def _full_prefill(self, slot: int, req: Request):
+        """One-shot prefill: the whole prompt in one causal pass, its bf16
+        cache quantized to the pool's tier and spliced into this slot's
+        pages."""
+        prompt = torch.as_tensor(np.asarray(req.prompt)[None],
+                                 dtype=torch.int64, device=self.device)
+        logits, pcache, _ = self._prefill(self.params, {"tokens": prompt})
+        by_key: Dict[str, torch.Tensor] = {
+            f"{t}/{k}": leaf for t, leaves in pcache.items()
+            for k, leaf in leaves.items()}
+        for key in list(by_key):
+            if key.rsplit("/", 1)[-1] not in ("k", "v"):
+                continue
+            if self.scfg.kv_fp8:
+                by_key[key], by_key[key + "_scale"] = quantize_kv(by_key[key])
+            elif self.scfg.kv_mor:
+                # One layer at a time, as one prefill chunk of the whole
+                # prompt would write them (the reference hands the stacked
+                # (n_units, 1, P, ...) leaf to quantize_kv_mor, which takes
+                # 4-D rows and raises).
+                per_layer = [quantize_kv_mor(x) for x in by_key[key]]
+                for i, suffix in enumerate(("", "_tags", "_scale")):
+                    by_key[key + suffix] = torch.stack(
+                        [q[i] for q in per_layer])
+        self.pool.splice(slot, by_key, len(req.prompt))
+        self._start_decode(slot, req, len(req.prompt),
+                           logits[0, -1].to(torch.float32).cpu().numpy())
+
     def _prefill_chunk_step(self, slot: int, req: Request):
         """Advance one prompt chunk for a prefilling slot (B=1)."""
         C = self.scfg.prefill_chunk
@@ -241,7 +286,14 @@ class Engine:
         for i in dec:
             r = self.slot_req[i]
             # Slot quarantine: a poisoned slot finishes early with the
-            # condition surfaced instead of sampling garbage.
+            # condition surfaced instead of sampling garbage. The page
+            # sweep runs first, so the error names the root cause (the
+            # corrupted lane), also in pages the logits cannot see yet.
+            if self.scfg.kv_guard:
+                bad = self.pool.guard_check(i)
+                if bad is not None:
+                    self._quarantine(i, bad)
+                    continue
             if not np.isfinite(rows[i][: self.cfg.vocab]).all():
                 self._quarantine(
                     i, f"nonfinite logits at position "
@@ -288,6 +340,33 @@ class Engine:
         self.slot_next[slot] = 0
         self.slot_filled[slot] = 0
         self.pool.release(slot)
+        self._sealed = {(s, j) for s, j in self._sealed if s != slot}
+
+    # --------------------------------------------------- MoR cold tier --
+    def _seal_cold_pages(self):
+        """Sub4-recompress the pages a decoding slot's write frontier has
+        left at least ``kv_mor_cold`` positions behind. A sealed page is
+        not written again while owned (positions only grow); the set
+        forgets a slot's pages when they are released."""
+        lag = self.scfg.kv_mor_cold
+        ps = self.pool.page_size
+        cold: List[int] = []
+        for i in range(self.scfg.slots):
+            if self.slot_state[i] != "decode":
+                continue
+            frontier = int(self.slot_pos[i])
+            for j, page in enumerate(self.pool.block_table[i]):
+                if page == self.pool.trash or (i, j) in self._sealed:
+                    continue
+                if (j + 1) * ps + lag <= frontier:
+                    cold.append(int(page))
+                    self._sealed.add((i, j))
+        if cold:
+            self.pool.recompress_pages(cold)
+
+    def kv_cache_stats(self):
+        """Tag census and bytes per element of the live cache (kv_mor)."""
+        return self.pool.kv_cache_stats()
 
     # ------------------------------------------------------------- loop --
     def step(self) -> bool:
@@ -303,6 +382,8 @@ class Engine:
         if dec:
             self._decode_batch(dec)
             worked = True
+        if worked and self.scfg.kv_mor_cold is not None:
+            self._seal_cold_pages()
         if worked:
             self.steps += 1
         return worked or bool(self.queue)

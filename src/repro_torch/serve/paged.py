@@ -1,13 +1,20 @@
-"""Paged KV-cache pool for continuous-batching decode (port of the bf16
-pool of ``repro.serve.paged``).
+"""Paged KV-cache pool for continuous-batching decode (port of
+``repro.serve.paged``).
 
-KV leaves are stored as ``(n_units, n_pages + 1, page_size, hkv, hd)``
+KV leaves are stored as ``(n_units, n_pages + 1, page_size, ...)``
 physical pages; a per-slot block table maps logical position ``p`` to
 ``(bt[slot, p // page_size], p % page_size)`` and a host-side free list
 recycles pages. The last physical page is the *trash page*: block-table
 rows of idle or prefilling slots point every entry at it, so a batched
 decode step can always run over all slots. The pool is updated in
-place (``scatter``); the reference threads it through a donated jit.
+place (``scatter``, ``splice``, ``recompress_pages``); the reference
+threads it through a donated jit.
+
+Every leaf of the dense family's caches is positional, so all are paged:
+the K/V payloads and, in the fp8 and MoR tiers, the scale and tag lanes.
+Leaves are named by their key paths as in the reference (``dense/k``,
+``dense/k_scale``, ``dense/k_tags``, ...), and walked in the order of
+those keys sorted (the reference's pytree order).
 """
 from __future__ import annotations
 
@@ -18,7 +25,10 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.ref import TAG_BF16, TAG_E4M3, TAG_E5M2, TAG_NVFP4
 from repro_torch.models import cache_specs
+from repro_torch.models.attention import (kv_bytes_per_element,
+                                          kv_stats_row, recompress_kv_nvfp4)
 
 __all__ = ["PagedKVPool", "MOR_BLOCK_ROWS"]
 
@@ -48,14 +58,15 @@ class PagedKVPool:
         self.n_pages = (slots * self.pages_per_seq if n_pages is None
                         else n_pages)
         self.trash = self.n_pages
+        self.kv_fp8 = kv_fp8
+        self.kv_mor = kv_mor
         self.device = torch.device(device)
 
         specs = cache_specs(cfg, slots, max_seq, kv_fp8, kv_mor)
-        # Every leaf of the ported caches is positional (k, v).
         self.leaves: Dict[str, Dict[str, torch.Tensor]] = {}
         for t, leaves in specs.items():
             self.leaves[t] = {}
-            for key, (shape, dtype) in leaves.items():
+            for key, (shape, dtype) in sorted(leaves.items()):
                 n_units, _, _, *tail = shape
                 self.leaves[t][key] = torch.zeros(
                     (n_units, self.n_pages + 1, page_size, *tail),
@@ -65,7 +76,15 @@ class PagedKVPool:
         self.free: collections.deque = collections.deque(range(self.n_pages))
         self._owned: List[List[int]] = [[] for _ in range(slots)]
 
+    def _by_key(self):
+        """[(key path, leaf)] in the reference's (sorted key) order."""
+        return sorted((f"{t}/{k}", leaf) for t, leaves in self.leaves.items()
+                      for k, leaf in leaves.items())
+
     # ------------------------------------------------------- allocation --
+    def free_pages(self) -> int:
+        return len(self.free)
+
     def pages_for(self, n_positions: int) -> int:
         return -(-n_positions // self.page_size)
 
@@ -117,3 +136,127 @@ class PagedKVPool:
         for t, leaves in self.leaves.items():
             for key, leaf in leaves.items():
                 leaf[:, page_ids, offs] = dense[t][key][:, rows, positions]
+
+    def splice(self, slot: int, dense_by_key: Dict[str, torch.Tensor],
+               n_positions: int):
+        """Write a single-sequence (B = 1) prefill cache into ``slot``:
+        ``dense_by_key`` maps key paths (``"dense/k"``, ``"dense/k_scale"``,
+        ...) to (n_units, 1, P, ...) leaves, whose rows 0..n_positions-1
+        scatter through the slot's block table. Leaves not named are left
+        alone."""
+        pos = torch.arange(n_positions, device=self.device)
+        bt = torch.as_tensor(self.block_table[slot], dtype=torch.int64,
+                             device=self.device)
+        page_ids, offs = bt[pos // self.page_size], pos % self.page_size
+        for key, leaf in self._by_key():
+            d = dense_by_key.get(key)
+            if d is not None:
+                leaf[:, page_ids, offs] = d[:, 0, :n_positions].to(
+                    device=self.device, dtype=leaf.dtype)
+
+    # -------------------------------------------------- MoR cold tier --
+    def _kv_lane_groups(self):
+        """[(payload, tags, scales)] per paged k / v lane group."""
+        out = []
+        for leaves in self.leaves.values():
+            for name in ("k", "v"):
+                if name + "_tags" in leaves and name + "_scale" in leaves:
+                    out.append((leaves[name], leaves[name + "_tags"],
+                                leaves[name + "_scale"]))
+        return out
+
+    def recompress_pages(self, pages) -> int:
+        """Sub4-recompress whole (sealed) pages in place: fp8 payload
+        bytes become packed E2M1 nibbles and micro-scale bytes inside
+        the same lane, tags TAG_NVFP4, scales retargeted; each lane group
+        is recompressed as one slab (one GAM group over the selected
+        pages of every layer), as in the reference. The caller
+        guarantees the pages are fully written and behind every reader's
+        write frontier. Returns the number of pages recompressed."""
+        if not self.kv_mor:
+            raise ValueError(
+                "recompress_pages needs a kv_mor pool (tags lanes)")
+        pages = [int(p) for p in pages if int(p) != self.trash]
+        if not pages:
+            return 0
+        idx = torch.as_tensor(pages, dtype=torch.int64, device=self.device)
+        for payload, tags, scales in self._kv_lane_groups():
+            pay, tg, sc = recompress_kv_nvfp4(payload[:, idx], tags[:, idx],
+                                              scales[:, idx])
+            payload[:, idx] = pay
+            tags[:, idx] = tg.to(tags.dtype)
+            scales[:, idx] = sc.to(scales.dtype)
+        return len(pages)
+
+    # ----------------------------------------------------- inspection --
+    def guard_check(self, slot: int) -> Optional[str]:
+        """KV-page guard: a finiteness sweep over ``slot``'s owned pages.
+        Float lanes (bf16 / fp8 K/V, scale grids) must be finite
+        everywhere -- unwritten positions are zero -- so any NaN or Inf is
+        corruption. Each lane is reduced on its device and the flags read
+        with one host copy; the first bad lane in key order is named.
+        Returns the error string, or None when the pages are clean."""
+        pages = self._owned[slot]
+        if not pages:
+            return None
+        idx = torch.as_tensor(pages, dtype=torch.int64, device=self.device)
+        keys, flags = [], []
+        for key, leaf in self._by_key():
+            if leaf.is_floating_point():
+                keys.append(key)
+                flags.append(torch.isfinite(
+                    leaf[:, idx].to(torch.float32)).all())
+        ok = torch.stack(flags).cpu().numpy() if flags else []
+        for key, good in zip(keys, ok):
+            if not good:
+                return (f"KV-page guard: nonfinite values in lane {key!r} "
+                        f"of slot {slot}'s pages")
+        return None
+
+    def bytes_per_token(self) -> int:
+        """Physical pool bytes per cache position, summed over the paged
+        leaves and layers (bf16 2 B an element; MoR 1 B of payload plus
+        the tag and scale lanes)."""
+        return int(sum(leaf.shape[0] * int(np.prod(leaf.shape[3:]))
+                       * leaf.element_size() for _, leaf in self._by_key()))
+
+    def kv_cache_stats(self) -> Dict[str, float]:
+        """Host-side tag census over written rows (scale > 0) of owned
+        pages: tag fractions, logical payload bytes per element and a
+        STATS_WIDTH stats row (``models.attention.kv_stats_row``). Empty
+        without ``kv_mor``."""
+        if not self.kv_mor:
+            return {}
+        owned = sorted({p for o in self._owned for p in o})
+        if not owned:
+            return {"written": 0}
+        idx = torch.as_tensor(owned, dtype=torch.int64, device=self.device)
+        tags_all, written = [], 0
+        for _, tags, scales in self._kv_lane_groups():
+            tg = tags[:, idx].cpu().numpy()
+            mask = scales[:, idx].cpu().numpy() > 0
+            tags_all.append(tg[mask])
+            written += int(mask.sum())
+        t = np.concatenate(tags_all) if tags_all else np.zeros(0, np.uint8)
+        if t.size == 0:
+            return {"written": 0}
+        frac = lambda tag: float((t == tag).mean())
+        tt = torch.from_numpy(t)
+        return {
+            "written": written,
+            "frac_e4m3": frac(TAG_E4M3),
+            "frac_e5m2": frac(TAG_E5M2),
+            "frac_bf16": frac(TAG_BF16),
+            "frac_nvfp4": frac(TAG_NVFP4),
+            "frac_fp8": frac(TAG_E4M3) + frac(TAG_E5M2),
+            "payload_bpe": float(kv_bytes_per_element(tt)),
+            "stats_row": kv_stats_row(tt).numpy(),
+        }
+
+    def stats(self) -> Dict[str, int]:
+        return {
+            "n_pages": self.n_pages,
+            "free": len(self.free),
+            "page_size": self.page_size,
+            "owned": sum(len(o) for o in self._owned),
+        }

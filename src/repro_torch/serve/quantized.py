@@ -75,6 +75,13 @@ class QTensor:
     def frac_quantized(self) -> float:
         return float((self.mo.tags.cpu().numpy() != TAG_BF16).mean())
 
+    def to(self, device) -> "QTensor":
+        """The QTensor with every lane on ``device`` (no copy of lanes
+        already there)."""
+        mo = dataclasses.replace(self.mo, **{
+            lane: getattr(self.mo, lane).to(device) for lane in _LANES})
+        return QTensor(mo, self.stats.to(device), self.shape)
+
     def layer(self, l: int) -> "QTensor":
         """Layer ``l`` of a stacked weight as a single-matrix QTensor
         (views of the lanes; the counterpart of lax.scan slicing)."""

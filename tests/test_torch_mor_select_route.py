@@ -298,3 +298,133 @@ def test_div_in_range_matches_division_on_card(b_exp, cuda_device):
              torch.cuda.current_stream().cuda_stream) == 0
     torch.cuda.synchronize()
     assert int(bad.item()) == 0
+
+
+# ------------------------------------------ generic routes' shared memory --
+# The blocks of the gradient compression's leaves at reduced widths (d 64)
+# and the blocks whose dynamic shared memory is exactly 48 KB: with the
+# kernels' static scratch the CTA then needs more than the default 48 KB,
+# which a launch gets only by opting in.
+SMEM_BLOCKS = [((4, 64), torch.float32), ((1, 64), torch.float32),
+               ((128, 96), torch.float32), ((128, 64), torch.float32),
+               ((128, 192), torch.bfloat16)]
+
+
+@pytest.mark.parametrize("block,dtype", SMEM_BLOCKS + [
+    ((128, 96), torch.bfloat16), ((128, 176), torch.bfloat16)])
+@pytest.mark.parametrize("mode", MODES)
+def test_generic_smem_bytes(block, dtype, mode):
+    """The bytes the generic kernels declare per CTA: the block in x's
+    dtype (rounded up to 16 bytes), under sub4 one f32 micro amax per
+    micro group, plus a bound on the static scratch (each declared array
+    rounded up to 16 bytes: 304 in the selection, 528 in gam_quant; the
+    card reports 272 and 528)."""
+    from repro_torch.kernels.gam_quant import gam_quant_smem_bytes
+    from repro_torch.kernels.mor_select import mor_select_smem_bytes
+    bm, bk = block
+    size = 4 if dtype == torch.float32 else 2
+    dyn = -(-bm * bk * size // 16) * 16
+    if mode == "sub4":
+        dyn += bm * (bk // 16) * 4
+    assert mor_select_smem_bytes(block, mode, dtype) == (dyn, 304)
+    assert gam_quant_smem_bytes(block) == (bm * bk * 2, 528)
+    if (block, dtype, mode) in (((128, 96), torch.float32, "sub3"),
+                                ((128, 192), torch.bfloat16, "sub3")):
+        # The failing launches: exactly 48 KB of dynamic memory.
+        assert dyn == 48 * 1024
+    if (block, mode) == ((128, 176), "sub4"):
+        # sub4's micro amaxes move the window: 44 KB + 5.5 KB.
+        assert dyn == 128 * 176 * 2 + 128 * 11 * 4
+
+
+@pytest.mark.parametrize("variant", ["pack", "select", "select_f32",
+                                     "gam_quant"])
+def test_generic_block_beyond_optin_refused(variant):
+    """A block whose CTA would need more shared memory than an sm_90 CTA
+    can opt in to (227 KB) is refused by name before any launch (the
+    check runs before the operand's device is looked at, so it shows on
+    the CPU)."""
+    from repro_torch.kernels.gam_quant import gam_quant_blocks
+    from repro_torch.kernels.mor_select import SMEM_OPTIN_BYTES
+    block = (256, 512)
+    dtype = torch.float32 if variant == "select_f32" else torch.bfloat16
+    x = torch.zeros(block, dtype=dtype)
+    need = 256 * 512 * (4 if variant == "select_f32" else 2)
+    assert need > SMEM_OPTIN_BYTES
+    with pytest.raises(ValueError, match=r"\(256, 512\).*"
+                       + str(need)) as e:
+        if variant == "gam_quant":
+            gam_quant_blocks(x, torch.zeros(2), block=block)
+        elif variant == "pack":
+            mor_select_pack(x, torch.zeros(4), block=block)
+        else:
+            mor_select_select(x, torch.zeros(4), block=block)
+    assert str(SMEM_OPTIN_BYTES) in str(e.value)
+    # The largest block that fits is accepted by the same check.
+    from repro_torch.kernels.mor_select import mor_select_smem_bytes
+    dyn, static = mor_select_smem_bytes((128, 448), "sub3", torch.bfloat16)
+    assert dyn + static <= SMEM_OPTIN_BYTES
+
+
+def smem_operand(shape, dtype, seed):
+    """N(0, 1) rows with a moderate-range stripe (E5M2 blocks), an
+    all-zero row, and in f32 values that are not bf16-exact."""
+    rng = np.random.default_rng(seed)
+    m, k = shape
+    x = rng.standard_normal((m, k))
+    x[:, ::3] = np.sign(x[:, ::3]) * rng.uniform(1, 2, (m, len(range(0, k, 3)))
+                                                  ) * np.exp2(
+        rng.integers(-12, 4, (m, len(range(0, k, 3)))))
+    if m > 2:
+        x[m // 2] = 0.0
+    if dtype == torch.float32:
+        x = x * (1 + rng.uniform(0, 2.0**-10, x.shape))
+    return torch.from_numpy(x.astype(np.float32)).to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block,dtype", SMEM_BLOCKS + [
+    ((128, 96), torch.bfloat16)])
+@pytest.mark.parametrize("ragged", [False, True])
+def test_generic_routes_launch_at_smem_edges_on_card(block, dtype, ragged,
+                                                     cuda_device):
+    """Each generic instance (pack, select bf16 and f32, gam_quant; sub3
+    and sub4) at the blocks of the gradient compression and at the 48 KB
+    boundary, on one row of blocks and on a ragged multi-block operand:
+    it launches, and matches its plain version (payloads, tags, scales,
+    y and xq bit for bit; the selection's error sums within rtol 1e-5,
+    gam_quant's within 1e-6)."""
+    from repro_torch.core.formats import E4M3
+    from repro_torch.kernels.gam_quant import gam_quant_blocks
+    bm, bk = block
+    shape = (2 * bm + 3, 2 * bk + 5) if ragged else (bm, 3 * bk)
+    x = smem_operand(shape, dtype, seed=bm + bk).to(cuda_device)
+    for mode in ("sub3", "sub4"):
+        if mode == "sub4" and (bm % 2 or bk % 16):
+            continue
+        align = (2, 16) if mode == "sub4" else (1, 1)
+        part = Partition("block", block, align=align)
+        assert mor_select_route(block, mode, dtype) == "generic"
+        k = ops.mor_select(x, part, mode, backend="cuda")
+        t = ops.mor_select(x, part, mode, backend="torch")
+        assert torch.equal(bits(k.y), bits(t.y)) and torch.equal(k.sel, t.sel)
+        for f in ("e4_sums", "e5_sums", "nv_sums"):
+            a, b = getattr(k, f), getattr(t, f)
+            assert a is None or torch.allclose(a, b, rtol=1e-5, atol=0.0,
+                                               equal_nan=True), f
+        if dtype == torch.bfloat16:
+            mo_k, _ = ops.quantize_pack(x, part, mode, backend="cuda")
+            mo_t, _ = ops.quantize_pack(x, part, mode, backend="torch")
+            for lane in ("payload_q", "payload_bf16", "payload_nib",
+                         "micro_scales", "tags", "scales"):
+                assert torch.equal(bits(getattr(mo_k, lane)),
+                                   bits(getattr(mo_t, lane))), lane
+    if dtype == torch.bfloat16:
+        before = gam_quant_blocks.launches_by_route["generic"]
+        k = ops.gam_quant(x, block=block, fmt=E4M3, backend="cuda")
+        t = ops.gam_quant(x, block=block, fmt=E4M3, backend="torch")
+        assert gam_quant_blocks.launches_by_route["generic"] == before + 1
+        for a, b in ((k[0], t[0]), (k[1], t[1]), (k[3], t[3])):
+            assert torch.equal(bits(a), bits(b))
+        assert torch.allclose(k[2], t[2], rtol=1e-6, atol=0.0)
+    torch.cuda.synchronize()

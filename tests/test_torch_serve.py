@@ -250,9 +250,6 @@ def test_prompt_limits_and_rejection_match(model):
 
 def test_unported_options_raise(model):
     _, cfg, _, tparams = model
-    for scfg in (ServeConfig(kv_fp8=True), ServeConfig(kv_mor=True)):
-        with pytest.raises(NotImplementedError):
-            Engine(cfg, BF16_BASELINE, tparams, scfg, device="cpu")
     with pytest.raises(NotImplementedError):
         Engine(cfg, BF16_BASELINE, tparams, mesh=object(), device="cpu")
     if not torch.cuda.is_available():
