@@ -158,9 +158,40 @@
    row of a decode step (as the reference's does), those sampled before
    the catching step.
 
+12. The model zoo (``phase_model_zoo``): the MoE family and gemma-2b.
+   (a) granite-moe-1b-a400m at full width and depth (24 layers, 32
+   experts, top-8) served by the Engine with sub3 QTensor attention
+   weights (the expert stacks and routers stay dense, as in the
+   reference) on bf16 and kv_mor pools, phase_engine's 8 requests: every
+   attention GEMM on the stream path, every expert event on gam_quant,
+   no plain call, bytes per token 49,152 / 26,496, step and chunk ms,
+   tokens/s, peak GB, a profiled decode call with its ATen operators and
+   launches, each layer's dropped share and aux_loss in a prefill chunk;
+   then 3 AdamW steps of 2 x 1024 tokens under sub3 and fused sub3:
+   finite loss, grad norm and aux_loss > 0, the total equal to loss +
+   0.01 aux_loss, the router bf16 after the first step, every event and
+   fused GEMM on the kernels. (b) moonshot-v1-16b-a3b at full width and
+   depth 4 (``MOONSHOT_LAYERS``): 4 requests on a bf16 pool (32,768
+   bytes per token) and one sub3 step. (c) gemma-2b at full depth on
+   bf16 and kv_mor pools (18,432 / 9,396 bytes per token), every GEMM
+   but the tied head on the stream path. (d) ``moe_sublayer`` alone at
+   granite's width on 2 x 1024 and 4 x 1 inputs, forward and one
+   backward, under the tensor recipe, sub3 and fused sub3: kernel path
+   against plain path bit for bit (the relative-error lanes within
+   1e-6); fused, every expert GEMM (tc at 2 x 1024, stream at 4 x 1)
+   held against the plain version and the path bit for bit against
+   plain quantizers with the kernel GEMMs. One layer's expert GEMMs at
+   decode timed as the stack and as a loop of E mor_dots. granite at
+   depth 2 three ways (kernel, plain, f64 GEMMs), every mixed GEMM held
+   against the plain version, phase_depth2's rule gated with the
+   experts' activation events off; under the engine's policy the
+   kernel path fed the plain GEMM outputs must equal the plain path
+   (the expert stacks whose inputs moved are reported), with the share
+   of routing decisions the kernel and plain paths share.
+
 Prints JSON lines (the ``kernels``, ``engine``, ``serve_tiers``,
-``train``, ``train_state``, ``fault_tolerance``, ``generic_smem`` and
-``kernel_api`` lines among them) and ends with
+``model_zoo``, ``train``, ``train_state``, ``fault_tolerance``,
+``generic_smem`` and ``kernel_api`` lines among them) and ends with
 ``{"ok": true, "device":
 ...}``. Exits non-zero on any failure, without a card, or without the
 rest of the repository beside it.
@@ -208,6 +239,13 @@ def check(cond, msg):
     if not cond:
         raise AssertionError(msg)
 
+
+def select_inputs(ops, x):
+    """The selection kernels' prologue of one operand in 128 x 128
+    blocks (gam): (padded x, the (4,) kernel scalars)."""
+    xp, _, mg = ops._kernel_inputs(x[None], (128, 128), ops.SELECT_FORMATS,
+                                   "gam")
+    return xp[0], mg[0]
 
 def mixed_tags(shape, seed=0, bf16_blocks=True, dtype=torch.bfloat16):
     """Operand whose blocks hit every tag: normal rows (E4M3), rows of
@@ -547,7 +585,7 @@ def selection_rows(ops, ref, Partition, variant, w):
     for label, x, mode in (("sub3", w, "sub3"), ("sub4", w, "sub4"),
                            ("sub3_mixed_tags", wm, "sub3"),
                            ("sub4_mixed_tags", wm, "sub4")):
-        xp, _, mg = ops._select_inputs(x, (128, 128), "gam")
+        xp, mg = select_inputs(ops, x)
         if variant == "pack":
             mo_k, r_k = ops.quantize_pack(x, part[mode], mode, backend="cuda")
             mo_t, r_t = ops.quantize_pack(x, part[mode], mode,
@@ -580,7 +618,7 @@ def selection_rows(ops, ref, Partition, variant, w):
         rows[label] = row
     # The generic route on the same view, through the module's launcher
     # (timing only; mor_select_route sends every 128 x 128 call to tile).
-    xp, _, mg = ops._select_inputs(w, (128, 128), "gam")
+    xp, mg = select_inputs(ops, w)
     outs = fn(xp, mg, block=(128, 128), mode="sub3")
     t = {"x": xp, "mg": mg, **outs}
     keys = (("x", "mg", "payload_q", "payload_bf16", "sel", "scales",
@@ -588,10 +626,10 @@ def selection_rows(ops, ref, Partition, variant, w):
              "micro_scales") if variant == "pack" else
             ("x", "mg", "y", "sel", "scales", "e4_sums", "e5_sums", "counts",
              "nv_sums"))
-    ptrs = tuple(t[k].data_ptr() if k in t else None for k in keys)
+    tensors = tuple(t.get(k) for k in keys)
     rows["generic_route_sub3_ms"] = time_ms(lambda: _launch(
-        variant, "generic", ptrs, *xp.shape, (128, 128), "sub3", "gam",
-        xp.device), iters=20)
+        variant, "generic", tensors, 1, *xp.shape, (128, 128), "sub3",
+        "gam", xp.device), iters=20)
     del wm
     return rows
 
@@ -1016,10 +1054,8 @@ def gam_quant_on_route(ops, x, block, fmt, algo, route):
     from repro_torch.kernels.gam_quant import _launch
     M, K = x.shape
     bm, bk = block
-    xp = ops._pad2d(x, bm, bk).contiguous()
-    _, safe_g = ops._group_amax(x)
-    mg = torch.stack([ops._group_mantissa(safe_g, fmt, algo),
-                      safe_g]).to(torch.float32)
+    xp, _, mg = (t[0] for t in ops._kernel_inputs(x[None], block, (fmt,),
+                                                  algo))
     nm, nk = xp.shape[0] // bm, xp.shape[1] // bk
     out = (torch.empty_like(xp),
            torch.empty((nm, nk), dtype=torch.int32, device=x.device),
@@ -1027,10 +1063,8 @@ def gam_quant_on_route(ops, x, block, fmt, algo, route):
            torch.empty((nm, nk), dtype=torch.float32, device=x.device))
 
     def launch():
-        _launch(route, (xp.data_ptr(), mg.data_ptr(),
-                        *(t.data_ptr() for t in out)),
-                *xp.shape, block, algo, fmt.amax,
-                fmt.dtype == torch.float8_e5m2, xp.device)
+        _launch(route, (xp, mg, *out), 1, *xp.shape, block, algo,
+                fmt.amax, fmt.dtype == torch.float8_e5m2, xp.device)
         return (out[0][:M, :K], *out[1:])
     return launch
 
@@ -1186,8 +1220,7 @@ def gam_quant_rows(ops, ref, part, w):
         check_gam_quant(k, t, f"gam_quant timing {label} ({route})")
         rows[label] = {"route": route, "max_abs_err": float(
             (k[0].float() - t[0].float()).abs().max())}
-    _, safe_g = ops._group_amax(w)
-    mg2 = torch.stack([ops._group_mantissa(safe_g, E4M3, "gam"), safe_g])
+    mg2 = ops._kernel_inputs(w[None], (128, 128), (E4M3,), "gam")[2][0]
     before = dict(gam_quant_blocks.launches_by_route)
 
     def wrapper():
@@ -1232,7 +1265,7 @@ def select_f32_rows(ops, ref, Partition, w):
         check(torch.equal(bits16(k.y), bits16(t.y))
               and torch.equal(k.sel, t.sel),
               f"mor_select_select f32 timing {mode} differs")
-        xp, _, mg = ops._select_inputs(w32, (128, 128), "gam")
+        xp, mg = select_inputs(ops, w32)
 
         def call():
             return mor_select_select(xp, mg, block=(128, 128), mode=mode)
@@ -3918,6 +3951,714 @@ def phase_serve_tiers(cfg, ops, ref, smi, n_layers=N_LAYERS):
     return res, totals
 
 
+
+# ------------------------------------------------------------- model zoo --
+ZOO_ARCHS = ("granite-moe-1b-a400m", "gemma-2b", "moonshot-v1-16b-a3b")
+# moonshot-v1-16b-a3b at depth 4: its 48 layers are ~27 B params with the
+# experts in bf16 (the 4-D expert stacks stay dense under quantize, as
+# in the reference), ~55 GB, and a decode call would make 48 x 64 x 2 =
+# 6,144 expert mor_dots. Depth 4 keeps every shape.
+MOONSHOT_LAYERS = 4
+ZOO_TRAIN_STEPS = 3
+ZOO_DEV = "cuda"
+
+
+def zoo_requests(vocab, n=len(SERVE_LENGTHS)):
+    """phase_engine's requests (16 tokens each, request 3 sampled), the
+    first ``n`` of them."""
+    from repro_torch.serve import Request
+    rng = np.random.default_rng(0)
+    reqs = []
+    for i, L in enumerate(SERVE_LENGTHS):
+        kw = dict(temperature=0.8, top_k=40, seed=1) if i == 3 else {}
+        reqs.append(Request(i, rng.integers(0, vocab, L).astype(np.int32),
+                            max_tokens=16, **kw))
+    return reqs[:n]
+
+
+def zoo_gemms(cfg):
+    """(QTensor GEMMs of one model call, expert mor_dots of one model
+    call): the attention GEMMs (and a dense layer's MLP) take the mixed
+    GEMM, the untied head too; an MoE layer's experts run E x 2
+    mor_dots of two events each (one chunk: S <= 256)."""
+    per_layer = 2 if cfg.family == "moe" else 4
+    n_q = per_layer * cfg.n_units + (0 if cfg.tie_embed else 1)
+    experts = 2 * cfg.n_experts * cfg.n_units if cfg.family == "moe" else 0
+    return n_q, experts
+
+
+def zoo_bytes_per_token(cfg, tier):
+    hkv, dh = cfg.n_kv, cfg.head_dim
+    per = hkv * dh + hkv + 4 * hkv if tier.get("kv_mor") else 2 * hkv * dh
+    return 2 * cfg.n_units * per
+
+
+def zoo_layer_stats(eng):
+    """Each layer's dropped share and aux_loss in one 32-token prefill
+    chunk of a fresh row (on the trash page, outside the pool)."""
+    bt = torch.full((1, eng.pool.pages_per_seq), eng.pool.trash,
+                    dtype=torch.int64, device=eng.device)
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, eng.cfg.vocab, (1, 32))).to(eng.device)
+    _, _, st = eng._decode(eng.params, eng.pool.gather(bt), toks,
+                           torch.tensor([31], device=eng.device))
+    moe = st["blocks"]["moe"]
+    return {k: [float(v) for v in moe[k].cpu()] for k in ("dropped",
+                                                          "aux_loss")}
+
+
+def zoo_serve(cfg, params, name, tier, reqs, smi, totals, profile=True):
+    """One engine run (sub3 QTensor weights quantized by the Engine, the
+    default MoRDotPolicy) with the counters zeroed just before the
+    Engine is built and read just after the run: every request done,
+    every QTensor GEMM on the stream path, every expert event on
+    gam_quant, no plain call, bytes_per_token as computed."""
+    from repro_torch.core.policy import MoRDotPolicy, MoRPolicy
+    from repro_torch.serve import Engine, ServeConfig
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counters()
+    eng = Engine(cfg, MoRDotPolicy(), params,
+                 ServeConfig(slots=4, max_seq=512, prefill_chunk=32, **tier),
+                 quantize=MoRPolicy(recipe="sub3"), device=ZOO_DEV)
+    step_ms = {"decode": [], "prefill": []}
+
+    def timed(fn, key):
+        def wrapper(*a):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a)
+            torch.cuda.synchronize()
+            step_ms[key].append((time.perf_counter() - t) * 1e3)
+            return out
+        return wrapper
+
+    eng._decode_batch = timed(eng._decode_batch, "decode")
+    eng._prefill_chunk_step = timed(eng._prefill_chunk_step, "prefill")
+    for r in reqs:
+        eng.submit(r)
+    t0 = time.perf_counter()
+    steps = eng.run_to_completion()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    routes = tile_routes()
+    launches, paths = totals.add_current(name)
+    for r in reqs:
+        check(r.done and r.error is None, f"{name} request {r.rid}: "
+              f"{r.error}")
+        check(len(r.out) == r.max_tokens
+              and all(0 <= t < cfg.vocab for t in r.out),
+              f"{name} request {r.rid}: tokens {r.out}")
+    check(not eng.quarantined and not eng.rejected, f"{name}: quarantine")
+    calls = eng.prefill_chunks + eng.decode_steps
+    n_q, experts = zoo_gemms(cfg)
+    check(launches["mixed_gemm"] == n_q * calls
+          and paths["stream"] == launches["mixed_gemm"],
+          f"{name}: mixed_gemm {launches['mixed_gemm']} launches, paths "
+          f"{paths}, want {n_q} x {calls} model calls on the stream path")
+    check(launches["mor_select_pack"] == n_q
+          and routes["mor_select_pack"]["tile"] == n_q,
+          f"{name}: mor_select_pack {routes['mor_select_pack']}, want "
+          f"{n_q} weight matrices on the tile route")
+    check(launches["gam_quant"] == 2 * experts * calls,
+          f"{name}: gam_quant launched {launches['gam_quant']} times, "
+          f"want 2 x {experts} expert mor_dots x {calls} calls")
+    bpt = eng.pool.bytes_per_token()
+    check(bpt == zoo_bytes_per_token(cfg, tier),
+          f"{name}: bytes_per_token {bpt}")
+    tokens = sum(len(r.out) for r in reqs)
+    row = {"run": name, "arch": cfg.name, "layers": cfg.n_units,
+           **tier, "requests": len(reqs), "steps": steps,
+           "prefill_chunks": eng.prefill_chunks,
+           "decode_steps": eng.decode_steps,
+           "decode_step_ms": float(np.median(step_ms["decode"])),
+           "prefill_chunk_ms": float(np.median(step_ms["prefill"])),
+           "wall_s": wall, "tokens": tokens, "tokens_per_s": tokens / wall,
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "bytes_per_token": bpt, "launches": launches,
+           "mixed_gemm_paths": paths, "routes": routes, "card": smi}
+    if profile:
+        row["profile"] = profile_decode(eng)
+        row["aten_ops_per_decode_call"] = dispatched_ops(eng)
+        slots = eng.scfg.slots
+        bt = torch.full((slots, eng.pool.pages_per_seq), eng.pool.trash,
+                        dtype=torch.int64, device=eng.device)
+        reset_counters()
+        eng._step_fn(bt, np.zeros((slots, 1), np.int32),
+                     np.zeros(slots, np.int32))
+        torch.cuda.synchronize()
+        row["launches_per_decode_call"] = read_counters()[0]
+        row["gam_quant_routes_per_decode_call"] = tile_routes()["gam_quant"]
+    if cfg.family == "moe":
+        row["prefill_chunk_layer_stats"] = zoo_layer_stats(eng)
+    out = [list(r.out) for r in reqs]
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"model_zoo_serve": row})
+    return row, out
+
+
+def zoo_batch(cfg, step):
+    from repro_torch.data import DataConfig, SyntheticLM
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
+                                  global_batch=TRAIN_BATCH, seed=1234))
+    return {k: torch.from_numpy(v.astype(np.int64)).to(ZOO_DEV)
+            for k, v in data.batch_at(step).items()}
+
+
+def zoo_train(cfg, name, pol, steps, smi, totals):
+    """``steps`` AdamW steps of make_train_step on 2 x 1024 SyntheticLM
+    tokens, the counters zeroed just before and read just after: finite
+    loss, grad norm and aux_loss, aux_loss > 0, the total the loss plus
+    0.01 aux_loss as computed, the router bf16 after the first step,
+    every event (and, fused, every GEMM) on the kernels."""
+    from repro_torch.models import blocks
+    from repro_torch.models import init_params
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.train import TrainConfig, make_train_step
+    params = init_params(cfg, seed=0, device=ZOO_DEV)
+    opt = init_opt_state(params)
+    step_fn = make_train_step(cfg, pol, TrainConfig(
+        optimizer=AdamWConfig(warmup_steps=1)))
+    batches = [zoo_batch(cfg, s) for s in range(steps)]
+    dropped = []
+    moe_sublayer = blocks.moe_sublayer
+
+    def spy(*a, **kw):
+        y, st = moe_sublayer(*a, **kw)
+        dropped.append(st["dropped"].detach())
+        return y, st
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    rows = []
+    reset_counters()
+    with patched(blocks, "moe_sublayer", spy):
+        for s, batch in enumerate(batches):
+            dropped.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, m = step_fn(params, opt, batch)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            # The forward's drops (the remat recompute repeats them).
+            drop = float(torch.stack(dropped[:cfg.n_units]).mean())
+            total_ok = bool(m["total_loss"] == m["loss"]
+                            + 0.01 * m["aux_loss"])
+            row = {"run": name, "step": s, "step_ms": dt * 1e3,
+                   "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / dt,
+                   **{k: float(m[k]) for k in (
+                       "loss", "aux_loss", "total_loss", "grad_norm",
+                       "fwd_frac_bf16", "bwd_frac_bf16", "fwd_rel_err",
+                       "bwd_rel_err")},
+                   "dropped_mean_over_layers": drop,
+                   "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+            emit({"model_zoo_train_step": row, "card": smi})
+            check(all(np.isfinite(row[k]) for k in (
+                "loss", "aux_loss", "grad_norm")) and row["aux_loss"] > 0,
+                f"{name} step {s}: {row}")
+            check(total_ok, f"{name} step {s}: total_loss != loss + 0.01 "
+                  "aux_loss")
+            router = params["blocks"]["moe"]["moe"]["router"]
+            check(router.dtype == torch.bfloat16,
+                  f"{name}: router {router.dtype} after step {s}")
+            rows.append(row)
+    routes = tile_routes()
+    launches, paths = totals.add_current(name)
+    n_sub = TRAIN_SEQ // 256
+    dots = cfg.n_units * (2 + n_sub * cfg.n_experts * 2) * steps
+    events = dots * (2 * 2 + 3)
+    if pol.fuse_gemm:
+        want = {"mor_select_pack": events, "mixed_gemm": dots * 4}
+    else:
+        want = {"mor_select_select": events}
+    for kern, n in want.items():
+        check(launches[kern] == n, f"{name}: {kern} launched "
+              f"{launches[kern]} times, want {n} (every event)")
+    res = {"arch": cfg.name, "layers": cfg.n_units, "steps": rows,
+           "step_ms_median": float(np.median([r["step_ms"] for r in rows])),
+           "launches_per_step": {k: v / steps for k, v in launches.items()},
+           "mixed_gemm_paths_per_step": {k: v / steps
+                                         for k, v in paths.items()},
+           "routes_per_step": {k: {r: n / steps for r, n in v.items()}
+                               for k, v in routes.items()},
+           "card": smi}
+    del params, opt, step_fn, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def zoo_moe_layer(cfg, seed=3):
+    """One MoE layer's weights at full width, drawn as init_params draws
+    them."""
+    gen = torch.Generator(device=ZOO_DEV)
+    gen.manual_seed(seed)
+    E, d, f = cfg.n_experts, cfg.d_model, cfg.d_ff
+    std = 0.02 / max(1.0, (2 * cfg.n_layers) ** 0.5)
+
+    def normal(shape, s, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=gen, device=ZOO_DEV) * s).to(
+            dtype)
+    return {"router": normal((d, E), 0.02, torch.float32),
+            "w1": normal((E, d, 2 * f), 0.02), "w2": normal((E, f, d), std)}
+
+
+def zoo_route_spy():
+    """(context manager over blocks._route / blocks._slots, the record)."""
+    from repro_torch.models import blocks
+    seen = []
+    slots = blocks._slots
+
+    def spy(ids, E, C):
+        out = slots(ids, E, C)
+        seen.append((ids, *out[1:]))
+        return out
+    return patched(blocks, "_slots", spy), seen
+
+
+def zoo_checked_gemm(ops, ref, seen):
+    """``ops.mixed_gemm`` that launches the kernel and holds every call
+    against the plain version on the same packs (``gemm_tol``), keyed by
+    (M, N, K, GEMM path); returns the kernel's result."""
+    from repro_torch.kernels.mixed_gemm import gemm_path
+    orig = ops.mixed_gemm
+
+    def gemm(a, b, *, out_dtype=torch.bfloat16, backend="auto", tile=None):
+        yk = orig(a, b, out_dtype=out_dtype, backend="cuda")
+        yt = orig(a, b, out_dtype=out_dtype, backend="torch")
+        K = a.shape[1]
+        A = ref.decode_mixed_ref(a)[:a.shape[0], :K]
+        B = ref.decode_mixed_ref(b)[:b.shape[0], :K]
+        err = (yk.float() - yt.float()).abs()
+        key = (a.shape[0], b.shape[0], K, gemm_path(a.shape[0]))
+        check(bool(torch.all(err <= gemm_tol(A, B, yt, out_dtype))),
+              f"expert mixed_gemm M,N,K,path={key}: max err "
+              f"{float(err.max())} beyond 1e-5 sum|a||b| (+1 bf16 ulp)")
+        s = seen.setdefault(key, {"calls": 0, "max_abs_err": 0.0,
+                                  "kernel_vs_plain_differ": 0.0})
+        s["calls"] += 1
+        s["max_abs_err"] = max(s["max_abs_err"], float(err.max()))
+        s["kernel_vs_plain_differ"] = max(
+            s["kernel_vs_plain_differ"], float((yk != yt).float().mean()))
+        return yk
+    return gemm
+
+
+def zoo_sublayer_run(p, x, g, pol, cfg):
+    """moe_sublayer forward and one backward of sum(y * g) on fresh
+    leaves: (routing record, y, stats, {grad name: grad})."""
+    from repro_torch.core.linear import N_BWD_EVENTS
+    from repro_torch.core.mor import STATS_WIDTH
+    from repro_torch.models import blocks
+    leaves = {k: v.detach().clone().requires_grad_(True)
+              for k, v in p.items()}
+    xl = x.detach().clone().requires_grad_(True)
+    tok = {k: torch.zeros((cfg.n_experts, N_BWD_EVENTS, STATS_WIDTH),
+                          device=x.device, requires_grad=True)
+           for k in ("w1", "w2")}
+    ctx, seen = zoo_route_spy()
+    with ctx:
+        y, st = blocks.moe_sublayer(leaves, xl, tok, pol, cfg)
+    (y.float() * g).sum().backward()
+    torch.cuda.synchronize()
+    grads = {"dx": xl.grad, **{f"d{k}": v.grad for k, v in leaves.items()},
+             **{f"tok_{k}": v.grad for k, v in tok.items()}}
+    return seen, y.detach(), {k: v.detach() for k, v in st.items()}, grads
+
+
+def zoo_same(a, b, what, rel_lane=None):
+    """a and b bit for bit; with ``rel_lane`` (a stats row's or a token
+    gradient's relative-error lane) that lane within 1e-6 relative.
+    Returns that lane's largest relative difference (0.0 without)."""
+    if rel_lane is None:
+        check(torch.equal(bits16(a), bits16(b)), f"{what} differs")
+        return 0.0
+    lanes = [i for i in range(a.shape[-1]) if i != rel_lane]
+    check(torch.equal(bits16(a[..., lanes]), bits16(b[..., lanes])),
+          f"{what} differs")
+    r = float(((a[..., rel_lane] - b[..., rel_lane]).abs()
+               / b[..., rel_lane].abs().clamp_min(1e-30)).max())
+    check(r <= 1e-6, f"{what}: relative-error lane {r} apart")
+    return r
+
+
+def zoo_moe_parity(cfg, ops, ref, smi):
+    """(d) moe_sublayer alone at full width, forward and one backward,
+    kernel path against plain path (backend='torch') on the same CUDA
+    tensors, under the tensor recipe, sub3 and fused sub3, on 2 x 1024
+    (fused: the experts' GEMMs at M = B C = 160 on the tc path) and 4 x 1
+    (C = 1: the stream path). Routing, slots, keep, aux_loss and dropped
+    bit-identical; the tensor and sub3 outputs, stats rows and gradients
+    (x, router, w1, w2, the stats tokens) too, but for the
+    relative-error lane (gam_quant's f64 error sums: 1e-6 relative).
+    Fused, the expert GEMMs sum in another order than the plain version,
+    so: every expert GEMM of the kernel path held against the plain
+    version on its packs (``gemm_tol``), and the kernel path bit for bit
+    against a third path whose quantizers are the plain versions and
+    whose GEMMs are the kernel (any pack, slab offset or stats lane of
+    the stacked quantizers that differs shows there); its distance from
+    the plain path is reported."""
+    from repro_torch.core.mor import STAT_REL_ERR
+    from repro_torch.core.policy import paper_default
+    p = zoo_moe_layer(cfg)
+    rng = np.random.default_rng(6)
+    pols = {"tensor": paper_default("tensor"), "sub3": paper_default("sub3"),
+            "sub3_fused": paper_default("sub3").replace(fuse_gemm=True)}
+    res = []
+    for shape in ((TRAIN_BATCH, TRAIN_SEQ, cfg.d_model),
+                  (4, 1, cfg.d_model)):
+        x = torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(ZOO_DEV).to(torch.bfloat16)
+        g = torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(ZOO_DEV)
+        for recipe, pol in pols.items():
+            what = f"moe_sublayer {recipe} {tuple(shape)}"
+            gemms = {}
+            with patched(ops, "mixed_gemm", zoo_checked_gemm(ops, ref,
+                                                             gemms)):
+                kern = zoo_sublayer_run(p, x, g, with_backend(pol, "auto"),
+                                        cfg)
+            plain = zoo_sublayer_run(p, x, g, with_backend(pol, "torch"),
+                                     cfg)
+            (rk, yk, sk, gk), (rp, yp, sp, gp) = kern, plain
+            check(len(rk) == len(rp) and all(
+                all(torch.equal(a, b) for a, b in zip(u, v))
+                for u, v in zip(rk, rp)), f"{what}: routing differs")
+            for k in ("aux_loss", "dropped"):
+                zoo_same(sk[k], sp[k], f"{what}: {k}")
+            row = {"recipe": recipe, "shape": list(shape), "chunks": len(rk),
+                   "dropped": float(sk["dropped"]),
+                   "aux_loss": float(sk["aux_loss"]), "card": smi}
+            if not pol.fuse_gemm:
+                check(not gemms, f"{what}: a mixed GEMM ran unfused")
+                rel = [zoo_same(yk, yp, f"{what}: output")]
+                rel += [zoo_same(sk[k], sp[k], f"{what}: {k} stats rows",
+                                 STAT_REL_ERR) for k in ("w1", "w2")]
+                for k in gk:
+                    rel.append(zoo_same(gk[k], gp[k], f"{what}: {k}",
+                                        STAT_REL_ERR if k.startswith("tok")
+                                        else None))
+                row.update(bit_identical=True, rel_err_lane_max_rel_diff=max(
+                    rel))
+                res.append(row)
+                continue
+            # 2 x 1024: every expert GEMM at M = B C = 160 or d (tc);
+            # 4 x 1: the forward and dgrad at M = 4 (stream).
+            fwd_path = "tc" if shape[1] > 1 else "stream"
+            check(any(k[3] == fwd_path for k in gemms),
+                  f"{what}: no expert GEMM on the {fwd_path} path: "
+                  f"{sorted(gemms)}")
+            # The experts' first events quantize the same dispatched
+            # tokens and weights on both paths.
+            rel = [zoo_same(sk["w1"], sp["w1"], f"{what}: w1 stats rows",
+                            STAT_REL_ERR)]
+            orig = ops.mixed_gemm
+
+            def kernel_gemm(a, b, *, out_dtype=torch.bfloat16,
+                            backend="auto", tile=None):
+                return orig(a, b, out_dtype=out_dtype, backend="cuda")
+            with patched(ops, "mixed_gemm", kernel_gemm):
+                rh, yh, sh, gh = zoo_sublayer_run(
+                    p, x, g, with_backend(pol, "torch"), cfg)
+            rel.append(zoo_same(yk, yh, f"{what}: output vs plain "
+                                "quantizers + kernel GEMMs"))
+            rel += [zoo_same(sk[k], sh[k], f"{what}: {k} stats rows vs plain "
+                             "quantizers + kernel GEMMs", STAT_REL_ERR)
+                    for k in ("w1", "w2")]
+            for k in gk:
+                rel.append(zoo_same(gk[k], gh[k], f"{what}: {k} vs plain "
+                                    "quantizers + kernel GEMMs",
+                                    STAT_REL_ERR if k.startswith("tok")
+                                    else None))
+            far = {k: {"max_abs_diff": float((gk[k].float()
+                                              - gp[k].float()).abs().max()),
+                       "max_abs": float(gp[k].float().abs().max()),
+                       "differ_share": float((gk[k] != gp[k]).float().mean())}
+                   for k in ("dx", "drouter", "dw1", "dw2")}
+            far["y"] = {"max_abs_diff": float((yk.float()
+                                               - yp.float()).abs().max()),
+                        "max_abs": float(yp.float().abs().max()),
+                        "differ_share": float((yk != yp).float().mean())}
+            row.update(
+                bit_identical_to_plain_quantizers_kernel_gemms=True,
+                rel_err_lane_max_rel_diff=max(rel), kernel_vs_plain=far,
+                expert_gemms=[{"M": k[0], "N": k[1], "K": k[2],
+                               "path": k[3], **v}
+                              for k, v in sorted(gemms.items())])
+            res.append(row)
+    return res
+
+
+def zoo_expert_loop(cfg, smi, reps=5):
+    """One granite layer's expert GEMMs at the decode shape (4 slots, C =
+    1: x (E, 4, d) against w1, h (E, 4, f) against w2) under the engine's
+    policy, on the kernels, two ways: one ``mor_dot_experts`` a GEMM (the
+    expert stack) and a loop of E ``mor_dot`` calls (each a stack of
+    one: the loop the stack replaced): wall ms a layer, the median of
+    ``reps`` with the card synchronised, and the largest difference of
+    their values (the stack multiplies with a batched GEMM)."""
+    from repro_torch.core.linear import mor_dot, mor_dot_experts
+    from repro_torch.core.policy import MoRDotPolicy
+    p = zoo_moe_layer(cfg)
+    E = cfg.n_experts
+    gen = torch.Generator(device=ZOO_DEV)
+    gen.manual_seed(7)
+    x = torch.randn((E, 4, cfg.d_model), generator=gen,
+                    device=ZOO_DEV).to(torch.bfloat16)
+    h = torch.randn((E, 4, cfg.d_ff), generator=gen,
+                    device=ZOO_DEV).to(torch.bfloat16)
+    pol = MoRDotPolicy()
+
+    def stack():
+        return [mor_dot_experts(a, p[w], None, pol)[0]
+                for a, w in ((x, "w1"), (h, "w2"))]
+
+    def loop():
+        return [torch.stack([mor_dot(a[e], p[w][e], None, pol)[0]
+                             for e in range(E)])
+                for a, w in ((x, "w1"), (h, "w2"))]
+    ms, outs = {}, {}
+    with torch.no_grad():
+        for name, fn in (("stack", stack), ("loop", loop)):
+            fn()
+            ts = []
+            for _ in range(reps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                outs[name] = fn()
+                torch.cuda.synchronize()
+                ts.append((time.perf_counter() - t0) * 1e3)
+            ms[name] = float(np.median(ts))
+    diff = max(float((a.float() - b.float()).abs().max())
+               for a, b in zip(outs["stack"], outs["loop"]))
+    check(np.isfinite(diff), f"expert loop: values {diff} apart")
+    return {"experts": E, "tokens_per_expert": 4, "layer_ms": ms,
+            "decode_call_ms_at_depth": {k: v * cfg.n_units
+                                        for k, v in ms.items()},
+            "stack_vs_loop_max_abs_diff": diff, "card": smi}
+
+
+def zoo_quant_spy(ops, seen):
+    """``ops.quant_err`` that records (x, group amax, y) of every call."""
+    orig = ops.quant_err
+
+    def quant_err(x, *a, **kw):
+        q = orig(x, *a, **kw)
+        seen.append((x, q.group_amax, q.y))
+        return q
+    return quant_err
+
+
+def zoo_flips(qk, qp):
+    """The expert stacks of two runs' ``quant_err`` calls (in call order;
+    under the engine's policy a model call makes 4 a layer: w1's tokens,
+    w1, w2's hidden rows, w2) whose input differs: how many elements of
+    the input and of the E4M3 output differ, and whether the group amax
+    (hence every scale of the stack's expert) moved."""
+    rows = []
+    for i, ((xk, ak, yk), (xp, ap, yp)) in enumerate(zip(qk, qp)):
+        for e in range(xk.shape[0]):
+            dx = int((xk[e] != xp[e]).sum())
+            if not dx:
+                continue
+            xd = (xk[e].float() - xp[e].float()).abs().max()
+            yd = (yk[e].float() - yp[e].float()).abs().max()
+            rows.append({"call": i, "expert": e, "elements": xk[e].numel(),
+                         "amax": float(ap[e]), "x_differ": dx,
+                         "x_max_abs_diff": float(xd),
+                         "amax_equal": bool(ak[e] == ap[e]),
+                         "y_differ": int((yk[e] != yp[e]).sum()),
+                         "y_max_abs_diff": float(yd)})
+    return rows
+
+
+def zoo_depth2(cfg, ops, ref, smi):
+    """(d) phase_depth2's check on granite at full width and depth 2: a
+    prefill chunk (4 x 8 tokens) and a decode step, kernel path, plain
+    path (every backend 'torch') and a path whose GEMMs (the mixed GEMMs
+    and the expert products) sum in f64. Every mixed GEMM of the kernel
+    path is held against the plain version on its real inputs
+    (``checked_dot``) and the kernel path repeats bit for bit. With the
+    experts' activation events off, the kernel path is at most twice as
+    far from the f64 path as the plain path. Under the engine's policy
+    that rule does not hold (a settled divergence, ROADMAP Queue 3): an
+    expert buffer's tokens come from the attention's mixed GEMMs, whose
+    kernel sums in another order than the plain version, and where a
+    bf16 ulp of that moves an expert stack's input the tensor recipe's
+    E4M3 rounding of the stack moves by up to its own ulp (2^-3
+    relative), which the logits carry. There the gate is that the gap
+    closes: the kernel path fed the plain version's GEMM outputs (its
+    quantizer kernels unchanged) is the plain path bit for bit; the
+    flipped stacks (``zoo_flips``) and the ratio are reported. The
+    router is scaled by 10 so that its top-8 margins stand well above
+    the noise; the share of routing decisions on which the kernel and
+    plain paths agree is reported."""
+    from repro_torch.core import linear
+    from repro_torch.core.policy import MoRDotPolicy, MoRPolicy
+    from repro_torch.models import init_cache, init_params, make_decode_fn
+    from repro_torch.serve.quantized import quantize_params
+    cfg = dataclasses.replace(cfg, n_layers=2)
+    params = init_params(cfg, seed=1, device=ZOO_DEV)
+    params["blocks"]["moe"]["moe"]["router"] *= 10.0
+    params, _ = quantize_params(params, MoRPolicy(recipe="sub3"))
+    rng = np.random.default_rng(1)
+    chunk = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 8))).to(ZOO_DEV)
+    tok = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 1))).to(ZOO_DEV)
+
+    def run(backend, act):
+        p = MoRPolicy(backend=backend)
+        fn = make_decode_fn(cfg, MoRDotPolicy(
+            act=p.replace(recipe=act), weight=p, grad=p))
+        cache = init_cache(cfg, 4, 64, device=ZOO_DEV)
+        ctx, seen = zoo_route_spy()
+        with ctx:
+            l1, cache, _ = fn(params, cache, chunk,
+                              torch.full((4,), 7, device=ZOO_DEV))
+            l2, cache, _ = fn(params, cache, tok,
+                              torch.full((4,), 8, device=ZOO_DEV))
+        return (l1[..., :cfg.vocab], l2[..., :cfg.vocab]), seen
+
+    def f64_mixed(x2, mo, *, out_dtype=torch.bfloat16, backend="auto"):
+        w = ref.decode_mixed_ref(mo)[:mo.shape[0], :x2.shape[1]]
+        return (x2.double() @ w.double().T).float().to(out_dtype)
+
+    def f64_dot(a, b_t, out_dtype):
+        return (a.double() @ b_t.double().mT).float().to(out_dtype)
+
+    mixed_dot = ops.mixed_dot
+
+    def plain_dot(x2, mo, *, out_dtype=torch.bfloat16, backend="auto"):
+        return mixed_dot(x2, mo, out_dtype=out_dtype, backend="torch")
+
+    res = {"card": smi}
+    for act, gated in (("off", True), ("tensor", False)):
+        out, routes, gemms, quants = {}, {}, {}, {"kernel": [], "plain": []}
+        with patched(ops, "mixed_dot", checked_dot(ops, ref, gemms)), \
+                patched(ops, "quant_err", zoo_quant_spy(ops,
+                                                        quants["kernel"])):
+            out["kernel"], routes["kernel"] = run("auto", act)
+        again, _ = run("auto", act)
+        with patched(ops, "quant_err", zoo_quant_spy(ops, quants["plain"])):
+            out["plain"], routes["plain"] = run("torch", act)
+        with patched(ops, "mixed_dot", f64_mixed), \
+                patched(linear, "_dot", f64_dot):
+            out["f64"], routes["f64"] = run("auto", act)
+        agree = n = 0
+        for a, b in zip(routes["kernel"], routes["plain"]):
+            agree += int((a[0] == b[0]).sum())
+            n += a[0].numel()
+        r_act = res[f"expert_act_{act}"] = {
+            "gated_2x": gated, "routing_agreement_kernel_plain": agree / n,
+            "routing_decisions": n,
+            "gemms": [{"M": k[0], "N": k[1], "K": k[2], "out": k[3], **v}
+                      for k, v in sorted(gemms.items())]}
+        if act != "off":
+            flips = zoo_flips(quants["kernel"], quants["plain"])
+            with patched(ops, "mixed_dot", plain_dot):
+                fed, _ = run("auto", act)
+            r_act["stacks_moved"] = {
+                "quant_err_calls": len(quants["kernel"]),
+                "stacks_with_input_moved": len(flips),
+                "of_which_amax_moved": sum(not f["amax_equal"]
+                                           for f in flips),
+                "of_which_output_moved": sum(f["y_differ"] > 0
+                                             for f in flips),
+                "outputs_moved": sum(f["y_differ"] for f in flips),
+                "first": flips[:8]}
+        for i, what in enumerate(("prefill_chunk", "decode_step")):
+            check(torch.equal(out["kernel"][i], again[i]),
+                  f"zoo depth-2 {what}: the kernel path does not repeat")
+            k, p, e = (out[m][i] for m in ("kernel", "plain", "f64"))
+            r = r_act[what] = {
+                "max_logit": float(p.abs().max()),
+                "kernel_vs_plain": float((k - p).abs().max()),
+                "kernel_vs_f64": float((k - e).abs().max()),
+                "plain_vs_f64": float((p - e).abs().max()),
+                "argmax_equal": bool(torch.equal(k.argmax(-1),
+                                                 p.argmax(-1))),
+            }
+            check(not gated or r["kernel_vs_f64"] <= 2.0 * r["plain_vs_f64"],
+                  f"zoo depth-2 {what}: kernel path {r['kernel_vs_f64']} "
+                  f"from the f64 path, plain path {r['plain_vs_f64']}")
+            if act != "off":
+                r["fed_plain_gemms_equal_plain"] = bool(torch.equal(
+                    bits16(fed[i]), bits16(p)))
+                check(r["fed_plain_gemms_equal_plain"],
+                      f"zoo depth-2 {what}: the kernel path fed the plain "
+                      "GEMM outputs differs from the plain path")
+    del params
+    return res
+
+
+def phase_model_zoo(ops, ref, smi, cfgs=None):
+    """The MoE family and gemma-2b, serving and training (module
+    docstring, item 12). ``cfgs``: {arch: config} overrides (a CPU
+    rehearsal passes reduced ones). Returns (the model_zoo line, the
+    Totals of its main-path runs)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import paper_default
+    from repro_torch.models import init_params
+    t_phase = time.perf_counter()
+    cfgs = cfgs or {}
+    granite, gemma, moonshot = (cfgs.get(a) or get_config(a)
+                                for a in ZOO_ARCHS)
+    if "moonshot-v1-16b-a3b" not in cfgs:
+        moonshot = dataclasses.replace(moonshot, n_layers=MOONSHOT_LAYERS)
+    totals = Totals()
+    res = {"card": smi}
+    res["moe_sublayer_parity"] = zoo_moe_parity(granite, ops, ref, smi)
+    res["expert_loop"] = zoo_expert_loop(granite, smi)
+    serve = {}
+    params = init_params(granite, seed=0, device=ZOO_DEV)
+    ref_out = None
+    for tier_name, tier in (("bf16", {}), ("kv_mor", {"kv_mor": True})):
+        row, out = zoo_serve(granite, params, f"granite_{tier_name}", tier,
+                             zoo_requests(granite.vocab), smi, totals,
+                             profile=(tier_name == "bf16"))
+        if ref_out is not None:
+            row["tokens_equal_to_bf16"] = float(np.mean(
+                [a == b for x, y in zip(out, ref_out) for a, b in zip(x, y)]))
+        ref_out = out
+        serve[row["run"]] = row
+    del params
+    res["train"] = {}
+    for name, pol in (("granite_sub3", paper_default("sub3")),
+                      ("granite_sub3_fused",
+                       paper_default("sub3").replace(fuse_gemm=True))):
+        res["train"][name] = zoo_train(granite, name, pol, ZOO_TRAIN_STEPS,
+                                       smi, totals)
+    params = init_params(gemma, seed=0, device=ZOO_DEV)
+    for tier_name, tier in (("bf16", {}), ("kv_mor", {"kv_mor": True})):
+        row, _ = zoo_serve(gemma, params, f"gemma_{tier_name}", tier,
+                           zoo_requests(gemma.vocab), smi, totals,
+                           profile=(tier_name == "bf16"))
+        serve[row["run"]] = row
+    del params
+    params = init_params(moonshot, seed=0, device=ZOO_DEV)
+    row, _ = zoo_serve(moonshot, params, "moonshot_bf16", {},
+                       zoo_requests(moonshot.vocab, 4), smi, totals)
+    serve[row["run"]] = row
+    del params
+    res["serve"] = serve
+    res["train"]["moonshot_sub3"] = zoo_train(
+        moonshot, "moonshot_sub3", paper_default("sub3"), 1, smi, totals)
+    res["depth2"] = zoo_depth2(granite, ops, ref, smi)
+    res["config"] = {c.name: {"layers": c.n_units, "d_model": c.d_model,
+                              "n_experts": c.n_experts, "top_k": c.top_k,
+                              "d_ff": c.d_ff, "vocab": c.vocab,
+                              "params": c.param_count(),
+                              "active_params": c.active_param_count()}
+                     for c in (granite, gemma, moonshot)}
+    res["launches"] = totals.launches
+    res["phase_s"] = time.perf_counter() - t_phase
+    return res, totals
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3973,6 +4714,12 @@ def main():
     torch.cuda.empty_cache()
     serve_tiers, serve_totals = phase_serve_tiers(cfg, ops, ref, smi)
     emit({"serve_tiers": serve_tiers})
+    gc.collect()
+    torch.cuda.empty_cache()
+    zoo, zoo_totals = phase_model_zoo(ops, ref, smi)
+    emit({"model_zoo": zoo})
+    gc.collect()
+    torch.cuda.empty_cache()
     depth2 = phase_depth2(cfg, ops, ref)
     serve_grad = phase_serve_grad()
     train, train_launches, train_paths, train_routes = phase_train(cfg)
@@ -4006,6 +4753,7 @@ def main():
         t = timing[name]
         by_path = {"engine": launches.get(name, 0),
                    "serve_tiers": serve_totals.launches[name],
+                   "model_zoo": zoo_totals.launches[name],
                    "train": train_launches[name],
                    "train_state": state_launches[name],
                    "generic_smem": generic_launches[name],
@@ -4027,7 +4775,8 @@ def main():
             # train_shapes: the tc path.
             entry["launches_by_gemm_path"] = {
                 k: engine_paths[k] + serve_totals.paths[k] + train_paths[k]
-                + ft_paths[k] for k in ("stream", "tc")}
+                + ft_paths[k] + zoo_totals.paths[k]
+                for k in ("stream", "tc")}
             entry["serve_tiers_gemm_paths"] = serve_totals.paths
             entry["parity_max_err_over_tol"] = gemm_parity
             entry["train_shapes"] = {g: timing[f"mixed_gemm_{g}"]
@@ -4041,6 +4790,7 @@ def main():
             # generic_ms).
             entry["launches_by_route"] = {
                 r: engine_routes[name][r] + serve_totals.routes[name][r]
+                + zoo_totals.routes[name][r]
                 + train_routes[name][r] + state_routes[name][r]
                 + generic_routes[name][r] + ft_routes[name][r]
                 for r in ("tile", "generic")}

@@ -1,3 +1,5 @@
-from .base import ArchConfig, get_config, list_archs, reduced, register
+from .base import (SHAPES, ArchConfig, ShapeConfig, cell_is_runnable,
+                   get_config, input_specs, list_archs, reduced, register)
 
-__all__ = ["ArchConfig", "get_config", "list_archs", "reduced", "register"]
+__all__ = ["SHAPES", "ArchConfig", "ShapeConfig", "cell_is_runnable",
+           "get_config", "input_specs", "list_archs", "reduced", "register"]

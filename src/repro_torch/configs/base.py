@@ -1,9 +1,11 @@
-"""Architecture configs (port of ``repro.configs.base``).
+"""Architecture configs and input shapes (port of
+``repro.configs.base``).
 
 Every architecture is a frozen :class:`ArchConfig`; the registry maps
 names to configs and ``reduced()`` produces the CPU-test downscale of
-the same family. The JAX module's ShapeDtypeStruct input specs are not
-ported yet.
+the same family. ``input_specs`` gives every model input of a cell as
+``{name: (shape, torch dtype)}``, the convention of
+``models.cache_specs``.
 """
 from __future__ import annotations
 
@@ -11,7 +13,26 @@ import dataclasses
 import importlib
 from typing import Dict, Tuple
 
-__all__ = ["ArchConfig", "register", "get_config", "list_archs", "reduced"]
+import torch
+
+__all__ = ["ArchConfig", "ShapeConfig", "SHAPES", "register", "get_config",
+           "list_archs", "reduced", "input_specs", "cell_is_runnable"]
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # 'train' | 'prefill' | 'decode'
+
+
+SHAPES: Dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeConfig("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeConfig("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeConfig("long_500k", 524288, 1, "decode"),
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,13 +69,53 @@ class ArchConfig:
     def n_units(self) -> int:
         return self.n_layers // len(self.unit)
 
+    @property
+    def mamba_d_inner(self) -> int:
+        return self.d_inner or 2 * self.d_model
+
+    def param_count(self) -> int:
+        """Approximate parameter count (embeddings + blocks), every
+        family (the reference's arithmetic)."""
+        d, f, v = self.d_model, self.d_ff, self.vocab
+        hq, hkv, hd = self.n_heads, self.n_kv, self.head_dim
+        attn = d * (hq + 2 * hkv) * hd + hq * hd * d
+        gated = self.act in ("swiglu", "geglu")
+        mlp = d * f * (3 if gated else 2)
+        di = self.mamba_d_inner
+        per_type = {
+            "dense": attn + mlp,
+            "moe": attn + self.n_experts * d * f * (3 if gated else 2)
+            + d * self.n_experts,
+            "hymba": (attn + mlp + 2 * d * di + di * d
+                      + di * (2 * self.ssm_state + 2)
+                      + di * self.conv_width),
+            "mlstm": 2 * d * (2 * d) + (2 * d) * d + 3 * d,
+            "slstm": 8 * d * d // max(self.n_heads, 1) * self.n_heads,
+        }
+        total = 0
+        for t in self.unit:
+            total += per_type.get(t, per_type["dense"]) * self.n_units
+        total += v * d * (1 if self.tie_embed else 2)
+        total += self.enc_layers * (attn + mlp)
+        return total
+
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: top_k of n_experts)."""
+        if self.n_experts == 0:
+            return self.param_count()
+        d, f = self.d_model, self.d_ff
+        per_expert = d * f * (3 if self.act in ("swiglu", "geglu") else 2)
+        return self.param_count() - (
+            (self.n_experts - self.top_k) * per_expert) * self.n_units
+
 
 _REGISTRY: Dict[str, ArchConfig] = {}
 
-# Configs ported so far (the dense family's); the JAX registry holds
-# eleven.
+# Configs ported so far; the JAX registry holds eleven (whisper-tiny,
+# paligemma-3b, hymba-1.5b and xlstm-350m wait for their blocks).
 _ARCH_MODULES = ["llama3_8b", "nemotron3_8b", "minitron_4b",
-                 "deepseek_coder_33b"]
+                 "deepseek_coder_33b", "gemma_2b", "granite_moe_1b_a400m",
+                 "moonshot_v1_16b_a3b"]
 
 
 def register(cfg: ArchConfig) -> ArchConfig:
@@ -81,6 +142,14 @@ def list_archs():
     return sorted(_REGISTRY)
 
 
+def cell_is_runnable(cfg: ArchConfig,
+                     shape: ShapeConfig) -> Tuple[bool, str]:
+    """Whether (arch x shape) is a defined cell."""
+    if shape.name == "long_500k" and not cfg.subquadratic:
+        return False, "long_500k needs sub-quadratic attention (skip noted)"
+    return True, ""
+
+
 def reduced(cfg: ArchConfig) -> ArchConfig:
     """CPU-test downscale preserving the family's structure (same
     numbers as the JAX ``reduced``)."""
@@ -104,3 +173,36 @@ def reduced(cfg: ArchConfig) -> ArchConfig:
         img_tokens=min(cfg.img_tokens, 8) if cfg.img_tokens else 0,
         window=min(cfg.window, 8) if cfg.window else 0,
     )
+
+
+def _frontend_specs(cfg: ArchConfig, batch: int):
+    """The stub modality frontends' inputs (precomputed embeddings)."""
+    extras = {}
+    if cfg.family == "audio":
+        extras["frames"] = ((batch, cfg.enc_seq, cfg.d_model),
+                            torch.bfloat16)
+    if cfg.family == "vlm":
+        extras["patches"] = ((batch, cfg.img_tokens, cfg.d_model),
+                             torch.bfloat16)
+    return extras
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeConfig):
+    """{name: (shape, dtype)} of every model input of this cell.
+
+    train   -> tokens, labels, frontends
+    prefill -> tokens, frontends
+    decode  -> token (B, 1) and cur_index (B,), one position per slot;
+               the cache's specs come from ``models.cache_specs``.
+    """
+    b, s = shape.global_batch, shape.seq_len
+    if shape.kind == "train":
+        return {"tokens": ((b, s), torch.int32),
+                "labels": ((b, s), torch.int32),
+                **_frontend_specs(cfg, b)}
+    if shape.kind == "prefill":
+        return {"tokens": ((b, s), torch.int32), **_frontend_specs(cfg, b)}
+    if shape.kind == "decode":
+        return {"token": ((b, 1), torch.int32),
+                "cur_index": ((b,), torch.int32)}
+    raise ValueError(shape.kind)

@@ -45,7 +45,8 @@ from .device import ieee_f32_matmul, resolve_device
 from .mor import STATS_WIDTH, mor_quantize, quantize_for_gemm
 from .policy import MoRDotPolicy
 
-__all__ = ["N_FWD_EVENTS", "N_BWD_EVENTS", "new_token", "mor_dot"]
+__all__ = ["N_FWD_EVENTS", "N_BWD_EVENTS", "new_token", "mor_dot",
+           "mor_dot_experts"]
 
 N_FWD_EVENTS = 2  # x, w
 N_BWD_EVENTS = 4  # dy(dgrad), w(dgrad), x^T(wgrad), dy^T(wgrad)
@@ -68,25 +69,31 @@ def _is_mixed_weight(w) -> bool:
 
 
 def _dot(a: torch.Tensor, b_t: torch.Tensor, out_dtype) -> torch.Tensor:
-    """a @ b_t^T: exact products of the operands, f32 accumulation, one
-    rounding to ``out_dtype``. On CUDA, cuBLAS runs with
-    ``allow_bf16_reduced_precision_reduction`` off for this call only; the
-    caller's setting is restored after it. The f32 product runs in full
-    f32 whatever the caller's TF32 setting."""
+    """a @ b_t^T (of each expert, for (E, ., .) stacks): exact products
+    of the operands, f32 accumulation, one rounding to ``out_dtype``. On
+    CUDA, cuBLAS runs with ``allow_bf16_reduced_precision_reduction`` off
+    for this call only; the caller's setting is restored after it. The
+    f32 product runs in full f32 whatever the caller's TF32 setting."""
+    if a.ndim == 3 and a.shape[0] == 1:
+        # One product (every mor_dot): the single-matrix GEMM, not the
+        # batched one, whose kernel choice (and order of sums) may differ.
+        return _dot(a[0], b_t[0], out_dtype)[None]
     if a.is_cuda and a.dtype == b_t.dtype == out_dtype == torch.bfloat16:
         flags = torch.backends.cuda.matmul
         user = flags.allow_bf16_reduced_precision_reduction
         flags.allow_bf16_reduced_precision_reduction = False
         try:
-            return torch.matmul(a, b_t.T)
+            return torch.matmul(a, b_t.mT)
         finally:
             flags.allow_bf16_reduced_precision_reduction = user
     with ieee_f32_matmul():
-        return (a.to(torch.float32) @ b_t.to(torch.float32).T).to(out_dtype)
+        return (a.to(torch.float32) @ b_t.to(torch.float32).mT).to(out_dtype)
 
 
-def _zero_stats(n: int, device) -> torch.Tensor:
-    return torch.zeros((n, STATS_WIDTH), dtype=torch.float32, device=device)
+def _zero_stats(n, device) -> torch.Tensor:
+    lead = n if isinstance(n, tuple) else (n,)
+    return torch.zeros((*lead, STATS_WIDTH), dtype=torch.float32,
+                       device=device)
 
 
 def _check_fusable(policy: MoRDotPolicy):
@@ -121,82 +128,87 @@ def _transpose_invariant(p) -> bool:
     return p.partition == "block" and p.block_shape[0] == p.block_shape[1]
 
 
+def _gemms(a_mo, b_mo, out_dtype, backend, transpose=False):
+    """The mixed GEMM of each entry's pair of packs (one launch an
+    entry), stacked."""
+    ys = []
+    for e in range(a_mo.tags.shape[0]):
+        a, b = a_mo.stack_index(e), b_mo.stack_index(e)
+        if transpose:
+            a, b = a.transpose(), b.transpose()
+        ys.append(kops.mixed_gemm(a, b, out_dtype=out_dtype,
+                                  backend=backend))
+    return ys[0][None] if len(ys) == 1 else torch.stack(ys)
+
+
 def _fwd(x, w, policy: MoRDotPolicy):
-    x2, lead = _flat2d(x)
-    if _is_mixed_weight(w):
-        y = kops.mixed_dot(x2, w.as_mixed_operand(), out_dtype=x.dtype,
-                           backend=policy.weight.backend)
-        return (y.reshape(*lead, w.shape[1]),
-                _zero_stats(N_FWD_EVENTS, x.device))
+    """y and the forward stats of a stack of E products: x (E, M, K), w
+    (E, K, N). Each entry's events are its own (its own group amax and
+    stats row); the quantizers' host work runs once for the stack."""
+    E = x.shape[0]
+    wt = w.transpose(1, 2)  # (E, N, K): contraction last
     if not policy.enabled:
-        return (_dot(x2, w.T, x.dtype).reshape(*lead, w.shape[1]),
-                _zero_stats(N_FWD_EVENTS, x.device))
+        return _dot(x, wt, x.dtype), _zero_stats((E, N_FWD_EVENTS),
+                                                 x.device)
     if policy.fuse_gemm:
         _check_fusable(policy)
         # Activation (M, K) and weight (N, K) events, both packed for
         # real with the contraction last.
-        a_mo, x_stats = quantize_for_gemm(x2, policy.act)
-        b_mo, w_stats = quantize_for_gemm(w.T, policy.weight)
-        y = kops.mixed_gemm(a_mo, b_mo, out_dtype=x.dtype,
-                            backend=policy.act.backend)
+        a_mo, x_stats = quantize_for_gemm(x, policy.act)
+        b_mo, w_stats = quantize_for_gemm(wt, policy.weight)
+        y = _gemms(a_mo, b_mo, x.dtype, policy.act.backend)
     else:
-        xq, x_stats = mor_quantize(x2, policy.act)
+        xq, x_stats = mor_quantize(x, policy.act)
         # w is (K, N), contraction first: quantize the (N, K) view so
         # blocks align with the dot axis.
-        wq_t, w_stats = mor_quantize(w.T, policy.weight)
+        wq_t, w_stats = mor_quantize(wt, policy.weight)
         y = _dot(xq, wq_t, x.dtype)
-    return y.reshape(*lead, w.shape[1]), torch.stack([x_stats, w_stats])
-
-
-def _bwd_fused(policy: MoRDotPolicy, x2, dy2, lead, x, w):
-    """dgrad + wgrad through the mixed kernel, event for event as the
-    fake-quant branch (same stats rows)."""
-    be = policy.grad.backend
-    # dgrad: dx[m, k] = sum_n dy[m, n] w[k, n].
-    dy_mo, dy_stats = quantize_for_gemm(dy2, policy.grad)   # (M, N)
-    w_mo, w_stats = quantize_for_gemm(w, policy.weight)     # (K, N)
-    dx = kops.mixed_gemm(dy_mo, w_mo, out_dtype=x.dtype,
-                         backend=be).reshape(*lead, x.shape[-1])
-    # wgrad: dw[k, n] = sum_m x[m, k] dy[m, n].
-    if _transpose_invariant(policy.act) and _transpose_invariant(policy.grad):
-        # Q(x^T) == Q(x)^T bit for bit: transpose the (M, K) pack and
-        # reuse the dy pack outright.
-        x_mo, xT_stats = quantize_for_gemm(x2, policy.act)
-        dw = kops.mixed_gemm(x_mo.transpose(), dy_mo.transpose(),
-                             out_dtype=w.dtype, backend=be)
-        dyT_stats = dy_stats
-    else:
-        xT_mo, xT_stats = quantize_for_gemm(x2.T, policy.act)      # (K, M)
-        dyT_mo, dyT_stats = quantize_for_gemm(dy2.T, policy.grad)  # (N, M)
-        dw = kops.mixed_gemm(xT_mo, dyT_mo, out_dtype=w.dtype, backend=be)
-    return dx, dw, torch.stack([dy_stats, w_stats, xT_stats, dyT_stats])
+    return y, torch.stack([x_stats, w_stats], dim=1)
 
 
 def _bwd(policy: MoRDotPolicy, x, w, dy):
-    dy2, _ = _flat2d(dy)
-    x2, lead = _flat2d(x)
+    """dx, dw and the backward stats of a stack (dy (E, M, N)); fused,
+    event for event as the fake-quant branch (same stats rows)."""
+    E = x.shape[0]
     if not (policy.enabled and policy.quantize_bwd):
-        dx = _dot(dy2, w, x.dtype).reshape(x.shape)
-        dw = _dot(x2.T, dy2.T, w.dtype)
-        return dx, dw, _zero_stats(N_BWD_EVENTS, x.device)
+        dx = _dot(dy, w, x.dtype)
+        dw = _dot(x.transpose(1, 2), dy.transpose(1, 2), w.dtype)
+        return dx, dw, _zero_stats((E, N_BWD_EVENTS), x.device)
+    # Q(x^T) == Q(x)^T bit for bit: quantize x once, reuse the dy event.
+    inv = (_transpose_invariant(policy.act)
+           and _transpose_invariant(policy.grad))
     if policy.fuse_gemm:
         _check_fusable(policy)
-        return _bwd_fused(policy, x2, dy2, lead, x, w)
-    # dgrad: dx[m, k] = sum_n dy[m, n] w[k, n].
-    dyq, dy_stats = mor_quantize(dy2, policy.grad)    # (M, N)
-    w_kn, w_stats = mor_quantize(w, policy.weight)    # (K, N)
-    dx = _dot(dyq, w_kn, x.dtype).reshape(*lead, x.shape[-1])
-    # wgrad: dw[k, n] = sum_m x[m, k] dy[m, n].
-    if _transpose_invariant(policy.act) and _transpose_invariant(policy.grad):
-        # Q(x^T) == Q(x)^T: re-use the dy event, quantize x once.
-        xTq, xT_stats = mor_quantize(x2, policy.act)
-        dyT_stats = dy_stats
-        dw = _dot(xTq.T, dyq.T, w.dtype)
+        be = policy.grad.backend
+        # dgrad: dx[m, k] = sum_n dy[m, n] w[k, n].
+        dy_mo, dy_stats = quantize_for_gemm(dy, policy.grad)  # (M, N)
+        w_mo, w_stats = quantize_for_gemm(w, policy.weight)   # (K, N)
+        dx = _gemms(dy_mo, w_mo, x.dtype, be)
+        # wgrad: dw[k, n] = sum_m x[m, k] dy[m, n].
+        if inv:
+            x_mo, xT_stats = quantize_for_gemm(x, policy.act)
+            dw = _gemms(x_mo, dy_mo, w.dtype, be, transpose=True)
+            dyT_stats = dy_stats
+        else:
+            xT_mo, xT_stats = quantize_for_gemm(x.transpose(1, 2),
+                                                policy.act)   # (K, M)
+            dyT_mo, dyT_stats = quantize_for_gemm(dy.transpose(1, 2),
+                                                  policy.grad)  # (N, M)
+            dw = _gemms(xT_mo, dyT_mo, w.dtype, be)
     else:
-        xTq, xT_stats = mor_quantize(x2.T, policy.act)     # (K, M)
-        dyTq, dyT_stats = mor_quantize(dy2.T, policy.grad)  # (N, M)
-        dw = _dot(xTq, dyTq, w.dtype)
-    return dx, dw, torch.stack([dy_stats, w_stats, xT_stats, dyT_stats])
+        dyq, dy_stats = mor_quantize(dy, policy.grad)
+        w_kn, w_stats = mor_quantize(w, policy.weight)
+        dx = _dot(dyq, w_kn, x.dtype)
+        if inv:
+            xTq, xT_stats = mor_quantize(x, policy.act)
+            dyT_stats = dy_stats
+            dw = _dot(xTq.transpose(1, 2), dyq.transpose(1, 2), w.dtype)
+        else:
+            xTq, xT_stats = mor_quantize(x.transpose(1, 2), policy.act)
+            dyTq, dyT_stats = mor_quantize(dy.transpose(1, 2), policy.grad)
+            dw = _dot(xTq, dyTq, w.dtype)
+    return dx, dw, torch.stack([dy_stats, w_stats, xT_stats, dyT_stats],
+                               dim=1)
 
 
 class _ServeDot(torch.autograd.Function):
@@ -207,9 +219,12 @@ class _ServeDot(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, w, policy):
-        y, fwd_stats = _fwd(x, w, policy)
+        x2, lead = _flat2d(x)
+        y = kops.mixed_dot(x2, w.as_mixed_operand(), out_dtype=x.dtype,
+                           backend=policy.weight.backend)
+        fwd_stats = _zero_stats(N_FWD_EVENTS, x.device)
         ctx.mark_non_differentiable(fwd_stats)
-        return y, fwd_stats
+        return y.reshape(*lead, w.shape[1]), fwd_stats
 
     @staticmethod
     def backward(ctx, dy, _dstats):
@@ -219,11 +234,12 @@ class _ServeDot(torch.autograd.Function):
 
 
 class _MorDot(torch.autograd.Function):
-    """The reference's ``custom_vjp``: forward stats as an output,
-    backward stats as the token's gradient."""
+    """The reference's ``custom_vjp`` over a stack of products (its
+    ``vmap(mor_dot)``; ``mor_dot`` is the stack of one): forward stats as
+    an output, backward stats as the tokens' gradient."""
 
     @staticmethod
-    def forward(ctx, x, w, token, policy):
+    def forward(ctx, x, w, tokens, policy):
         y, fwd_stats = _fwd(x, w, policy)
         ctx.save_for_backward(x, w)
         ctx.policy = policy
@@ -250,4 +266,27 @@ def mor_dot(x: torch.Tensor, w, token: Optional[torch.Tensor],
         return _ServeDot.apply(x, w, policy)
     if token is None:
         token = new_token(x.device, requires_grad=False)
-    return _MorDot.apply(x, w, token, policy)
+    x2, lead = _flat2d(x)
+    y, fwd_stats = _MorDot.apply(x2[None], w[None], token[None], policy)
+    return y[0].reshape(*lead, w.shape[1]), fwd_stats.squeeze(0)
+
+
+def mor_dot_experts(x: torch.Tensor, w: torch.Tensor,
+                    tokens: Optional[torch.Tensor], policy: MoRDotPolicy
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``mor_dot`` of each expert, the reference's ``jax.vmap(mor_dot)``
+    over the MoE experts: x (E, M, K), w (E, K, N), tokens (E,
+    N_BWD_EVENTS, STATS_WIDTH) or None. Returns (y (E, M, N), fwd_stats
+    (E, N_FWD_EVENTS, STATS_WIDTH)); the backward stats reach ``tokens``
+    as their gradient. Expert e's values and stats are those of
+    ``mor_dot(x[e], w[e], tokens[e], policy)``: its events keep their
+    own groups and the kernels launch once an expert, while the work
+    around them (group amaxes, mantissas, stats, the fake-quant GEMMs)
+    runs once for the stack."""
+    if x.ndim != 3 or w.ndim != 3 or x.shape[0] != w.shape[0]:
+        raise ValueError(f"mor_dot_experts wants x (E, M, K) and w (E, K, "
+                         f"N), got {tuple(x.shape)} and {tuple(w.shape)}")
+    if tokens is None:
+        tokens = torch.zeros((x.shape[0], N_BWD_EVENTS, STATS_WIDTH),
+                             dtype=torch.float32, device=x.device)
+    return _MorDot.apply(x, w, tokens, policy)

@@ -97,24 +97,41 @@ def quant_dequant(x2d: torch.Tensor, part: Partition, fmt: FormatSpec,
     return quant_dequant_with_scales(x2d, part, fmt, scales), scales
 
 
-def _f32(v, device) -> torch.Tensor:
-    return torch.as_tensor(v, dtype=torch.float32, device=device)
+def _f32(v, device, shape=()) -> torch.Tensor:
+    """An f32 lane of ``shape`` on ``device``: a tensor as it is
+    (broadcast), a Python number by a fill (``torch.as_tensor`` would
+    copy it from host memory, which synchronises the card's stream)."""
+    if isinstance(v, torch.Tensor):
+        return v.to(dtype=torch.float32, device=device).expand(shape)
+    return torch.full(shape, v, dtype=torch.float32, device=device)
 
 
 def _stats(decision, rel_err, amax, f_e4, f_e5, f_bf, nz_frac, m_g,
            f_nv=0.0, micro_bpe=0.0, guard_flags=0.0, fallback_count=0.0,
-           device=None) -> torch.Tensor:
+           device=None, shape=()) -> torch.Tensor:
+    """The STATS_WIDTH vector of one event, or (*shape, STATS_WIDTH) rows
+    of a stack of events whose lanes are ``shape`` tensors."""
     lanes = [decision, rel_err, amax, f_e4, f_e5, f_bf, nz_frac, m_g,
              f_nv, micro_bpe, EVENT_GEMM]
-    v = [_f32(x, device) for x in lanes]
+    v = [_f32(x, device, shape) for x in lanes]
     # [11] payload_bpe from the tag mixture: fp8 1 B/elt, BF16 2,
     # NVFP4 half a byte plus one micro-scale byte per 16 elements.
     payload_bpe = (v[STAT_FRAC_E4M3] + v[STAT_FRAC_E5M2]
                    + 2.0 * v[STAT_FRAC_BF16]
                    + (0.5 + 1.0 / _kref.NVFP4_MICRO) * v[STAT_FRAC_NVFP4])
-    v += [payload_bpe, _f32(guard_flags, device),
-          _f32(fallback_count, device)]
-    return torch.stack(v)
+    v += [payload_bpe, _f32(guard_flags, device, shape),
+          _f32(fallback_count, device, shape)]
+    return torch.stack(v, dim=-1)
+
+
+def _blocks_sum(t: torch.Tensor) -> torch.Tensor:
+    """Sum over the block grid (the last two axes) of each event."""
+    return t.sum(dim=(-2, -1))
+
+
+def _size(x: torch.Tensor) -> float:
+    """Elements of one event's (M, K) operand."""
+    return float(x.shape[-2] * x.shape[-1])
 
 
 def _guard_lanes(group_amax, block_err_sums=None):
@@ -125,7 +142,8 @@ def _guard_lanes(group_amax, block_err_sums=None):
     flags = torch.where(amax_bad, GUARD_NONFINITE_AMAX, GUARD_OK)
     if block_err_sums is None:
         return flags, 0.0
-    fallback = (~torch.isfinite(block_err_sums)).to(torch.float32).sum()
+    fallback = _blocks_sum((~torch.isfinite(block_err_sums)).to(
+        torch.float32))
     flags = flags + torch.where(fallback > 0, GUARD_BLOCK_FALLBACK,
                                 GUARD_OK)
     return flags, fallback
@@ -138,18 +156,19 @@ def _tensor_level(x2d: torch.Tensor, policy: MoRPolicy):
     threshold is False), so a poisoned event stays BF16."""
     q = kops.quant_err(x2d, partition_of(policy), E4M3, policy.algo,
                        backend=policy.backend)
-    cnt = q.counts.sum()
-    err = q.err_sums.sum() / torch.clamp_min(cnt, 1.0)
+    cnt = _blocks_sum(q.counts)
+    err = _blocks_sum(q.err_sums) / torch.clamp_min(cnt, 1.0)
     ok = err < policy.threshold
-    y = torch.where(ok, q.y, x2d)
+    y = torch.where(ok[..., None, None], q.y, x2d)
     okf = ok.to(torch.float32)
-    nz = true_divide(cnt, float(x2d.numel()))
+    nz = true_divide(cnt, _size(x2d))
     gf, fb = _guard_lanes(q.group_amax, q.err_sums)
     stats = _stats(okf, err, q.group_amax, okf, 0.0, 1.0 - okf, nz,
                    q.group_mantissa, guard_flags=gf, fallback_count=fb,
-                   device=x2d.device)
-    tags = torch.where(ok, _kref.TAG_E4M3, _kref.TAG_BF16).to(
-        torch.int32).expand(q.err_sums.shape).contiguous()
+                   device=x2d.device, shape=ok.shape)
+    tags = torch.where(ok[..., None, None], _kref.TAG_E4M3,
+                       _kref.TAG_BF16).to(torch.int32).expand(
+                           q.err_sums.shape).contiguous()
     return y, stats, tags
 
 
@@ -158,13 +177,13 @@ def _static_e4m3(x2d: torch.Tensor, policy: MoRPolicy):
     report poisoned blocks."""
     q = kops.quant_err(x2d, partition_of(policy), E4M3, policy.algo,
                        backend=policy.backend)
-    cnt = q.counts.sum()
-    err = q.err_sums.sum() / torch.clamp_min(cnt, 1.0)
-    nz = true_divide(cnt, float(x2d.numel()))
+    cnt = _blocks_sum(q.counts)
+    err = _blocks_sum(q.err_sums) / torch.clamp_min(cnt, 1.0)
+    nz = true_divide(cnt, _size(x2d))
     gf, fb = _guard_lanes(q.group_amax, q.err_sums)
     stats = _stats(1.0, err, q.group_amax, 1.0, 0.0, 0.0, nz,
                    q.group_mantissa, guard_flags=gf, fallback_count=fb,
-                   device=x2d.device)
+                   device=x2d.device, shape=err.shape)
     tags = torch.full(tuple(q.err_sums.shape), _kref.TAG_E4M3,
                       dtype=torch.int32, device=x2d.device)
     return q.y, stats, tags
@@ -173,41 +192,44 @@ def _static_e4m3(x2d: torch.Tensor, policy: MoRPolicy):
 def _sub_tensor_stats(r, policy: MoRPolicy, x_size: int) -> torch.Tensor:
     """Aggregate one sub-tensor selection event into the stats vector."""
     dev = r.sel.device
-    nblocks = float(r.sel.numel())
-    cnt = r.counts.sum()
+    nblocks = float(r.sel.shape[-2] * r.sel.shape[-1])
+    cnt = _blocks_sum(r.counts)
     nz = true_divide(cnt, float(x_size))
     tot_n = torch.clamp_min(cnt, 1.0)
-    global_e4_err = r.e4_sums.sum() / tot_n
+    global_e4_err = _blocks_sum(r.e4_sums) / tot_n
+    shape = cnt.shape
 
     def frac(tag):
-        return true_divide((r.sel == tag).to(torch.float32).sum(), nblocks)
+        return true_divide(_blocks_sum((r.sel == tag).to(torch.float32)),
+                           nblocks)
 
     f4 = frac(0)
     gf, fb = _guard_lanes(r.group_amax, r.e4_sums)
     if policy.recipe == "sub2":
         return _stats(f4, global_e4_err, r.group_amax, f4, 0.0, 1.0 - f4,
                       nz, r.group_mantissa, guard_flags=gf,
-                      fallback_count=fb, device=dev)
+                      fallback_count=fb, device=dev, shape=shape)
     f5 = frac(1)
     if policy.recipe == "sub3":
         return _stats(f4, global_e4_err, r.group_amax, f4, f5,
                       1.0 - f4 - f5, nz, r.group_mantissa, guard_flags=gf,
-                      fallback_count=fb, device=dev)
+                      fallback_count=fb, device=dev, shape=shape)
     f_nv = frac(TAG_NVFP4)
     return _stats(f_nv, global_e4_err, r.group_amax, f4, f5,
                   1.0 - f4 - f5 - f_nv, nz, r.group_mantissa, f_nv,
                   true_divide(f_nv, float(_kref.NVFP4_MICRO)), guard_flags=gf,
-                  fallback_count=fb, device=dev)
+                  fallback_count=fb, device=dev, shape=shape)
 
 
 def _off_stats(x2d: torch.Tensor) -> torch.Tensor:
     """Stats of a disabled event: decision = -1.0 (the sentinel that
     aggregation consumers filter on)."""
-    nz = true_divide((x2d != 0).to(torch.float32).sum(), float(x2d.numel()))
-    amax = torch.amax(x2d.to(torch.float32).abs())
+    nz = true_divide(_blocks_sum((x2d != 0).to(torch.float32)),
+                     _size(x2d))
+    amax = torch.amax(x2d.to(torch.float32).abs(), dim=(-2, -1))
     gf, _ = _guard_lanes(amax)
     return _stats(-1.0, 0.0, amax, 0.0, 0.0, 1.0, nz, 1.0, guard_flags=gf,
-                  device=x2d.device)
+                  device=x2d.device, shape=amax.shape)
 
 
 def _sub_tensor(x2d: torch.Tensor, policy: MoRPolicy):
@@ -215,7 +237,7 @@ def _sub_tensor(x2d: torch.Tensor, policy: MoRPolicy):
     (``kops.mor_select``); only the stats aggregation lives here."""
     r = kops.mor_select(x2d, partition_of(policy), mode=policy.recipe,
                         algo=policy.algo, backend=policy.backend)
-    return r.y, _sub_tensor_stats(r, policy, x2d.numel()), r.sel
+    return r.y, _sub_tensor_stats(r, policy, _size(x2d)), r.sel
 
 
 def _decide(x2d: torch.Tensor, policy: MoRPolicy):
@@ -243,39 +265,53 @@ def mor_quantize(x2d: torch.Tensor,
     return y.to(x2d.dtype).contiguous(), stats
 
 
-def quantize_for_gemm(x2d: torch.Tensor,
+def quantize_for_gemm(x: torch.Tensor,
                       policy: MoRPolicy) -> Tuple[MixedOperand, torch.Tensor]:
     """Real-quantize one (R, K) operand view (contraction last) into the
     mixed block layout. Returns (MixedOperand, stats vector): the same
     decisions and stats as :func:`mor_quantize`. The sub-tensor recipes
     are one pass (the pack kernel writes the lanes); the 'tensor' and
     'e4m3' recipes decide first (a global accept/reject no block pass
-    can make) and then pack under the decided tags."""
+    can make) and then pack under the decided tags. A stack (E, R, K) of
+    operands (the MoE experts') is E events, each its own group: every
+    lane and the stats gain a leading axis, the kernel launches once an
+    entry."""
+    if x.ndim == 2:
+        mo, stats = _quantize_for_gemm(x[None], policy)
+        return mo.stack_index(0), stats.squeeze(0)
+    return _quantize_for_gemm(x, policy)
+
+
+def _quantize_for_gemm(x: torch.Tensor, policy: MoRPolicy):
+    """:func:`quantize_for_gemm` of a stack (E, R, K)."""
+    E = x.shape[0]
     if not policy.enabled:
-        part = Partition("block", policy.block_shape)
-        return (_kref.passthrough_mixed(x2d, part.resolve(tuple(x2d.shape))),
-                _off_stats(x2d))
+        block = Partition("block", policy.block_shape).resolve(
+            tuple(x.shape[-2:]))
+        return (kops._stacked_mixed([_kref.passthrough_mixed(x[e], block)
+                                     for e in range(E)]), _off_stats(x))
     if policy.partition != "block":
         raise ValueError(
             "quantize_for_gemm requires partition='block' (got "
             f"{policy.partition!r})"
         )
     part = partition_of(policy)
-    block = part.resolve(tuple(x2d.shape))
+    block = part.resolve(tuple(x.shape[-2:]))
     if policy.recipe == "sub4" and not _kref.nvfp4_block_capable(block):
         raise ValueError(
             f"sub4 packing needs an even-row, 16-divisible-column block; "
             f"policy block_shape {policy.block_shape} resolved to {block} "
-            f"for operand {tuple(x2d.shape)}"
+            f"for operand {tuple(x.shape[-2:])}"
         )
     if policy.recipe in ("sub2", "sub3", "sub4"):
-        mo, r = kops.quantize_pack(x2d, part, mode=policy.recipe,
+        mo, r = kops.quantize_pack(x, part, mode=policy.recipe,
                                    algo=policy.algo,
                                    backend=policy.backend)
-        return mo, _sub_tensor_stats(r, policy, x2d.numel())
-    _, stats, tags = _decide(x2d, policy)
+        return mo, _sub_tensor_stats(r, policy, _size(x))
+    _, stats, tags = _decide(x, policy)
     # The decision path's group amax, so the pack's Alg. 1 scales can
     # never disagree with the decisions in `tags`.
-    mo = _kref.pack_mixed(x2d, tags, block, policy.algo,
-                          group_amax=stats[STAT_AMAX], with_nvfp4=False)
-    return mo, stats
+    return kops._stacked_mixed([
+        _kref.pack_mixed(x[e], tags[e], block, policy.algo,
+                         group_amax=stats[e, STAT_AMAX], with_nvfp4=False)
+        for e in range(E)]), stats

@@ -22,7 +22,7 @@ from typing import Tuple
 import torch
 
 from . import build
-from .mor_select import _ALGOS, SMEM_OPTIN_BYTES, _check
+from .mor_select import _ALGOS, SMEM_OPTIN_BYTES, _check, slab_pointers
 
 __all__ = ["gam_quant_blocks", "gam_quant_route", "gam_quant_smem_bytes",
            "ROUTES", "TILE_BLOCK", "GENERIC_STATIC_SMEM"]
@@ -81,16 +81,19 @@ def _fn(route: str):
     return f
 
 
-def _launch(route, ptrs, Mp, Kp, block, algo, q_amax, e5m2, dev):
-    """One launch on the current stream; raises on a CUDA error."""
+def _launch(route, tensors, n, Mp, Kp, block, algo, q_amax, e5m2, dev):
+    """``n`` launches on the current stream, one a slab of the stacked
+    ``tensors``; raises on a CUDA error."""
     dims = (Mp, Kp) if route == "tile" else (Mp, Kp, *block)
+    fn = _fn(route)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _fn(route)(*ptrs, *dims, _ALGOS[algo], float(q_amax),
-                         int(e5m2), stream)
-    if err != 0:
-        raise RuntimeError(f"gam_quant ({route}) launch failed: CUDA error "
-                           f"{err}")
+        for ptrs in slab_pointers(tensors, n):
+            err = fn(*ptrs, *dims, _ALGOS[algo], float(q_amax), int(e5m2),
+                     stream)
+            if err != 0:
+                raise RuntimeError(f"gam_quant ({route}) launch failed: "
+                                   f"CUDA error {err}")
 
 
 def gam_quant_blocks(xp: torch.Tensor, mg: torch.Tensor, *,
@@ -102,14 +105,20 @@ def gam_quant_blocks(xp: torch.Tensor, mg: torch.Tensor, *,
     ``mg``: (2,) f32 on the device -- the format's group mantissa m_g
     (1.0 for the ablation algos) and the guarded group amax. Returns
     (xq (Mp, Kp) bf16, block_exp (nm, nk) int32, err_sums (nm, nk) f32,
-    counts (nm, nk) f32).
+    counts (nm, nk) f32). A stack of E operands (E, Mp, Kp) with (E, 2)
+    ``mg`` is E launches, one an operand, every output stacked.
     """
     if algo not in _ALGOS:
         raise ValueError(f"unknown algo {algo!r}")
     if fmt_dtype not in _FMT_MAX:
         raise ValueError(f"gam_quant quantizes to E4M3 or E5M2, got "
                          f"{fmt_dtype}")
-    Mp, Kp = xp.shape
+    if xp.ndim not in (2, 3):
+        raise ValueError(f"x must be (Mp, Kp) or a stack (E, Mp, Kp), got "
+                         f"{tuple(xp.shape)}")
+    lead = tuple(xp.shape[:-2])
+    n = lead[0] if lead else 1
+    Mp, Kp = xp.shape[-2:]
     bm, bk = block
     route = gam_quant_route(block)
     if Mp % bm or Kp % bk:
@@ -122,8 +131,8 @@ def gam_quant_blocks(xp: torch.Tensor, mg: torch.Tensor, *,
                 f"= {dyn + static} bytes of shared memory per CTA, more than "
                 f"the {SMEM_OPTIN_BYTES} an sm_90 CTA can opt in to; use a "
                 "smaller block")
-    _check(xp, "x", torch.bfloat16, (Mp, Kp))
-    _check(mg, "mg", torch.float32, (2,))
+    _check(xp, "x", torch.bfloat16, (*lead, Mp, Kp))
+    _check(mg, "mg", torch.float32, (*lead, 2))
     if mg.device != xp.device:
         raise ValueError("x and mg must share a device")
     if route == "tile":
@@ -135,16 +144,14 @@ def gam_quant_blocks(xp: torch.Tensor, mg: torch.Tensor, *,
                              f"{_FMT_MAX[fmt_dtype]}, got q_amax {q_amax}")
     nm, nk = Mp // bm, Kp // bk
     dev = xp.device
-    xq = torch.empty((Mp, Kp), dtype=torch.bfloat16, device=dev)
-    block_exp = torch.empty((nm, nk), dtype=torch.int32, device=dev)
-    err_sums = torch.empty((nm, nk), dtype=torch.float32, device=dev)
-    counts = torch.empty((nm, nk), dtype=torch.float32, device=dev)
-    _launch(route, (xp.data_ptr(), mg.data_ptr(), xq.data_ptr(),
-                    block_exp.data_ptr(), err_sums.data_ptr(),
-                    counts.data_ptr()),
-            Mp, Kp, block, algo, q_amax, fmt_dtype == torch.float8_e5m2, dev)
-    gam_quant_blocks.launches += 1
-    gam_quant_blocks.launches_by_route[route] += 1
+    xq = torch.empty((*lead, Mp, Kp), dtype=torch.bfloat16, device=dev)
+    block_exp = torch.empty((*lead, nm, nk), dtype=torch.int32, device=dev)
+    err_sums = torch.empty((*lead, nm, nk), dtype=torch.float32, device=dev)
+    counts = torch.empty((*lead, nm, nk), dtype=torch.float32, device=dev)
+    _launch(route, (xp, mg, xq, block_exp, err_sums, counts), n, Mp, Kp,
+            block, algo, q_amax, fmt_dtype == torch.float8_e5m2, dev)
+    gam_quant_blocks.launches += n
+    gam_quant_blocks.launches_by_route[route] += n
     return xq, block_exp, err_sums, counts
 
 

@@ -110,9 +110,7 @@ def main() -> int:
     g = torch.Generator(device="cuda").manual_seed(5)
     w = (torch.randn(SHAPE, generator=g, device="cuda") * 0.02).to(
         torch.bfloat16)
-    _, safe_g = ops._group_amax(w)
-    mg = torch.stack([ops._group_mantissa(safe_g, E4M3, "gam"),
-                      safe_g]).to(torch.float32)
+    mg = ops._kernel_inputs(w[None], (128, 128), (E4M3,), "gam")[2][0]
     xq_t = ops.gam_quant(w, fmt=E4M3, backend="torch")[0]
     runs = {n: launcher(lib, w, mg) for n, lib in libs.items()}
     for name in KEEPS_XQ:

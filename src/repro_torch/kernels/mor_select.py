@@ -128,18 +128,20 @@ def _fn(variant: str, route: str, infix: str = ""):
     return f
 
 
-def _launch(variant, route, ptrs, Mp, Kp, block, mode, algo, dev,
+def _launch(variant, route, tensors, n, Mp, Kp, block, mode, algo, dev,
             infix=""):
-    """One launch on the current stream; raises on a CUDA error."""
+    """``n`` launches on the current stream, one a slab of the stacked
+    ``tensors`` (a None stays a null pointer); raises on a CUDA error."""
     dims = (Mp, Kp) if route == "tile" else (Mp, Kp, *block)
+    fn = _fn(variant, route, infix)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _fn(variant, route, infix)(
-            *ptrs, *dims, _MODES[mode], _ALGOS[algo], E5M2_RANGE_RATIO,
-            NVFP4_RANGE_RATIO, stream)
-    if err != 0:
-        raise RuntimeError(f"mor_select_{variant} ({route}) launch failed: "
-                           f"CUDA error {err}")
+        for ptrs in slab_pointers(tensors, n):
+            err = fn(*ptrs, *dims, _MODES[mode], _ALGOS[algo],
+                     E5M2_RANGE_RATIO, NVFP4_RANGE_RATIO, stream)
+            if err != 0:
+                raise RuntimeError(f"mor_select_{variant} ({route}) launch "
+                                   f"failed: CUDA error {err}")
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape):
@@ -157,21 +159,36 @@ def _check(t: torch.Tensor, name: str, dtype, shape):
 def _validate(xp, mg, block, mode, algo, variant, dtype=torch.bfloat16):
     if mode not in _MODES or algo not in _ALGOS:
         raise ValueError(f"unknown mode/algo {mode!r}/{algo!r}")
-    Mp, Kp = xp.shape
+    if xp.ndim not in (2, 3):
+        raise ValueError(f"x must be (Mp, Kp) or a stack (E, Mp, Kp), got "
+                         f"{tuple(xp.shape)}")
+    lead = tuple(xp.shape[:-2])
+    Mp, Kp = xp.shape[-2:]
     bm, bk = block
     route = mor_select_route(block, mode, dtype)
     if route == "generic":
         _check_smem(variant, block, mode, dtype)
     if Mp % bm or Kp % bk:
         raise ValueError(f"operand {(Mp, Kp)} is not padded to {block}")
-    _check(xp, "x", dtype, (Mp, Kp))
-    _check(mg, "mg", torch.float32, (4,))
+    _check(xp, "x", dtype, (*lead, Mp, Kp))
+    _check(mg, "mg", torch.float32, (*lead, 4))
     if mg.device != xp.device:
         raise ValueError("x and mg must share a device")
     if route == "tile" and xp.data_ptr() % 16:
         raise ValueError("x must be 16-byte aligned (the tile route reads it "
                          "through the TMA)")
-    return Mp, Kp, Mp // bm, Kp // bk, route
+    return lead, Mp, Kp, Mp // bm, Kp // bk, route
+
+
+def slab_pointers(tensors, n: int):
+    """The device pointers of slab e = 0 .. n-1 of each contiguous
+    tensor of ``tensors`` (stacked on a leading axis of n when n > 1; a
+    None gives None)."""
+    base = [(None, 0) if t is None else
+            (t.data_ptr(), t.numel() // n * t.element_size())
+            for t in tensors]
+    return [tuple(None if p is None else p + e * step for p, step in base)
+            for e in range(n)]
 
 
 def mor_select_select(xp: torch.Tensor, mg: torch.Tensor, *,
@@ -183,17 +200,19 @@ def mor_select_select(xp: torch.Tensor, mg: torch.Tensor, *,
     ``mg`` as for :func:`mor_select_pack`. Returns the padded (Mp, Kp)
     ``y`` in x's dtype (each block's winner as stored) and the (nm, nk)
     ``sel``, ``scales``, ``e4_sums``, ``e5_sums``, ``counts`` (and sub4
-    ``nv_sums``) grids.
+    ``nv_sums``) grids. A stack of E operands (E, Mp, Kp) with (E, 4)
+    ``mg`` is E launches, one an operand, every output stacked.
     """
     if xp.dtype not in SELECT_DTYPES:
         raise TypeError(f"x must be one of {list(SELECT_DTYPES)}, got "
                         f"{xp.dtype}")
-    Mp, Kp, nm, nk, route = _validate(xp, mg, block, mode, algo,
-                                       "select", xp.dtype)
+    lead, Mp, Kp, nm, nk, route = _validate(xp, mg, block, mode, algo,
+                                             "select", xp.dtype)
     dev = xp.device
+    n = lead[0] if lead else 1
 
     def empty(shape, dtype):
-        return torch.empty(shape, dtype=dtype, device=dev)
+        return torch.empty((*lead, *shape), dtype=dtype, device=dev)
 
     out = {
         "y": empty((Mp, Kp), xp.dtype),
@@ -206,15 +225,12 @@ def mor_select_select(xp: torch.Tensor, mg: torch.Tensor, *,
     if mode == "sub4":
         out["nv_sums"] = empty((nm, nk), torch.float32)
     _launch("select", route, (
-        xp.data_ptr(), mg.data_ptr(), out["y"].data_ptr(),
-        out["sel"].data_ptr(), out["scales"].data_ptr(),
-        out["e4_sums"].data_ptr(), out["e5_sums"].data_ptr(),
-        out["counts"].data_ptr(),
-        out["nv_sums"].data_ptr() if mode == "sub4" else None),
+        xp, mg, out["y"], out["sel"], out["scales"], out["e4_sums"],
+        out["e5_sums"], out["counts"], out.get("nv_sums")), n,
         Mp, Kp, block, mode, algo, dev, SELECT_DTYPES[xp.dtype])
-    mor_select_select.launches += 1
-    mor_select_select.launches_by_route[route] += 1
-    mor_select_select.launches_by_dtype[str(xp.dtype).split(".")[-1]] += 1
+    mor_select_select.launches += n
+    mor_select_select.launches_by_route[route] += n
+    mor_select_select.launches_by_dtype[str(xp.dtype).split(".")[-1]] += n
     return out
 
 
@@ -234,12 +250,15 @@ def mor_select_pack(xp: torch.Tensor, mg: torch.Tensor, *,
     (``payload_q``, ``payload_bf16``, ``payload_nib`` and
     ``micro_scales`` for sub4) and the (nm, nk) ``sel``, ``scales``,
     ``e4_sums``, ``e5_sums``, ``counts`` (and sub4 ``nv_sums``) grids.
+    A stack of E operands is E launches, as in :func:`mor_select_select`.
     """
-    Mp, Kp, nm, nk, route = _validate(xp, mg, block, mode, algo, "pack")
+    lead, Mp, Kp, nm, nk, route = _validate(xp, mg, block, mode, algo,
+                                             "pack")
     dev = xp.device
+    n = lead[0] if lead else 1
 
     def empty(shape, dtype):
-        return torch.empty(shape, dtype=dtype, device=dev)
+        return torch.empty((*lead, *shape), dtype=dtype, device=dev)
 
     out = {
         "payload_q": empty((Mp, Kp), torch.uint8),
@@ -256,12 +275,12 @@ def mor_select_pack(xp: torch.Tensor, mg: torch.Tensor, *,
         out["micro_scales"] = empty((Mp, Kp // NVFP4_MICRO), torch.uint8)
 
     t = {"x": xp, "mg": mg, **out}
-    _launch("pack", route, tuple(t[k].data_ptr() if k in t else None for k in (
+    _launch("pack", route, tuple(t.get(k) for k in (
         "x", "mg", "payload_q", "payload_bf16", "sel", "scales", "e4_sums",
-        "e5_sums", "counts", "nv_sums", "payload_nib", "micro_scales")),
+        "e5_sums", "counts", "nv_sums", "payload_nib", "micro_scales")), n,
         Mp, Kp, block, mode, algo, dev)
-    mor_select_pack.launches += 1
-    mor_select_pack.launches_by_route[route] += 1
+    mor_select_pack.launches += n
+    mor_select_pack.launches_by_route[route] += n
     return out
 
 

@@ -191,7 +191,8 @@ def main() -> int:
     g = torch.Generator(device="cuda").manual_seed(5)
     w = (torch.randn(SHAPE, generator=g, device="cuda") * 0.02).to(
         torch.bfloat16)
-    xp, _, mg = ops._select_inputs(w, (128, 128), "gam")
+    xp, _, mg = (t[0] for t in ops._kernel_inputs(
+        w[None], (128, 128), ops.SELECT_FORMATS, "gam"))
     part = Partition("block", (128, 128))
     mo_t, _ = ops.quantize_pack(w, part, MODE, backend="torch")
     y_t = ops.mor_select(w, part, MODE, backend="torch").y

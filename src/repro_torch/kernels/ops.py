@@ -22,6 +22,7 @@ checked but not emulated.
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.formats import (
     E4M3,
@@ -32,7 +33,7 @@ from repro_torch.core.formats import (
     true_divide,
 )
 from repro_torch.core.gam import split_mantissa_exponent
-from repro_torch.core.partition import Partition, _pad2d
+from repro_torch.core.partition import Partition
 
 from . import ref as _ref
 from .flash_attention import flash_attention_fwd, flash_layout, flash_offsets
@@ -85,23 +86,16 @@ _AMAX_STRIPE = 1 << 26
 
 
 def _amax_abs(x: torch.Tensor) -> torch.Tensor:
-    """max |x| in f32 (NaN if any element is NaN), over row stripes of
-    at most _AMAX_STRIPE elements for a large x."""
-    rows = max(_AMAX_STRIPE // max(x.shape[-1], 1), 1)
-    if x.numel() <= _AMAX_STRIPE or x.ndim != 2 or x.shape[0] <= rows:
-        return torch.amax(x.to(torch.float32).abs())
-    return torch.amax(torch.stack([torch.amax(s.to(torch.float32).abs())
-                                   for s in x.split(rows)]))
-
-
-def _group_amax(x: torch.Tensor):
-    """(g_amax, guarded g_amax): zero guard AND nonfinite guard -- an
-    Inf amax would otherwise poison the Alg. 1 mantissa of every block;
-    the raw value is returned first so the stats guard lanes see it."""
-    g_amax = _amax_abs(x)
-    safe = torch.where((g_amax > 0) & torch.isfinite(g_amax), g_amax,
-                       torch.ones_like(g_amax))
-    return g_amax, safe
+    """max |x| of a 2-D operand, or of each operand of a stack (E, M, K),
+    in f32 (NaN if any element is NaN; exact in x's dtype), over row
+    stripes of at most _AMAX_STRIPE elements for a large operand."""
+    M, K = x.shape[-2:]
+    rows = max(_AMAX_STRIPE // max(K, 1), 1)
+    if M * K <= _AMAX_STRIPE or M <= rows:
+        return torch.amax(x.abs(), dim=(-2, -1)).to(torch.float32)
+    return torch.amax(torch.stack([torch.amax(s.abs(), dim=(-2, -1))
+                                   for s in x.split(rows, dim=-2)]),
+                      dim=0).to(torch.float32)
 
 
 def _group_mantissa(safe_g: torch.Tensor, fmt: FormatSpec, algo: str):
@@ -112,26 +106,88 @@ def _group_mantissa(safe_g: torch.Tensor, fmt: FormatSpec, algo: str):
     return m_g
 
 
+# The formats whose group mantissas the selection kernels take.
+SELECT_FORMATS = (E4M3, E5M2, NVFP4)
+
+
+def _kernel_inputs(x: torch.Tensor, block, fmts, algo: str):
+    """The kernels' prologue of a stack of E events (E, M, K), each its
+    own group: the stack padded to the block grid, each event's raw group
+    amax (E,), and the (E, len(fmts) + 1) kernel scalars (each format's
+    group mantissa, then the guarded group amax), all computed once for
+    the stack (the kernel wrappers then launch once an event)."""
+    bm, bk = block
+    _, M, K = x.shape
+    pm, pk = (-M) % bm, (-K) % bk
+    xp = (F.pad(x, (0, pk, 0, pm)) if pm or pk else x).contiguous()
+    g_amax = _amax_abs(x)
+    # Zero and nonfinite guard: an Inf amax would otherwise poison the
+    # Alg. 1 mantissa of every block; the raw value goes to the stats'
+    # guard lanes.
+    safe_g = torch.where((g_amax > 0) & torch.isfinite(g_amax), g_amax,
+                         torch.ones_like(g_amax))
+    mg = torch.stack([_group_mantissa(safe_g, f, algo).expand(safe_g.shape)
+                      for f in fmts] + [safe_g], dim=1).to(torch.float32)
+    return xp, g_amax, mg.contiguous()
+
+
+def _stack(ts):
+    """Tensors stacked on a leading axis (one: a view)."""
+    return ts[0][None] if len(ts) == 1 else torch.stack(ts)
+
+
+def _stacked(parts):
+    """Each field of a list of per-event results stacked on a leading
+    axis (a None field stays None)."""
+    return [None if f[0] is None else _stack(f) for f in zip(*parts)]
+
+
+def _one(r):
+    """A result of a stack of one (``QuantErr``, ``MorSelect``) without
+    its leading axis."""
+    return type(r)(*(None if f is None else f[0] for f in r))
+
+
+def _stacked_mixed(mos) -> MixedOperand:
+    """Per-event packs stacked into one MixedOperand with a leading axis
+    on every lane."""
+    m = mos[0]
+    lanes = ("payload_q", "payload_bf16", "tags", "scales", "payload_nib",
+             "micro_scales")
+    return MixedOperand(block=m.block, shape=m.shape, has_nvfp4=m.has_nvfp4,
+                        **{k: _stack([getattr(o, k) for o in mos])
+                           for k in lanes})
+
+
 def quant_err(x: torch.Tensor, part: Partition, fmt: FormatSpec = E4M3,
               algo: str = "gam", *, backend: str = "auto") -> QuantErr:
     """Fused quantize + per-block error sums of a 2-D operand: the
     event of the 'tensor' and 'e4m3' recipes. The kernel path pads to
     the block grid (zeros quantize exactly and add nothing to the sums
     or counts), computes the group amax and m_g outside the kernel (as
-    the reference does) and launches ``gam_quant`` once."""
-    be = _kernel_backend(backend, part, x)
-    if be == "torch":
-        return _ref.quant_err_ref(x, part, fmt, algo)
-    M, K = x.shape
-    bm, bk = part.resolve((M, K))
-    xp = _pad2d(x, bm, bk).contiguous()
-    g_amax, safe_g = _group_amax(x)
-    m_g = _group_mantissa(safe_g, fmt, algo)
-    xq, _, err_sums, counts = gam_quant_blocks(
-        xp, torch.stack([m_g, safe_g]).to(torch.float32), block=(bm, bk),
-        q_amax=fmt.amax, fmt_dtype=fmt.dtype, algo=algo)
-    return QuantErr(xq[:M, :K], err_sums, counts, g_amax, m_g)
+    the reference does) and launches ``gam_quant`` once.
 
+    A 3-D x is a stack of E events (the MoE experts' operands, each its
+    own group): every field gains a leading axis; the prologue runs once
+    for the stack and the kernel launches once an event."""
+    if x.ndim == 2:
+        return _one(_quant_err(x[None], part, fmt, algo, backend))
+    return _quant_err(x, part, fmt, algo, backend)
+
+
+def _quant_err(x, part, fmt, algo, backend) -> QuantErr:
+    """:func:`quant_err` of a stack (E, M, K)."""
+    be = _kernel_backend(backend, part, x)
+    E, M, K = x.shape
+    if be == "torch":
+        return QuantErr(*_stacked([_ref.quant_err_ref(x[e], part, fmt, algo)
+                                   for e in range(E)]))
+    bm, bk = part.resolve((M, K))
+    xp, g_amax, mg = _kernel_inputs(x, (bm, bk), (fmt,), algo)
+    xq, _, err_sums, counts = gam_quant_blocks(
+        xp, mg, block=(bm, bk), q_amax=fmt.amax, fmt_dtype=fmt.dtype,
+        algo=algo)
+    return QuantErr(xq[:, :M, :K], err_sums, counts, g_amax, mg[:, 0])
 
 def gam_quant(x: torch.Tensor, *, block=(128, 128), fmt: FormatSpec = E4M3,
               algo: str = "gam", backend: str = "auto"):
@@ -143,29 +199,11 @@ def gam_quant(x: torch.Tensor, *, block=(128, 128), fmt: FormatSpec = E4M3,
         return _ref.gam_quant_ref(x, part, fmt, algo)
     M, K = x.shape
     bm, bk = part.resolve((M, K))
-    _, safe_g = _group_amax(x)
-    m_g = _group_mantissa(safe_g, fmt, algo)
+    xp, _, mg = _kernel_inputs(x[None], (bm, bk), (fmt,), algo)
     xq, block_exp, err_sums, counts = gam_quant_blocks(
-        _pad2d(x, bm, bk).contiguous(),
-        torch.stack([m_g, safe_g]).to(torch.float32), block=(bm, bk),
-        q_amax=fmt.amax, fmt_dtype=fmt.dtype, algo=algo)
+        xp[0], mg[0], block=(bm, bk), q_amax=fmt.amax, fmt_dtype=fmt.dtype,
+        algo=algo)
     return xq[:M, :K], block_exp, err_sums, counts
-
-
-def _select_inputs(x: torch.Tensor, block, algo: str):
-    """Shared prologue of both selection kernels: the padded operand, the
-    raw group amax and the (4,) kernel scalars (E4M3, E5M2 and NVFP4
-    group mantissas and the guarded group amax)."""
-    bm, bk = block
-    xp = _pad2d(x, bm, bk).contiguous()
-    g_amax, safe_g = _group_amax(x)
-    mg = torch.stack([
-        _group_mantissa(safe_g, E4M3, algo),
-        _group_mantissa(safe_g, E5M2, algo),
-        _group_mantissa(safe_g, NVFP4, algo),
-        safe_g,
-    ]).to(torch.float32)
-    return xp, g_amax, mg
 
 
 def mor_select(x: torch.Tensor, part: Partition, mode: str = "sub3",
@@ -174,9 +212,16 @@ def mor_select(x: torch.Tensor, part: Partition, mode: str = "sub3",
     with the fake-quant output ``y`` in x's dtype: one
     ``mor_select_select`` launch on a CUDA tensor, of the kernel's
     instance for x's dtype (bf16, or f32 as the gradient compression's
-    views are)."""
+    views are). A stack of events as in :func:`quant_err`."""
+    if x.ndim == 2:
+        return _one(_mor_select(x[None], part, mode, algo, backend))
+    return _mor_select(x, part, mode, algo, backend)
+
+
+def _mor_select(x, part, mode, algo, backend) -> MorSelect:
+    """:func:`mor_select` of a stack (E, M, K)."""
     be = _kernel_backend(backend, part, x)
-    M, K = x.shape
+    E, M, K = x.shape
     bm, bk = part.resolve((M, K))
     if mode == "sub4" and bk % NVFP4_MICRO:
         # Micro blocks need 16-divisible contraction blocks; the sub4
@@ -184,14 +229,15 @@ def mor_select(x: torch.Tensor, part: Partition, mode: str = "sub3",
         # sends other callers to its XLA path.
         be = "torch"
     if be == "torch":
-        return _ref.mor_select_ref(x, part, mode, algo)
-    xp, g_amax, mg = _select_inputs(x, (bm, bk), algo)
-    out = mor_select_select(xp, mg, block=(bm, bk), mode=mode, algo=algo)
+        return MorSelect(*_stacked([_ref.mor_select_ref(x[e], part, mode,
+                                                        algo)
+                                    for e in range(E)]))
+    xp, g_amax, mg = _kernel_inputs(x, (bm, bk), SELECT_FORMATS, algo)
+    f = mor_select_select(xp, mg, block=(bm, bk), mode=mode, algo=algo)
     return MorSelect(
-        y=out["y"][:M, :K], sel=out["sel"], e4_sums=out["e4_sums"],
-        e5_sums=out["e5_sums"], counts=out["counts"], group_amax=g_amax,
-        group_mantissa=mg[0], nv_sums=out.get("nv_sums"),
-    )
+        y=f["y"][:, :M, :K], sel=f["sel"], e4_sums=f["e4_sums"],
+        e5_sums=f["e5_sums"], counts=f["counts"], group_amax=g_amax,
+        group_mantissa=mg[:, 0], nv_sums=f.get("nv_sums"))
 
 
 def quantize_pack(x: torch.Tensor, part: Partition, mode: str = "sub3",
@@ -201,19 +247,39 @@ def quantize_pack(x: torch.Tensor, part: Partition, mode: str = "sub3",
 
     The kernel path pads the operand to the block grid, computes the
     group amax and the three Alg. 1 group mantissas outside the kernel
-    (as the reference does), and launches ``mor_select_pack`` once.
+    (as the reference does), and launches ``mor_select_pack`` once. A
+    stack of events as in :func:`quant_err`: one MixedOperand with a
+    leading axis on every lane.
     """
+    if x.ndim == 2:
+        mo, r = _quantize_pack(x[None], part, mode, algo, backend)
+        return mo.stack_index(0), _one(r)
+    return _quantize_pack(x, part, mode, algo, backend)
+
+
+def _quantize_pack(x, part, mode, algo, backend):
+    """:func:`quantize_pack` of a stack (E, M, K)."""
     be = _kernel_backend(backend, part, x)
-    M, K = x.shape
+    E, M, K = x.shape
     bm, bk = part.resolve((M, K))
     if be == "torch":
-        return _ref.quantize_pack_ref(x, part, mode, algo)
+        packs = [_ref.quantize_pack_ref(x[e], part, mode, algo)
+                 for e in range(E)]
+        return (_stacked_mixed([p[0] for p in packs]),
+                MorSelect(*_stacked([p[1] for p in packs])))
+    xp, g_amax, mg = _kernel_inputs(x, (bm, bk), SELECT_FORMATS, algo)
+    return _pack_launch(xp, g_amax, mg, (bm, bk), (M, K), mode, algo)
+
+def _pack_launch(xp, g_amax, mg, block, shape, mode: str, algo: str):
+    """``mor_select_pack`` on a padded stack of operands (one launch
+    each; every lane has the leading axis): (MixedOperand, MorSelect with
+    y=None)."""
+    bm, bk = block
     if mode == "sub4" and not _ref.nvfp4_block_capable((bm, bk)):
         raise ValueError(
             f"sub4 packing needs an even-row, {NVFP4_MICRO}-divisible-"
             f"column block, got {(bm, bk)}"
         )
-    xp, g_amax, mg = _select_inputs(x, (bm, bk), algo)
     out = mor_select_pack(xp, mg, block=(bm, bk), mode=mode, algo=algo)
     mo = MixedOperand(
         payload_q=out["payload_q"],
@@ -221,7 +287,7 @@ def quantize_pack(x: torch.Tensor, part: Partition, mode: str = "sub3",
         tags=out["sel"],
         scales=out["scales"],
         block=(bm, bk),
-        shape=(M, K),
+        shape=tuple(shape),
         payload_nib=out.get("payload_nib"),
         micro_scales=out.get("micro_scales"),
         has_nvfp4=(mode == "sub4"),
@@ -229,7 +295,7 @@ def quantize_pack(x: torch.Tensor, part: Partition, mode: str = "sub3",
     r = MorSelect(
         y=None, sel=out["sel"], e4_sums=out["e4_sums"],
         e5_sums=out["e5_sums"], counts=out["counts"], group_amax=g_amax,
-        group_mantissa=mg[0], nv_sums=out.get("nv_sums"),
+        group_mantissa=mg[:, 0], nv_sums=out.get("nv_sums"),
     )
     return mo, r
 

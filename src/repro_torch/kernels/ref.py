@@ -150,6 +150,15 @@ class MixedOperand:
                 device=dev,
             )
 
+    def stack_index(self, i: int) -> "MixedOperand":
+        """The pack of entry ``i`` of a stacked operand (a layer of a
+        layer-stacked weight, an expert of an expert stack): views of
+        every lane's entry ``i``."""
+        return dataclasses.replace(self, **{
+            k: getattr(self, k)[i] for k in (
+                "payload_q", "payload_bf16", "tags", "scales",
+                "payload_nib", "micro_scales")})
+
     @property
     def padded_shape(self) -> Tuple[int, int]:
         return (self.tags.shape[-2] * self.block[0],

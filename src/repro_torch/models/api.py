@@ -38,22 +38,40 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     return torch.mean(nll)
 
 
+def _aux_leaves(tree, path: str = ""):
+    for k in sorted(tree):
+        v, name = tree[k], f"{path}/{k}"
+        if isinstance(v, dict):
+            yield from _aux_leaves(v, name)
+        elif "aux_loss" in name:
+            yield v
+
+
+def _collect_aux_losses(stats, device) -> torch.Tensor:
+    """The sum of every stats leaf whose key path holds ``aux_loss`` (the
+    MoE load-balance terms), in the reference's sorted key order; 0 for
+    a tree with none (the dense family)."""
+    total = torch.zeros((), dtype=torch.float32, device=device)
+    for leaf in _aux_leaves(stats):
+        total = total + torch.sum(leaf)
+    return total
+
+
 def make_loss_fn(cfg: ArchConfig, policy: MoRDotPolicy, *,
                  remat: bool = True, aux_coef: float = 0.01):
     """loss_fn(params, tokens, batch) -> (total loss, aux). ``tokens``
     are the zero bwd-stat tokens from :func:`make_tokens`; differentiate
     with respect to them to read the backward quantization stats. The
-    total is ``loss + aux_coef * aux_loss`` as in the reference, whose
-    ``aux_loss`` sums the MoE load-balance terms; the dense family has
-    none, so ``aux['aux_loss']`` is zero and any ``aux_coef`` leaves the
-    total equal to the cross-entropy."""
+    total is ``loss + aux_coef * aux_loss`` as in the reference, where
+    ``aux_loss`` sums the MoE layers' load-balance terms (0 for the dense
+    family)."""
 
     def loss_fn(params, tokens, batch):
         logits, _, stats = T.forward(cfg, policy, params, batch,
                                      mode="train", tokens=tokens,
                                      remat=remat)
         loss = cross_entropy(logits, batch["labels"])
-        aux_loss = torch.zeros_like(loss)
+        aux_loss = _collect_aux_losses(stats, loss.device)
         return loss + aux_coef * aux_loss, {
             "loss": loss, "aux_loss": aux_loss, "mor_fwd": stats}
 
@@ -65,7 +83,7 @@ def make_prefill_fn(cfg: ArchConfig, policy: MoRDotPolicy):
     causal pass over ``batch['tokens']`` (B, S) with no cache input. The
     logits are computed in full, as in the reference, and the last
     position's returned; ``cache`` is every layer's bf16 K/V
-    (``{"dense": {"k", "v": (n_units, B, S, Hkv, dh)}}``), ready for
+    (``{type: {"k", "v": (n_units, B, S, Hkv, dh)}}``), ready for
     ``PagedKVPool.splice``. The reference's stats-token argument has no
     counterpart (no backward in serving)."""
 

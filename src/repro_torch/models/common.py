@@ -89,9 +89,11 @@ class _Gelu(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x):
-        c1 = torch.tensor(0.044715, dtype=x.dtype, device=x.device)
-        c2 = torch.tensor(math.sqrt(2 / math.pi), dtype=x.dtype,
-                          device=x.device)
+        # Fills, not copies from host memory (which would synchronise
+        # the card's stream).
+        c1 = torch.full((), 0.044715, dtype=x.dtype, device=x.device)
+        c2 = torch.full((), math.sqrt(2 / math.pi), dtype=x.dtype,
+                        device=x.device)
         x2 = x * x
         i = torch.tanh(c2 * (x + c1 * (x2 * x)))
         l = 0.5 * (1 + i)

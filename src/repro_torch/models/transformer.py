@@ -1,16 +1,19 @@
-"""Model assembly for the dense decoder family (port of the train,
-prefill and decode paths of ``repro.models.transformer``).
+"""Model assembly for the dense and MoE decoder families (port of the
+train, prefill and decode paths of ``repro.models.transformer``).
 
 Parameters are nested dicts with the reference's key paths
-(``blocks/dense/wqkv``, ``blocks/dense/mlp/wi``, ``lm_head``, ``embed``,
-``blocks/dense/ln1/scale``, ...); per-layer leaves are stacked on a
-leading layer axis. Embeddings are padded to a multiple of 128 rows and
-the padded logit columns are masked to -1e30. The decode cache has the
-reference's three tiers: bf16 K/V, fp8 (``kv_fp8``) and MoR (``kv_mor``).
+(``blocks/dense/wqkv``, ``blocks/dense/mlp/wi``, ``blocks/moe/moe/w1``,
+``blocks/moe/moe/router``, ``lm_head``, ``embed``,
+``blocks/dense/ln1/scale``, ...) keyed by the unit's layer types;
+per-layer leaves are stacked on a leading layer axis (an MoE layer's
+experts on the next one). Embeddings are padded to a multiple of 128
+rows and the padded logit columns are masked to -1e30. The decode cache
+has the reference's three tiers: bf16 K/V, fp8 (``kv_fp8``) and MoR
+(``kv_mor``); an MoE layer's KV lanes are a dense layer's.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -27,30 +30,48 @@ from . import blocks as B
 __all__ = ["init_params", "make_tokens", "cache_specs", "init_cache",
            "forward", "padded_vocab", "resolve_device"]
 
-_GEMMS = ("qkv", "proj", "fc1", "fc2")
+# The reference modules the families not ported yet wait for.
+_UNPORTED = {
+    "audio": "the whisper encoder and decoder blocks of "
+             "repro.models.transformer (frames frontend, cross-attention)",
+    "vlm": "the patch-prefix frontend of repro.models.transformer "
+           "(prefix attention)",
+    "ssm": "repro.models.recurrent (mlstm / slstm)",
+    "hybrid": "repro.models.recurrent (the hymba mamba mixer)",
+}
+_BLOCK_FN = {"dense": B.dense_block, "moe": B.moe_block}
 
 
 def padded_vocab(cfg: ArchConfig) -> int:
     return -(-cfg.vocab // 128) * 128
 
 
-def _check_family(cfg: ArchConfig):
-    if cfg.family != "dense" or tuple(cfg.unit) != ("dense",):
+def _unit_types(cfg: ArchConfig) -> Tuple[str, ...]:
+    """The layer types of one unit; a family that is not ported raises,
+    naming the reference code it waits for."""
+    if cfg.family in _UNPORTED:
         raise NotImplementedError(
-            f"family {cfg.family!r} / unit {cfg.unit}: only the dense "
-            "decoder family is ported (the MoE, recurrent and enc-dec "
-            "families of repro.models.blocks and repro.models.recurrent "
-            "are not)"
-        )
+            f"family {cfg.family!r} is not ported yet: it needs "
+            f"{_UNPORTED[cfg.family]}")
+    for t in cfg.unit:
+        if t not in _BLOCK_FN:
+            raise NotImplementedError(
+                f"layer type {t!r} is not ported yet (repro.models."
+                "recurrent)")
+    return tuple(cfg.unit)
+
+
+def _ffin(cfg: ArchConfig, f: int) -> int:
+    return 2 * f if cfg.act in ("swiglu", "geglu") else f
 
 
 def init_params(cfg: ArchConfig, seed: int = 0,
                 device="cuda") -> Dict[str, Any]:
-    """Random dense-family parameters from a seeded ``torch.Generator``
-    on ``device`` (the reference's structure, scales and dtypes; torch
-    cannot replay ``jax.random``, so the values differ -- tests carry
-    the JAX draw across with ``repro_torch.convert``)."""
-    _check_family(cfg)
+    """Random parameters from a seeded ``torch.Generator`` on ``device``
+    (the reference's structure, scales and dtypes; torch cannot replay
+    ``jax.random``, so the values differ -- tests carry the JAX draw
+    across with ``repro_torch.convert``)."""
+    types = _unit_types(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -58,19 +79,33 @@ def init_params(cfg: ArchConfig, seed: int = 0,
     hq, hkv, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
     Vp = padded_vocab(cfg)
     depth_std = 0.02 / max(1.0, (2 * cfg.n_layers) ** 0.5)
-    ffin = 2 * f if cfg.act in ("swiglu", "geglu") else f
 
-    def normal(shape, std):
+    def normal(shape, std, dtype=torch.bfloat16):
         return (torch.randn(shape, generator=gen, device=dev,
-                            dtype=torch.float32) * std).to(torch.bfloat16)
+                            dtype=torch.float32) * std).to(dtype)
 
-    def stacked(shape, std):
+    def stacked(shape, std, dtype=torch.bfloat16):
         # One layer at a time: the f32 draw of a whole stack would not
         # fit beside the model at full width.
-        out = torch.empty((L, *shape), dtype=torch.bfloat16, device=dev)
+        out = torch.empty((L, *shape), dtype=dtype, device=dev)
         for l in range(L):
-            out[l] = normal(shape, std)
+            out[l] = normal(shape, std, dtype)
         return out
+
+    def layer(t):
+        p = {"wqkv": stacked((d, (hq + 2 * hkv) * hd), 0.02),
+             "wo": stacked((hq * hd, d), depth_std)}
+        if t == "moe":
+            E = cfg.n_experts
+            p["moe"] = {"router": stacked((d, E), 0.02, torch.float32),
+                        "w1": stacked((E, d, _ffin(cfg, f)), 0.02),
+                        "w2": stacked((E, f, d), depth_std)}
+        else:
+            p["mlp"] = {"wi": stacked((d, _ffin(cfg, f)), 0.02),
+                        "wo": stacked((f, d), depth_std)}
+        p["ln1"] = {"scale": torch.zeros((L, d), device=dev)}
+        p["ln2"] = {"scale": torch.zeros((L, d), device=dev)}
+        return p
 
     embed = normal((Vp, d), 0.02)
     embed[cfg.vocab:] = 0
@@ -80,27 +115,30 @@ def init_params(cfg: ArchConfig, seed: int = 0,
     }
     if not cfg.tie_embed:
         params["lm_head"] = normal((d, Vp), 0.02)
-    params["blocks"] = {"dense": {
-        "wqkv": stacked((d, (hq + 2 * hkv) * hd), 0.02),
-        "wo": stacked((hq * hd, d), depth_std),
-        "mlp": {"wi": stacked((d, ffin), 0.02),
-                "wo": stacked((f, d), depth_std)},
-        "ln1": {"scale": torch.zeros((L, d), device=dev)},
-        "ln2": {"scale": torch.zeros((L, d), device=dev)},
-    }}
+    params["blocks"] = {t: layer(t) for t in types}
     return params
 
 
+def _layer_tokens(t: str, cfg: ArchConfig):
+    """{GEMM name: token shape} of one layer of type ``t``."""
+    one = (N_BWD_EVENTS, STATS_WIDTH)
+    if t == "moe":
+        per_expert = (cfg.n_experts, *one)
+        return {"qkv": one, "proj": one, "w1": per_expert, "w2": per_expert}
+    return {n: one for n in ("qkv", "proj", "fc1", "fc2")}
+
+
 def make_tokens(cfg: ArchConfig, device="cuda"):
-    """Zero bwd-stat tokens, one (L, N_BWD_EVENTS, STATS_WIDTH) stack per
-    GEMM of the layer; each requires grad, and its gradient carries the
+    """Zero bwd-stat tokens, stacked over layers: one (N_BWD_EVENTS,
+    STATS_WIDTH) token per GEMM of a layer, one per expert for an MoE
+    layer's 'w1' / 'w2'; each requires grad, and its gradient carries the
     backward quantization stats out of the train step."""
-    _check_family(cfg)
+    types = _unit_types(cfg)
     dev = resolve_device(device)
-    return {"blocks": {"dense": {
-        n: torch.zeros((cfg.n_units, N_BWD_EVENTS, STATS_WIDTH),
-                       dtype=torch.float32, device=dev, requires_grad=True)
-        for n in _GEMMS}}}
+    return {"blocks": {t: {
+        n: torch.zeros((cfg.n_units, *shape), dtype=torch.float32,
+                       device=dev, requires_grad=True)
+        for n, shape in _layer_tokens(t, cfg).items()} for t in types}}
 
 
 def cache_specs(cfg: ArchConfig, batch: int, seq: int,
@@ -108,8 +146,9 @@ def cache_specs(cfg: ArchConfig, batch: int, seq: int,
     """{unit type: {leaf: (shape, dtype)}} of the decode cache, stacked
     over layers: bf16 K/V; with ``kv_fp8`` float8_e4m3fn K/V payloads and
     per-(position, head) f32 scales; with ``kv_mor`` uint8 K/V payloads,
-    uint8 tags and f32 GAM scales (the reference's lanes and dtypes)."""
-    _check_family(cfg)
+    uint8 tags and f32 GAM scales (the reference's lanes and dtypes). The
+    dense and MoE layer types hold the same lanes."""
+    types = _unit_types(cfg)
     if kv_fp8 and kv_mor:
         raise ValueError("kv_fp8 and kv_mor are mutually exclusive")
     L, hkv, hd = cfg.n_units, cfg.n_kv, cfg.head_dim
@@ -127,7 +166,7 @@ def cache_specs(cfg: ArchConfig, batch: int, seq: int,
                   "v_scale": (row, torch.float32)}
     else:
         leaves = {"k": (kv, torch.bfloat16), "v": (kv, torch.bfloat16)}
-    return {"dense": leaves}
+    return {t: dict(leaves) for t in types}
 
 
 def init_cache(cfg: ArchConfig, batch: int, seq: int, kv_fp8: bool = False,
@@ -157,9 +196,9 @@ def _layer(tree, l: int):
     return out
 
 
-def _train_layer(p_l, x, tok_l, policy, cfg):
-    x, _, st = B.dense_block(p_l, x, tok_l, policy, cfg, "train", None,
-                             None, kind="causal")
+def _train_layer(t, p_l, x, tok_l, policy, cfg):
+    x, _, st = _BLOCK_FN[t](p_l, x, tok_l, policy, cfg, "train", None,
+                            None, kind="causal")
     return x, st
 
 
@@ -229,47 +268,50 @@ def forward(cfg: ArchConfig, policy: MoRDotPolicy, params, batch, *,
 
     Prefill mode: ``batch['tokens']`` (B, S), causal over the whole
     sequence with no cache input; the returned cache is every layer's
-    bf16 K/V, ``{"dense": {"k", "v": (n_units, B, S, Hkv, dh)}}``.
+    bf16 K/V, ``{type: {"k", "v": (n_units, B, S, Hkv, dh)}}``.
 
     Decode mode: ``batch['token']`` (B, S) against ``cache`` -- S == 1
     for a decode step, S > 1 for a prefill chunk -- with ``cur_index``
     (scalar or (B,)) the position of each row's last incoming token.
     The cache is updated in place and returned.
     """
-    _check_family(cfg)
+    types = _unit_types(cfg)
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode {mode!r}")
     ids = batch["token"] if mode == "decode" else batch["tokens"]
     x = params["embed"][ids]
-    if cfg.tie_embed:
-        x = x * torch.tensor(cfg.d_model**0.5, dtype=x.dtype)
+    if cfg.family in ("dense", "vlm") and cfg.tie_embed:
+        x = x * torch.tensor(cfg.d_model**0.5, dtype=x.dtype)  # gemma
 
-    rows, kvs = [], []
-    blocks = params["blocks"]["dense"]
-    toks = None if tokens is None else tokens["blocks"]["dense"]
+    rows = {t: [] for t in types}
+    kvs = {t: [] for t in types}
     for l in range(cfg.n_units):
-        p_l = _layer(blocks, l)
-        tok_l = None if toks is None else {k: v[l] for k, v in toks.items()}
-        if mode == "train":
-            if remat:
-                x, st = checkpoint(_train_layer, p_l, x, tok_l, policy, cfg,
-                                   use_reentrant=False)
+        for t in types:
+            p_l = _layer(params["blocks"][t], l)
+            tok_l = (None if tokens is None else
+                     {k: v[l] for k, v in tokens["blocks"][t].items()})
+            if mode == "train":
+                if remat:
+                    x, st = checkpoint(_train_layer, t, p_l, x, tok_l,
+                                       policy, cfg, use_reentrant=False)
+                else:
+                    x, st = _train_layer(t, p_l, x, tok_l, policy, cfg)
+            elif mode == "prefill":
+                x, kv, st = _BLOCK_FN[t](p_l, x, tok_l, policy, cfg, mode,
+                                         None, None, kind="causal")
+                kvs[t].append(kv)
             else:
-                x, st = _train_layer(p_l, x, tok_l, policy, cfg)
-        elif mode == "prefill":
-            x, kv, st = B.dense_block(p_l, x, tok_l, policy, cfg, mode, None,
-                                      None, kind="causal")
-            kvs.append(kv)
-        else:
-            c_l = {k: v[l] for k, v in cache["dense"].items()}
-            x, _, st = B.dense_block(p_l, x, tok_l, policy, cfg, mode, c_l,
-                                     cur_index, kind="causal")
-        rows.append(st)
+                c_l = {k: v[l] for k, v in cache[t].items()}
+                x, _, st = _BLOCK_FN[t](p_l, x, tok_l, policy, cfg, mode,
+                                        c_l, cur_index, kind="causal")
+            rows[t].append(st)
     if mode == "prefill":
-        cache = {"dense": {k: torch.stack([kv[k] for kv in kvs])
-                           for k in ("k", "v")}}
-    stats = {"blocks": {"dense": {
-        k: torch.stack([r[k] for r in rows]) for k in rows[0]}}}
+        cache = {t: {k: torch.stack([kv[k] for kv in kvs[t]])
+                     for k in ("k", "v")} for t in types}
+    # Every stats leaf stacked over layers (an MoE layer's scalar
+    # aux_loss / dropped become (n_units,)).
+    stats = {"blocks": {t: {k: torch.stack([r[k] for r in rows[t]])
+                            for k in rows[t][0]} for t in types}}
 
     x = B.norm(params["final_norm"], x, cfg)
     head = params["embed"].T if cfg.tie_embed else params["lm_head"]

@@ -19,7 +19,12 @@ each decoding slot's pages for nonfinite lanes before its logits are
 read, so the quarantine names the corrupted lane. ``_full_prefill`` is
 the one-shot prefill (``make_prefill_fn`` plus ``PagedKVPool.splice``,
 the tier's quantizer at the splice) of families whose state cannot be
-paged; the dense family prefills in chunks.
+paged; the dense and MoE families, whose caches are all positional,
+prefill in chunks. Under ``quantize`` the MoE expert stacks (4-D) and
+routers stay dense, as in the reference: the expert GEMMs run through
+``mor_dot`` under the engine's ``MoRDotPolicy``, and every slot of a
+decode batch (idle ones on token 0 at position 0) feeds the same expert
+buffers.
 
 Not ported yet (it raises): tensor-parallel ``mesh`` serving.
 """
@@ -94,6 +99,14 @@ class Engine:
         leaves become QTensors and every matmul against them runs
         through the mixed GEMM. ``device``: CUDA unless the caller asks
         for the CPU (then every kernel runs its plain version)."""
+        if cfg.family in ("audio", "vlm"):
+            raise NotImplementedError(
+                f"family {cfg.family!r} needs a modality frontend the "
+                "engine does not drive (frames/patches inputs)")
+        if cfg.family in ("ssm", "hybrid"):
+            raise NotImplementedError(
+                f"family {cfg.family!r} is not ported yet: its recurrent "
+                "state waits for repro.models.recurrent")
         if mesh is not None:
             raise NotImplementedError(
                 "tensor-parallel serving (mesh) is not ported yet")
@@ -119,8 +132,9 @@ class Engine:
                                 n_pages=scfg.pool_pages, kv_mor=scfg.kv_mor,
                                 device=self.device)
         self._sealed = set()  # (slot, page index) sub4-recompressed
-        # Every cache leaf of the dense family is positional, so prefill
-        # is chunked; _full_prefill serves families whose state is not.
+        # Every cache leaf of the dense and MoE families is positional,
+        # so prefill is chunked; _full_prefill serves families whose
+        # state is not.
         self.chunked_prefill = True
         self._prefill = make_prefill_fn(cfg, policy)
         self._decode = make_decode_fn(cfg, policy)

@@ -10,11 +10,11 @@ decode step can always run over all slots. The pool is updated in
 place (``scatter``, ``splice``, ``recompress_pages``); the reference
 threads it through a donated jit.
 
-Every leaf of the dense family's caches is positional, so all are paged:
-the K/V payloads and, in the fp8 and MoR tiers, the scale and tag lanes.
-Leaves are named by their key paths as in the reference (``dense/k``,
-``dense/k_scale``, ``dense/k_tags``, ...), and walked in the order of
-those keys sorted (the reference's pytree order).
+Every leaf of the dense and MoE families' caches is positional, so all
+are paged: the K/V payloads and, in the fp8 and MoR tiers, the scale and
+tag lanes. Leaves are named by their key paths as in the reference
+(``dense/k``, ``moe/k_scale``, ``dense/k_tags``, ...), and walked in the
+order of those keys sorted (the reference's pytree order).
 """
 from __future__ import annotations
 

@@ -85,30 +85,16 @@ class QTensor:
     def layer(self, l: int) -> "QTensor":
         """Layer ``l`` of a stacked weight as a single-matrix QTensor
         (views of the lanes; the counterpart of lax.scan slicing)."""
-        return QTensor(_layer_mo(self.mo, l), self.stats[l], self.shape)
+        return QTensor(self.mo.stack_index(l), self.stats[l], self.shape)
 
     def dequant(self) -> torch.Tensor:
         """(K, N) -- or (L, K, N) if stacked -- bf16 reconstruction."""
         if not self.is_stacked:
             return self.mo.dequant().T.to(torch.bfloat16)
         return torch.stack([
-            _layer_mo(self.mo, l).dequant().T
+            self.mo.stack_index(l).dequant().T
             for l in range(self.mo.tags.shape[0])
         ]).to(torch.bfloat16)
-
-
-def _layer_mo(mo: MixedOperand, l: int) -> MixedOperand:
-    return MixedOperand(
-        payload_q=mo.payload_q[l],
-        payload_bf16=mo.payload_bf16[l],
-        tags=mo.tags[l],
-        scales=mo.scales[l],
-        block=mo.block,
-        shape=mo.shape,
-        payload_nib=mo.payload_nib[l],
-        micro_scales=mo.micro_scales[l],
-        has_nvfp4=mo.has_nvfp4,
-    )
 
 
 def _block_policy(policy: MoRPolicy) -> MoRPolicy:
@@ -196,7 +182,9 @@ def qdot(x: torch.Tensor, qw: QTensor, *, backend: str = "auto",
 def _is_gemm_weight(name: str, leaf) -> bool:
     """Leaves that feed a mor_dot / head GEMM as the weight: 2-D single
     matrices and 3-D layer stacks, excluding embeddings, norm scales,
-    routers and biases by name segment."""
+    routers and biases by name segment. 4-D stacked-expert MoE weights
+    stay dense, as in the reference (their GEMMs run through mor_dot
+    under the serving policy)."""
     if not isinstance(leaf, torch.Tensor) or leaf.ndim not in (2, 3):
         return False
     for seg in name.split("/"):

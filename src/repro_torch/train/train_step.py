@@ -51,8 +51,8 @@ class TrainConfig:
     # keeps them dense f32. Must match the MomentPolicy the state was
     # made with.
     moments: Optional[MomentPolicy] = None
-    # Weight of the MoE load-balance loss: any value, since the dense
-    # models' aux loss is 0 (see models.api.make_loss_fn).
+    # Weight of the MoE load-balance loss (models.api.make_loss_fn; the
+    # dense family's aux loss is 0).
     aux_coef: float = 0.01
     # ZeRO-2 gradient sharding for GSPMD: accepted and ignored (one card).
     zero2_grads: bool = True

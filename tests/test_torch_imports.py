@@ -35,7 +35,12 @@ def test_port_tree_is_present():
                  "src/repro_torch/train/train_step.py",
                  "src/repro_torch/kernels/gam_quant.py",
                  "src/repro_torch/checkpoint/ckpt.py",
-                 "src/repro_torch/robust/faults.py", "chip_smoke.py"):
+                 "src/repro_torch/robust/faults.py",
+                 "src/repro_torch/models/blocks.py",
+                 "src/repro_torch/configs/gemma_2b.py",
+                 "src/repro_torch/configs/granite_moe_1b_a400m.py",
+                 "src/repro_torch/configs/moonshot_v1_16b_a3b.py",
+                 "chip_smoke.py"):
         assert must in names
 
 
@@ -54,6 +59,8 @@ def test_import_leaves_jax_unloaded():
         "import repro_torch.kernels.ops, repro_torch.train, repro_torch.data\n"
         "import repro_torch.optim, repro_torch.core.stats\n"
         "import repro_torch.checkpoint, repro_torch.robust.faults\n"
+        "import repro_torch.models.blocks, repro_torch.configs\n"
+        "repro_torch.configs.list_archs()\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "print(bad)\n"
