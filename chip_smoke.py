@@ -42,7 +42,10 @@
    holds every GEMM of the kernel path (all five weight shapes) against
    the plain version on its real inputs at 1e-5 sum|a||b|; the kernel
    path's logits may be at most twice as far from the f64 path's as
-   the plain path's are. A backward through a real-quantized (QTensor)
+   the plain path's are, and fed the plain version's GEMM outputs must
+   equal the plain path's bit for bit (every depth-2 serving check
+   below follows this rule: ``depth2_three_ways``). A backward through a
+   real-quantized (QTensor)
    weight must raise the reference's NotImplementedError.
 6. Training: holds ``gam_quant`` (both of its routes: ``tile`` for 128 x
    128 blocks, ``generic`` for others and, through the module's launcher,
@@ -151,7 +154,7 @@
    rows, bit for bit; (c) ``make_prefill_fn`` on a 2048-token prompt
    with all 4L + 1 GEMMs on the tc path, that prompt served through
    ``_full_prefill`` into a kv_mor pool beside the chunked engine, and a
-   depth-2 512-token prefill three ways (kernel, plain, f64 GEMMs); (d)
+   depth-2 512-token prefill three ways (step 5's rule); (d)
    the KV-page guard on a trashed page of a MoR and an fp8 pool (4
    layers, 3 slots), beside clean runs: under fp8 the other slots'
    tokens bit-identical; under MoR, whose quantize_kv_mor groups every
@@ -183,15 +186,44 @@
    plain quantizers with the kernel GEMMs. One layer's expert GEMMs at
    decode timed as the stack and as a loop of E mor_dots. granite at
    depth 2 three ways (kernel, plain, f64 GEMMs), every mixed GEMM held
-   against the plain version, phase_depth2's rule gated with the
-   experts' activation events off; under the engine's policy the
-   kernel path fed the plain GEMM outputs must equal the plain path
-   (the expert stacks whose inputs moved are reported), with the share
+   against the plain version, phase_depth2's 2x rule gated with the
+   experts' activation events off; with them on too, the kernel path
+   fed the plain GEMM outputs must equal the plain path (under the
+   engine's policy the expert stacks whose inputs moved are reported),
+   with the share
    of routing decisions the kernel and plain paths share.
 
+13. The frontend families (``phase_frontends``), sub3 QTensor weights
+   quantized once (every pack on the tile route), served through
+   ``make_prefill_fn`` and then greedy ``make_decode_fn`` steps (the
+   engine refuses both families, as the reference's does), and trained
+   3 AdamW steps each under sub3 and fused sub3 (finite loss and grad
+   norm, every event and fused GEMM on the kernels, the tile route and
+   the tc path). (a) paligemma-3b at full width and depth (18 layers;
+   256 stub patch embeddings before the tokens, attending
+   bidirectionally): 4 requests of a 128-token prompt (4 x 384 prefill
+   rows on the tc path), 32 decode steps (M = 4, stream path) on a bf16
+   and a kv_mor cache (18,432 / 9,396 bytes per token); training on 2 x
+   (256 + 1024) positions. (b) whisper-tiny at full width and depth (4
+   encoder and 4 decoder layers, 1500 stub frames): 8 requests of a
+   32-token prompt, 64 decode steps on the bf16 cache (6,144 bytes per
+   token); every GEMM of a full prefill held against the plain version
+   at M = 12000 (the encoder's and the cross K/V's, 93.75 blocks of 128)
+   on the tc path; the quantized KV tiers refused by name; training on 8
+   x 1500 frames by 448 tokens. (c) Each family at depth 2 three ways
+   (kernel, plain, f64 GEMMs): a prefill of 4 requests of the main
+   path's prompt and a decode step, every mixed GEMM held against the
+   plain version, phase_depth2's rule, and the kernel path fed the plain
+   GEMM outputs equal to the plain path. (d) Each family at depth 2 on
+   the main path's training batch, as step 6's depth-2 step: sub3
+   kernel path against plain path (loss, stats rows, gradients); fused
+   sub3 with every forward, dgrad and wgrad GEMM held against the plain
+   version (whisper's wgrads contracting over the 12000 ragged rows).
+
 Prints JSON lines (the ``kernels``, ``engine``, ``serve_tiers``,
-``model_zoo``, ``train``, ``train_state``, ``fault_tolerance``,
-``generic_smem`` and ``kernel_api`` lines among them) and ends with
+``model_zoo``, ``frontends``, ``train``, ``train_state``,
+``fault_tolerance``, ``generic_smem`` and ``kernel_api`` lines among
+them) and ends with
 ``{"ok": true, "device":
 ...}``. Exits non-zero on any failure, without a card, or without the
 rest of the repository beside it.
@@ -944,14 +976,105 @@ def checked_dot(ops, ref, seen):
     return dot
 
 
+def f64_mixed_dot(ref):
+    """An ``ops.mixed_dot`` whose GEMM sums the decoded operands in f64
+    (the depth-2 checks' third path)."""
+    def dot(x2, mo, *, out_dtype=torch.bfloat16, backend="auto"):
+        w = ref.decode_mixed_ref(mo)[:mo.shape[0], :x2.shape[1]]
+        return (x2.double() @ w.double().T).float().to(out_dtype)
+    return dot
+
+
+def plain_mixed_dot(ops):
+    """An ``ops.mixed_dot`` that always runs the plain version."""
+    mixed_dot = ops.mixed_dot
+
+    def dot(x2, mo, *, out_dtype=torch.bfloat16, backend="auto"):
+        return mixed_dot(x2, mo, out_dtype=out_dtype, backend="torch")
+    return dot
+
+
+def checked_gemm(ops, ref, seen):
+    """``ops.mixed_gemm`` that launches the kernel and holds every call
+    against the plain version on the same packs (``gemm_tol``), keyed by
+    (M, N, K, GEMM path); returns the kernel's result."""
+    from repro_torch.kernels.mixed_gemm import gemm_path
+    orig = ops.mixed_gemm
+
+    def gemm(a, b, *, out_dtype=torch.bfloat16, backend="auto", tile=None):
+        yk = orig(a, b, out_dtype=out_dtype, backend="cuda")
+        yt = orig(a, b, out_dtype=out_dtype, backend="torch")
+        K = a.shape[1]
+        A = ref.decode_mixed_ref(a)[:a.shape[0], :K]
+        B = ref.decode_mixed_ref(b)[:b.shape[0], :K]
+        err = (yk.float() - yt.float()).abs()
+        key = (a.shape[0], b.shape[0], K, gemm_path(a.shape[0]))
+        check(bool(torch.all(err <= gemm_tol(A, B, yt, out_dtype))),
+              f"mixed_gemm M,N,K,path={key}: max err "
+              f"{float(err.max())} beyond 1e-5 sum|a||b| (+1 bf16 ulp)")
+        s = seen.setdefault(key, {"calls": 0, "max_abs_err": 0.0,
+                                  "kernel_vs_plain_differ": 0.0})
+        s["calls"] += 1
+        s["max_abs_err"] = max(s["max_abs_err"], float(err.max()))
+        s["kernel_vs_plain_differ"] = max(
+            s["kernel_vs_plain_differ"], float((yk != yt).float().mean()))
+        return yk
+    return gemm
+
+
+DEPTH2_WAYS = ("kernel", "repeat", "plain", "f64", "fed")
+
+
+def depth2_three_ways(run, ops, ref, what, names, gate=True):
+    """phase_depth2's rule on ``run(backend, way)`` -> one tensor for each
+    of ``names``, run each way of DEPTH2_WAYS: 'kernel' with every mixed
+    GEMM held against the plain version on its real inputs at 1e-5
+    sum|a||b| (``checked_dot``); 'repeat', the kernel path again, which
+    must repeat bit for bit; 'plain' (backend 'torch'); 'f64', the mixed
+    GEMMs summed in f64; 'fed', the kernel path fed the plain version's
+    GEMM outputs, which must be the plain path bit for bit (the other
+    kernels of the path agree with their plain versions exactly). With
+    ``gate``: any two summation orders flip a few bf16 activations, and
+    the model carries those flips to its outputs, so the plain path is as
+    far from the f64 path as the kernel path is from either; the kernel
+    path may be at most twice as far from the f64 path as the plain path
+    (a wrong block or lane would be far beyond). Returns ({name: figures,
+    'gemms': the checked GEMMs}, those GEMMs by (M, N, K, out))."""
+    gemms = {}
+    dots = {"kernel": checked_dot(ops, ref, gemms), "f64": f64_mixed_dot(ref),
+            "fed": plain_mixed_dot(ops)}
+    out = {}
+    for way in DEPTH2_WAYS:
+        with patched(ops, "mixed_dot", dots.get(way, ops.mixed_dot)):
+            out[way] = run("torch" if way == "plain" else "auto", way)
+    res = {"gemms": [{"M": k[0], "N": k[1], "K": k[2], "out": k[3], **v}
+                     for k, v in sorted(gemms.items())]}
+    for i, name in enumerate(names):
+        k, p, e, fed = (out[w][i] for w in ("kernel", "plain", "f64", "fed"))
+        check(torch.equal(k, out["repeat"][i]),
+              f"{what} {name}: the kernel path does not repeat")
+        r = res[name] = {
+            "max_abs": float(p.abs().max()),
+            "kernel_vs_plain": float((k - p).abs().max()),
+            "kernel_vs_f64": float((k - e).abs().max()),
+            "plain_vs_f64": float((p - e).abs().max()),
+            "argmax_equal": bool(torch.equal(k.argmax(-1), p.argmax(-1))),
+            "fed_plain_gemms_equal_plain": bool(torch.equal(bits16(fed),
+                                                            bits16(p)))}
+        check(not gate or r["kernel_vs_f64"] <= 2.0 * r["plain_vs_f64"],
+              f"{what} {name}: kernel path {r['kernel_vs_f64']} from the "
+              f"f64 path, plain path {r['plain_vs_f64']}")
+        check(r["fed_plain_gemms_equal_plain"],
+              f"{what} {name}: the kernel path fed the plain GEMM outputs "
+              "differs from the plain path")
+    return res, gemms
+
+
 def phase_depth2(cfg, ops, ref):
     """A prefill chunk (4 rows x 8 tokens: M = 32) and a decode step
     (M = 4) of make_decode_fn at depth 2 and full width, on the same
-    sub3 weights, three ways: the kernel path, the plain path, and a path
-    whose GEMMs sum in f64. Every GEMM of the kernel path -- all five
-    weight shapes, the f32 head included, at both M -- is held against
-    the plain version on its real inputs at 1e-5 sum|a||b|; the kernel
-    path is run twice and must repeat bit for bit."""
+    sub3 weights, three ways (``depth2_three_ways``); the checked GEMMs
+    cover all five weight shapes, the f32 head included, at both M."""
     from repro_torch.core.policy import MoRDotPolicy, MoRPolicy
     from repro_torch.models import init_cache, init_params, make_decode_fn
     from repro_torch.models.transformer import padded_vocab
@@ -964,7 +1087,7 @@ def phase_depth2(cfg, ops, ref):
     chunk = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 8))).cuda()
     tok = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 1))).cuda()
 
-    def run(backend):
+    def run(backend, _way):
         fn = make_decode_fn(cfg, MoRDotPolicy(
             weight=MoRPolicy(backend=backend)))
         cache = init_cache(cfg, 4, 64, device="cuda")
@@ -972,44 +1095,14 @@ def phase_depth2(cfg, ops, ref):
         l2, cache, _ = fn(params, cache, tok, torch.full((4,), 8).cuda())
         return l1[..., :cfg.vocab], l2[..., :cfg.vocab]
 
-    def f64_dot(x2, mo, *, out_dtype=torch.bfloat16, backend="auto"):
-        w = ref.decode_mixed_ref(mo)[:mo.shape[0], :x2.shape[1]]
-        return (x2.double() @ w.double().T).float().to(out_dtype)
-
-    gemms = {}
-    with patched(ops, "mixed_dot", checked_dot(ops, ref, gemms)):
-        out = {"kernel": run("auto")}
+    res, gemms = depth2_three_ways(run, ops, ref, "depth-2",
+                                   ("prefill_chunk", "decode_step"))
     d, f, hd = cfg.d_model, cfg.d_ff, cfg.head_dim
     want = {(m, n, k) for m in (32, 4) for n, k in (
         ((cfg.n_heads + 2 * cfg.n_kv) * hd, d), (d, cfg.n_heads * hd),
         (2 * f, d), (d, f), (padded_vocab(cfg), d))}
     check(want <= {key[:3] for key in gemms},
           f"depth-2 GEMM shapes {sorted(gemms)} miss some of {sorted(want)}")
-    again = run("auto")
-    out["plain"] = run("torch")
-    with patched(ops, "mixed_dot", f64_dot):
-        out["f64"] = run("auto")
-    res = {"gemms": [{"M": k[0], "N": k[1], "K": k[2], "out": k[3], **v}
-                     for k, v in sorted(gemms.items())]}
-    for i, what in enumerate(("prefill_chunk", "decode_step")):
-        check(torch.equal(out["kernel"][i], again[i]),
-              f"depth-2 {what}: the kernel path does not repeat")
-        k, p, e = (out[n][i] for n in ("kernel", "plain", "f64"))
-        r = res[what] = {
-            "max_logit": float(p.abs().max()),
-            "kernel_vs_plain": float((k - p).abs().max()),
-            "kernel_vs_f64": float((k - e).abs().max()),
-            "plain_vs_f64": float((p - e).abs().max()),
-            "argmax_equal": bool(torch.equal(k.argmax(-1), p.argmax(-1))),
-        }
-        # Any two summation orders flip a few bf16 activations, and the
-        # model carries those flips to the logits: the plain path is as
-        # far from the f64 path as the kernel path is from either. The
-        # kernel path may be at most twice as far from the f64 path as
-        # the plain path; a wrong block or lane would be far beyond.
-        check(r["kernel_vs_f64"] <= 2.0 * r["plain_vs_f64"],
-              f"depth-2 {what}: kernel path {r['kernel_vs_f64']} from the "
-              f"f64 path, plain path {r['plain_vs_f64']}")
     return res
 
 
@@ -1442,11 +1535,12 @@ def gemm_paths():
     return dict(mixed_gemm_blocks.launches_by_path)
 
 
-def train_batch(cfg, step):
+def train_batch(cfg, step, batch=TRAIN_BATCH, seq=TRAIN_SEQ, device="cuda"):
+    """SyntheticLM's tokens and labels of ``step``, (batch, seq) each."""
     from repro_torch.data import DataConfig, SyntheticLM
-    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
-                                  global_batch=TRAIN_BATCH, seed=1234))
-    return {k: torch.from_numpy(v.astype(np.int64)).cuda()
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=seq,
+                                  global_batch=batch, seed=1234))
+    return {k: torch.from_numpy(v.astype(np.int64)).to(device)
             for k, v in data.batch_at(step).items()}
 
 
@@ -2556,20 +2650,33 @@ def phase_fault_tolerance(ops, ref, Partition, smi):
     return res, launches, routes, paths
 
 
+def flat_tree(tree, path=""):
+    """A nested dict's leaves by their '/'-joined key paths, in sorted key
+    order."""
+    out = {}
+    for k in sorted(tree):
+        name = f"{path}/{k}" if path else k
+        if isinstance(tree[k], dict):
+            out.update(flat_tree(tree[k], name))
+        else:
+            out[name] = tree[k]
+    return out
+
+
 def step_grads(cfg, pol, params, batch):
-    """Loss, forward stats, parameter gradients and backward stats (the
-    tokens' gradients) of one loss evaluation."""
+    """Loss, forward stats rows, parameter gradients and backward stats
+    rows (the tokens' gradients) of one loss evaluation; the stats rows
+    by key path (``flat_tree``)."""
     from repro_torch.models.api import make_loss_fn, make_tokens
     from repro_torch.optim.adamw import tree_leaves, tree_map
     loss_fn = make_loss_fn(cfg, pol, remat=True)
     p = tree_map(lambda t: t.detach().requires_grad_(True), params)
-    toks = make_tokens(cfg, device="cuda")
+    toks = make_tokens(cfg, device=batch["labels"].device)
     total, aux = loss_fn(p, toks, batch)
-    pl, tl = tree_leaves(p), tree_leaves(toks)
-    g = torch.autograd.grad(total, pl + tl)
-    names = sorted(toks["blocks"]["dense"])
-    return (total.detach(), aux["mor_fwd"]["blocks"]["dense"],
-            list(g[:len(pl)]), dict(zip(names, g[len(pl):])))
+    pl, tl = tree_leaves(p), flat_tree(toks)
+    g = torch.autograd.grad(total, pl + list(tl.values()))
+    return (total.detach(), flat_tree(aux["mor_fwd"]), list(g[:len(pl)]),
+            dict(zip(tl, g[len(pl):])))
 
 
 def compare_rows(a, b, what, flips=None):
@@ -2595,41 +2702,53 @@ def compare_rows(a, b, what, flips=None):
             flips.append(f"{name}[{i}]")
 
 
-def phase_train_depth2(cfg, ops, ref):
-    """One depth-2, full-width loss-and-gradient evaluation, kernel path
-    against plain path (``backend='torch'`` on the same CUDA tensors).
-    Tensor and sub3 fake-quant: loss bit for bit, forward stats rows bit
-    for bit but the relative-error lane (1e-6), backward stats the same
-    or the flipped events named, gradients within 2^-6 |g| + 2^-14
-    max|g| of a leaf (bit for bit where nothing flips; the embedding's
-    gather backward accumulates with atomics). Fused sub3: every
-    mixed_gemm of the step held against the plain version on its real
-    inputs at 1e-5 sum|a||b| + 1 bf16 ulp."""
-    from repro_torch.models import init_params
-    cfg = dataclasses.replace(cfg, n_layers=2)
-    params = init_params(cfg, seed=1, device="cuda")
-    batch = train_batch(cfg, 0)
+def fused_gemm_shapes(blocks, M, enc_M=None):
+    """{(M, N, K)} of a train step's fused GEMMs -- forward (M, N, K),
+    dgrad (M, K, N), wgrad (K, N, M) -- for each (L, K, N) weight stack
+    in ``blocks`` at M rows (a whisper layer's xwkv at ``enc_M``, the
+    encoder output's rows)."""
+    out = set()
+    for name, w in flat_tree(blocks).items():
+        if w.dim() == 3:
+            m = enc_M if name.endswith("xwkv") else M
+            K, N = w.shape[1:]
+            out |= {(m, N, K), (m, K, N), (K, N, m)}
+    return out
+
+
+def train_depth2(cfg, ops, ref, params, batch, recipes, want, dots, what):
+    """One loss-and-gradient evaluation, kernel path against plain path
+    (``backend='torch'`` on the same CUDA tensors), under each of
+    ``recipes`` (fake-quant: 'tensor', 'sub3'): loss bit for bit, forward
+    stats rows bit for bit but the relative-error lane (1e-6), backward
+    stats the same or the flipped events named, gradients within 2^-6
+    |g| + 2^-14 max|g| of a leaf (bit for bit where nothing flips; the
+    embedding's gather backward accumulates with atomics). Fused sub3:
+    every mixed_gemm of the step held against the plain version on its
+    real inputs at 1e-5 sum|a||b| + 1 bf16 ulp, its (M, N, K) covering
+    ``want``, 4 GEMMs for each of the ``dots`` mor_dots."""
     pols = train_policies()
     res = {}
-    for name in ("tensor", "sub3"):
+    for name in recipes:
         k = step_grads(cfg, with_backend(pols[name], "auto"), params, batch)
         t = step_grads(cfg, with_backend(pols[name], "torch"), params, batch)
         check(torch.equal(k[0], t[0]),
-              f"depth-2 {name}: loss {float(k[0])} vs plain {float(t[0])}")
-        compare_rows(k[1], t[1], f"depth-2 {name} fwd stats")
+              f"{what} {name}: loss {float(k[0])} vs plain {float(t[0])}")
+        compare_rows(k[1], t[1], f"{what} {name} fwd stats")
         flips = []
-        compare_rows(k[3], t[3], f"depth-2 {name} bwd stats", flips)
+        compare_rows(k[3], t[3], f"{what} {name} bwd stats", flips)
         leaves = []
         for i, (gk, gt) in enumerate(zip(k[2], t[2])):
             d = (gk.float() - gt.float()).abs()
             tol = 2.0**-6 * gt.float().abs() + 2.0**-14 * float(
                 gt.float().abs().max())
             check(bool(torch.all(d <= tol)),
-                  f"depth-2 {name}: gradient leaf {i} differs by "
+                  f"{what} {name}: gradient leaf {i} differs by "
                   f"{float(d.max())}")
             leaves.append({"leaf": i, "identical": bool(torch.equal(
                 bits16(gk), bits16(gt))), "max_abs_diff": float(d.max())})
         res[name] = {"loss": float(k[0]), "bwd_flipped_events": flips,
+                     "fwd_stats_rows": len(k[1]), "bwd_stats_rows": len(k[3]),
                      "grad_leaves_identical": sum(l["identical"]
                                                   for l in leaves),
                      "grad_leaves": len(leaves),
@@ -2637,39 +2756,31 @@ def phase_train_depth2(cfg, ops, ref):
                                               for l in leaves)}
         del k, t
     gemms = {}
-    orig = ops.mixed_gemm
-
-    def checked(a, b, *, out_dtype=torch.bfloat16, backend="auto"):
-        ck = orig(a, b, out_dtype=out_dtype, backend="cuda")
-        ct = orig(a, b, out_dtype=out_dtype, backend="torch")
-        A = ref.decode_mixed_ref(a)[:a.shape[0]]
-        B = ref.decode_mixed_ref(b)[:b.shape[0]]
-        err = (ck.float() - ct.float()).abs()
-        key = (a.shape[0], b.shape[0], a.shape[1])
-        check(bool(torch.all(err <= gemm_tol(A, B, ct, out_dtype))),
-              f"depth-2 fused mixed_gemm M,N,K={key}: max err "
-              f"{float(err.max())} beyond 1e-5 sum|a||b| + 1 bf16 ulp")
-        g = gemms.setdefault(key, {"calls": 0, "max_abs_err": 0.0})
-        g["calls"] += 1
-        g["max_abs_err"] = max(g["max_abs_err"], float(err.max()))
-        return ck
-
-    with patched(ops, "mixed_gemm", checked):
+    with patched(ops, "mixed_gemm", checked_gemm(ops, ref, gemms)):
         loss, _, g, _ = step_grads(cfg, pols["sub3_fused"], params, batch)
     check(np.isfinite(float(loss)) and all(
-        bool(torch.isfinite(x).all()) for x in g), "depth-2 fused: nonfinite")
-    d, f, hd, M = cfg.d_model, cfg.d_ff, cfg.head_dim, TRAIN_BATCH * TRAIN_SEQ
-    qkv = (cfg.n_heads + 2 * cfg.n_kv) * hd
-    want = set()
-    for n, k in ((qkv, d), (d, cfg.n_heads * hd), (2 * f, d), (d, f)):
-        want |= {(M, n, k), (M, k, n), (k, n, M)}  # fwd, dgrad, wgrad
-    check(want <= set(gemms), f"depth-2 fused GEMM shapes {sorted(gemms)} "
-          f"miss some of {sorted(want)}")
-    check(sum(v["calls"] for v in gemms.values()) == 4 * 2 * 4,
-          f"depth-2 fused: {gemms} is not 4 GEMMs per mor_dot")
+        bool(torch.isfinite(x).all()) for x in g), f"{what} fused: nonfinite")
+    check(want <= {k[:3] for k in gemms}, f"{what} fused GEMM shapes "
+          f"{sorted(gemms)} miss some of {sorted(want)}")
+    check(sum(v["calls"] for v in gemms.values()) == 4 * dots,
+          f"{what} fused: {gemms} is not 4 GEMMs for each of {dots} mor_dots")
     res["sub3_fused"] = {"loss": float(loss), "gemms": [
-        {"M": k[0], "N": k[1], "K": k[2], **v}
+        {"M": k[0], "N": k[1], "K": k[2], "path": k[3], **v}
         for k, v in sorted(gemms.items())]}
+    return res
+
+
+def phase_train_depth2(cfg, ops, ref):
+    """``train_depth2`` on llama3-8b at full width and depth 2, 2 x 1024
+    tokens, under the tensor recipe and sub3."""
+    from repro_torch.models import init_params
+    cfg = dataclasses.replace(cfg, n_layers=2)
+    params = init_params(cfg, seed=1, device="cuda")
+    res = train_depth2(cfg, ops, ref, params, train_batch(cfg, 0),
+                       ("tensor", "sub3"),
+                       fused_gemm_shapes(params["blocks"],
+                                         TRAIN_BATCH * TRAIN_SEQ),
+                       4 * cfg.n_units, "depth-2")
     del params
     torch.cuda.empty_cache()
     return res
@@ -3741,10 +3852,8 @@ def prefill_full(cfg, qparams, smi, totals):
 
 def prefill_depth2(cfg, ops, ref, qparams_fn, smi):
     """(c) At depth 2, full width: a 512-token prompt's prefill logits and
-    emitted cache three ways (kernel path, plain path, GEMMs summed in
-    f64), every kernel GEMM held against the plain version on its real
-    inputs; the kernel path is run twice and must repeat bit for bit and
-    may be at most twice as far from the f64 path as the plain path."""
+    emitted cache three ways (``depth2_three_ways``), all five GEMM
+    shapes at M = 512."""
     from repro_torch.core.policy import MoRDotPolicy, MoRPolicy
     from repro_torch.models import make_prefill_fn
     c2 = dataclasses.replace(cfg, n_layers=2)
@@ -3753,40 +3862,18 @@ def prefill_depth2(cfg, ops, ref, qparams_fn, smi):
                                              (1, PREFILL_DEPTH2_LEN))
     batch = {"tokens": torch.from_numpy(toks).cuda()}
 
-    def run(backend):
+    def run(backend, _way):
         fn = make_prefill_fn(c2, MoRDotPolicy(
             weight=MoRPolicy(backend=backend)))
         logits, cache, _ = fn(params, batch)
         return (logits[..., :cfg.vocab], cache["dense"]["k"].float(),
                 cache["dense"]["v"].float())
 
-    def f64_dot(x2, mo, *, out_dtype=torch.bfloat16, backend="auto"):
-        w = ref.decode_mixed_ref(mo)[:mo.shape[0], :x2.shape[1]]
-        return (x2.double() @ w.double().T).float().to(out_dtype)
-
-    gemms = {}
-    with patched(ops, "mixed_dot", checked_dot(ops, ref, gemms)):
-        kern = run("auto")
+    res, gemms = depth2_three_ways(run, ops, ref, "depth-2 prefill",
+                                   ("logits", "k", "v"))
     check(all(k[0] == PREFILL_DEPTH2_LEN for k in gemms) and len(gemms) == 5,
           f"depth-2 prefill GEMM shapes {sorted(gemms)}")
-    again = run("auto")
-    plain = run("torch")
-    with patched(ops, "mixed_dot", f64_dot):
-        f64 = run("auto")
-    res = {"prompt": PREFILL_DEPTH2_LEN,
-           "gemms": [{"M": k[0], "N": k[1], "K": k[2], "out": k[3], **v}
-                     for k, v in sorted(gemms.items())], "card": smi}
-    for i, what in enumerate(("logits", "k", "v")):
-        check(torch.equal(kern[i], again[i]),
-              f"depth-2 prefill {what}: the kernel path does not repeat")
-        r = res[what] = {
-            "max_abs": float(plain[i].abs().max()),
-            "kernel_vs_plain": float((kern[i] - plain[i]).abs().max()),
-            "kernel_vs_f64": float((kern[i] - f64[i]).abs().max()),
-            "plain_vs_f64": float((plain[i] - f64[i]).abs().max())}
-        check(r["kernel_vs_f64"] <= 2.0 * r["plain_vs_f64"],
-              f"depth-2 prefill {what}: kernel path {r['kernel_vs_f64']} "
-              f"from the f64 path, plain path {r['plain_vs_f64']}")
+    res.update(prompt=PREFILL_DEPTH2_LEN, card=smi)
     emit({"serve_tiers_prefill_depth2": res})
     del params
     gc.collect()
@@ -4100,80 +4187,55 @@ def zoo_serve(cfg, params, name, tier, reqs, smi, totals, profile=True):
     return row, out
 
 
-def zoo_batch(cfg, step):
-    from repro_torch.data import DataConfig, SyntheticLM
-    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=TRAIN_SEQ,
-                                  global_batch=TRAIN_BATCH, seed=1234))
-    return {k: torch.from_numpy(v.astype(np.int64)).to(ZOO_DEV)
-            for k, v in data.batch_at(step).items()}
-
-
-def zoo_train(cfg, name, pol, steps, smi, totals):
-    """``steps`` AdamW steps of make_train_step on 2 x 1024 SyntheticLM
-    tokens, the counters zeroed just before and read just after: finite
-    loss, grad norm and aux_loss, aux_loss > 0, the total the loss plus
-    0.01 aux_loss as computed, the router bf16 after the first step,
-    every event (and, fused, every GEMM) on the kernels."""
-    from repro_torch.models import blocks
-    from repro_torch.models import init_params
+def train_run(cfg, name, pol, steps, smi, totals, *, init, batch_fn, dots,
+              line, on_step=None, ctx=None):
+    """``steps`` AdamW steps of make_train_step from ``init()``'s params on
+    ``batch_fn(step)``, the counters zeroed just before and read just
+    after: finite loss and grad norm, grad norm > 0, every event (and,
+    fused, every GEMM) on the kernels: ``dots`` mor_dots a step, each
+    with 2 forward events run twice under the layer remat and 3 backward
+    events, and 4 GEMMs under the fused lowering. ``on_step(step,
+    params, metrics, row)`` adds a family's figures and checks to each
+    step's row (emitted as ``line``), inside ``ctx`` (a context manager,
+    such as a spy) around the steps. Returns (the run's figures,
+    launches, GEMM paths, tile routes)."""
     from repro_torch.optim import AdamWConfig, init_opt_state
     from repro_torch.train import TrainConfig, make_train_step
-    params = init_params(cfg, seed=0, device=ZOO_DEV)
+    params = init()
     opt = init_opt_state(params)
     step_fn = make_train_step(cfg, pol, TrainConfig(
         optimizer=AdamWConfig(warmup_steps=1)))
-    batches = [zoo_batch(cfg, s) for s in range(steps)]
-    dropped = []
-    moe_sublayer = blocks.moe_sublayer
-
-    def spy(*a, **kw):
-        y, st = moe_sublayer(*a, **kw)
-        dropped.append(st["dropped"].detach())
-        return y, st
-
+    batches = [batch_fn(s) for s in range(steps)]
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     rows = []
     reset_counters()
-    with patched(blocks, "moe_sublayer", spy):
+    with ctx or contextlib.nullcontext():
         for s, batch in enumerate(batches):
-            dropped.clear()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             params, opt, m = step_fn(params, opt, batch)
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
-            # The forward's drops (the remat recompute repeats them).
-            drop = float(torch.stack(dropped[:cfg.n_units]).mean())
-            total_ok = bool(m["total_loss"] == m["loss"]
-                            + 0.01 * m["aux_loss"])
             row = {"run": name, "step": s, "step_ms": dt * 1e3,
-                   "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / dt,
+                   "tokens_per_s": batch["labels"].numel() / dt,
                    **{k: float(m[k]) for k in (
-                       "loss", "aux_loss", "total_loss", "grad_norm",
-                       "fwd_frac_bf16", "bwd_frac_bf16", "fwd_rel_err",
-                       "bwd_rel_err")},
-                   "dropped_mean_over_layers": drop,
+                       "loss", "grad_norm", "fwd_frac_bf16", "bwd_frac_bf16",
+                       "fwd_rel_err", "bwd_rel_err")},
                    "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
-            emit({"model_zoo_train_step": row, "card": smi})
-            check(all(np.isfinite(row[k]) for k in (
-                "loss", "aux_loss", "grad_norm")) and row["aux_loss"] > 0,
-                f"{name} step {s}: {row}")
-            check(total_ok, f"{name} step {s}: total_loss != loss + 0.01 "
-                  "aux_loss")
-            router = params["blocks"]["moe"]["moe"]["router"]
-            check(router.dtype == torch.bfloat16,
-                  f"{name}: router {router.dtype} after step {s}")
+            if on_step:
+                on_step(s, params, m, row)
+            emit({line: row, "card": smi})
+            check(np.isfinite(row["loss"]) and np.isfinite(row["grad_norm"])
+                  and row["grad_norm"] > 0, f"{name} step {s}: {row}")
             rows.append(row)
     routes = tile_routes()
     launches, paths = totals.add_current(name)
-    n_sub = TRAIN_SEQ // 256
-    dots = cfg.n_units * (2 + n_sub * cfg.n_experts * 2) * steps
-    events = dots * (2 * 2 + 3)
+    events = dots * steps * (2 * 2 + 3)
     if pol.fuse_gemm:
-        want = {"mor_select_pack": events, "mixed_gemm": dots * 4}
+        want = {"mor_select_pack": events, "mixed_gemm": dots * steps * 4}
     else:
         want = {"mor_select_select": events}
     for kern, n in want.items():
@@ -4181,6 +4243,7 @@ def zoo_train(cfg, name, pol, steps, smi, totals):
               f"{launches[kern]} times, want {n} (every event)")
     res = {"arch": cfg.name, "layers": cfg.n_units, "steps": rows,
            "step_ms_median": float(np.median([r["step_ms"] for r in rows])),
+           "peak_mem_gb": max(r["peak_mem_gb"] for r in rows),
            "launches_per_step": {k: v / steps for k, v in launches.items()},
            "mixed_gemm_paths_per_step": {k: v / steps
                                          for k, v in paths.items()},
@@ -4190,7 +4253,47 @@ def zoo_train(cfg, name, pol, steps, smi, totals):
     del params, opt, step_fn, batches
     gc.collect()
     torch.cuda.empty_cache()
-    return res
+    return res, launches, paths, routes
+
+
+def zoo_train(cfg, name, pol, steps, smi, totals):
+    """``train_run`` of an MoE model on 2 x 1024 SyntheticLM tokens: also
+    finite aux_loss > 0, the total the loss plus 0.01 aux_loss as
+    computed, the router bf16 after every step, and each step's dropped
+    share (the forward's; the remat recompute repeats it). Each layer
+    runs 2 attention mor_dots and, in each 256-token chunk, 2 an
+    expert."""
+    from repro_torch.models import blocks, init_params
+    dropped = []
+    moe_sublayer = blocks.moe_sublayer
+
+    def spy(*a, **kw):
+        y, st = moe_sublayer(*a, **kw)
+        dropped.append(st["dropped"].detach())
+        return y, st
+
+    def on_step(s, params, m, row):
+        row.update(aux_loss=float(m["aux_loss"]),
+                   total_loss=float(m["total_loss"]),
+                   dropped_mean_over_layers=float(torch.stack(
+                       dropped[:cfg.n_units]).mean()))
+        dropped.clear()
+        check(np.isfinite(row["aux_loss"]) and row["aux_loss"] > 0,
+              f"{name} step {s}: {row}")
+        check(bool(m["total_loss"] == m["loss"] + 0.01 * m["aux_loss"]),
+              f"{name} step {s}: total_loss != loss + 0.01 aux_loss")
+        router = params["blocks"]["moe"]["moe"]["router"]
+        check(router.dtype == torch.bfloat16,
+              f"{name}: router {router.dtype} after step {s}")
+
+    dots = cfg.n_units * (2 + TRAIN_SEQ // 256 * cfg.n_experts * 2)
+    return train_run(
+        cfg, name, pol, steps, smi, totals,
+        init=lambda: init_params(cfg, seed=0, device=ZOO_DEV),
+        batch_fn=lambda s: train_batch(cfg, s, TRAIN_BATCH, TRAIN_SEQ,
+                                       ZOO_DEV), dots=dots,
+        line="model_zoo_train_step", on_step=on_step,
+        ctx=patched(blocks, "moe_sublayer", spy))[0]
 
 
 def zoo_moe_layer(cfg, seed=3):
@@ -4219,34 +4322,6 @@ def zoo_route_spy():
         seen.append((ids, *out[1:]))
         return out
     return patched(blocks, "_slots", spy), seen
-
-
-def zoo_checked_gemm(ops, ref, seen):
-    """``ops.mixed_gemm`` that launches the kernel and holds every call
-    against the plain version on the same packs (``gemm_tol``), keyed by
-    (M, N, K, GEMM path); returns the kernel's result."""
-    from repro_torch.kernels.mixed_gemm import gemm_path
-    orig = ops.mixed_gemm
-
-    def gemm(a, b, *, out_dtype=torch.bfloat16, backend="auto", tile=None):
-        yk = orig(a, b, out_dtype=out_dtype, backend="cuda")
-        yt = orig(a, b, out_dtype=out_dtype, backend="torch")
-        K = a.shape[1]
-        A = ref.decode_mixed_ref(a)[:a.shape[0], :K]
-        B = ref.decode_mixed_ref(b)[:b.shape[0], :K]
-        err = (yk.float() - yt.float()).abs()
-        key = (a.shape[0], b.shape[0], K, gemm_path(a.shape[0]))
-        check(bool(torch.all(err <= gemm_tol(A, B, yt, out_dtype))),
-              f"expert mixed_gemm M,N,K,path={key}: max err "
-              f"{float(err.max())} beyond 1e-5 sum|a||b| (+1 bf16 ulp)")
-        s = seen.setdefault(key, {"calls": 0, "max_abs_err": 0.0,
-                                  "kernel_vs_plain_differ": 0.0})
-        s["calls"] += 1
-        s["max_abs_err"] = max(s["max_abs_err"], float(err.max()))
-        s["kernel_vs_plain_differ"] = max(
-            s["kernel_vs_plain_differ"], float((yk != yt).float().mean()))
-        return yk
-    return gemm
 
 
 def zoo_sublayer_run(p, x, g, pol, cfg):
@@ -4319,7 +4394,7 @@ def zoo_moe_parity(cfg, ops, ref, smi):
         for recipe, pol in pols.items():
             what = f"moe_sublayer {recipe} {tuple(shape)}"
             gemms = {}
-            with patched(ops, "mixed_gemm", zoo_checked_gemm(ops, ref,
+            with patched(ops, "mixed_gemm", checked_gemm(ops, ref,
                                                              gemms)):
                 kern = zoo_sublayer_run(p, x, g, with_backend(pol, "auto"),
                                         cfg)
@@ -4479,18 +4554,14 @@ def zoo_flips(qk, qp):
 
 def zoo_depth2(cfg, ops, ref, smi):
     """(d) phase_depth2's check on granite at full width and depth 2: a
-    prefill chunk (4 x 8 tokens) and a decode step, kernel path, plain
-    path (every backend 'torch') and a path whose GEMMs (the mixed GEMMs
-    and the expert products) sum in f64. Every mixed GEMM of the kernel
-    path is held against the plain version on its real inputs
-    (``checked_dot``) and the kernel path repeats bit for bit. With the
-    experts' activation events off, the kernel path is at most twice as
-    far from the f64 path as the plain path. Under the engine's policy
-    that rule does not hold (a settled divergence, ROADMAP Queue 3): an
-    expert buffer's tokens come from the attention's mixed GEMMs, whose
-    kernel sums in another order than the plain version, and where a
-    bf16 ulp of that moves an expert stack's input the tensor recipe's
-    E4M3 rounding of the stack moves by up to its own ulp (2^-3
+    prefill chunk (4 x 8 tokens) and a decode step three ways
+    (``depth2_three_ways``; the f64 path sums the expert products in f64
+    too). With the experts' activation events off, the 2x rule holds.
+    Under the engine's policy it does not (a settled divergence, ROADMAP
+    Queue 3): an expert buffer's tokens come from the attention's mixed
+    GEMMs, whose kernel sums in another order than the plain version,
+    and where a bf16 ulp of that moves an expert stack's input the tensor
+    recipe's E4M3 rounding of the stack moves by up to its own ulp (2^-3
     relative), which the logits carry. There the gate is that the gap
     closes: the kernel path fed the plain version's GEMM outputs (its
     quantizer kernels unchanged) is the plain path bit for bit; the
@@ -4510,57 +4581,45 @@ def zoo_depth2(cfg, ops, ref, smi):
     chunk = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 8))).to(ZOO_DEV)
     tok = torch.from_numpy(rng.integers(0, cfg.vocab, (4, 1))).to(ZOO_DEV)
 
-    def run(backend, act):
-        p = MoRPolicy(backend=backend)
-        fn = make_decode_fn(cfg, MoRDotPolicy(
-            act=p.replace(recipe=act), weight=p, grad=p))
-        cache = init_cache(cfg, 4, 64, device=ZOO_DEV)
-        ctx, seen = zoo_route_spy()
-        with ctx:
-            l1, cache, _ = fn(params, cache, chunk,
-                              torch.full((4,), 7, device=ZOO_DEV))
-            l2, cache, _ = fn(params, cache, tok,
-                              torch.full((4,), 8, device=ZOO_DEV))
-        return (l1[..., :cfg.vocab], l2[..., :cfg.vocab]), seen
-
-    def f64_mixed(x2, mo, *, out_dtype=torch.bfloat16, backend="auto"):
-        w = ref.decode_mixed_ref(mo)[:mo.shape[0], :x2.shape[1]]
-        return (x2.double() @ w.double().T).float().to(out_dtype)
-
     def f64_dot(a, b_t, out_dtype):
         return (a.double() @ b_t.double().mT).float().to(out_dtype)
 
-    mixed_dot = ops.mixed_dot
-
-    def plain_dot(x2, mo, *, out_dtype=torch.bfloat16, backend="auto"):
-        return mixed_dot(x2, mo, out_dtype=out_dtype, backend="torch")
+    def runner(act, routes, quants):
+        def run(backend, way):
+            p = MoRPolicy(backend=backend)
+            fn = make_decode_fn(cfg, MoRDotPolicy(
+                act=p.replace(recipe=act), weight=p, grad=p))
+            cache = init_cache(cfg, 4, 64, device=ZOO_DEV)
+            ctx, routes[way] = zoo_route_spy()
+            with contextlib.ExitStack() as stack:
+                stack.enter_context(ctx)
+                if way in quants:
+                    stack.enter_context(patched(
+                        ops, "quant_err", zoo_quant_spy(ops, quants[way])))
+                if way == "f64":
+                    stack.enter_context(patched(linear, "_dot", f64_dot))
+                l1, cache, _ = fn(params, cache, chunk,
+                                  torch.full((4,), 7, device=ZOO_DEV))
+                l2, cache, _ = fn(params, cache, tok,
+                                  torch.full((4,), 8, device=ZOO_DEV))
+            return l1[..., :cfg.vocab], l2[..., :cfg.vocab]
+        return run
 
     res = {"card": smi}
     for act, gated in (("off", True), ("tensor", False)):
-        out, routes, gemms, quants = {}, {}, {}, {"kernel": [], "plain": []}
-        with patched(ops, "mixed_dot", checked_dot(ops, ref, gemms)), \
-                patched(ops, "quant_err", zoo_quant_spy(ops,
-                                                        quants["kernel"])):
-            out["kernel"], routes["kernel"] = run("auto", act)
-        again, _ = run("auto", act)
-        with patched(ops, "quant_err", zoo_quant_spy(ops, quants["plain"])):
-            out["plain"], routes["plain"] = run("torch", act)
-        with patched(ops, "mixed_dot", f64_mixed), \
-                patched(linear, "_dot", f64_dot):
-            out["f64"], routes["f64"] = run("auto", act)
+        routes, quants = {}, {"kernel": [], "plain": []}
+        r_act, _ = depth2_three_ways(
+            runner(act, routes, quants), ops, ref,
+            f"zoo depth-2 (expert act {act})",
+            ("prefill_chunk", "decode_step"), gate=gated)
         agree = n = 0
         for a, b in zip(routes["kernel"], routes["plain"]):
             agree += int((a[0] == b[0]).sum())
             n += a[0].numel()
-        r_act = res[f"expert_act_{act}"] = {
-            "gated_2x": gated, "routing_agreement_kernel_plain": agree / n,
-            "routing_decisions": n,
-            "gemms": [{"M": k[0], "N": k[1], "K": k[2], "out": k[3], **v}
-                      for k, v in sorted(gemms.items())]}
+        r_act.update(gated_2x=gated, routing_agreement_kernel_plain=agree / n,
+                     routing_decisions=n)
         if act != "off":
             flips = zoo_flips(quants["kernel"], quants["plain"])
-            with patched(ops, "mixed_dot", plain_dot):
-                fed, _ = run("auto", act)
             r_act["stacks_moved"] = {
                 "quant_err_calls": len(quants["kernel"]),
                 "stacks_with_input_moved": len(flips),
@@ -4570,27 +4629,7 @@ def zoo_depth2(cfg, ops, ref, smi):
                                              for f in flips),
                 "outputs_moved": sum(f["y_differ"] for f in flips),
                 "first": flips[:8]}
-        for i, what in enumerate(("prefill_chunk", "decode_step")):
-            check(torch.equal(out["kernel"][i], again[i]),
-                  f"zoo depth-2 {what}: the kernel path does not repeat")
-            k, p, e = (out[m][i] for m in ("kernel", "plain", "f64"))
-            r = r_act[what] = {
-                "max_logit": float(p.abs().max()),
-                "kernel_vs_plain": float((k - p).abs().max()),
-                "kernel_vs_f64": float((k - e).abs().max()),
-                "plain_vs_f64": float((p - e).abs().max()),
-                "argmax_equal": bool(torch.equal(k.argmax(-1),
-                                                 p.argmax(-1))),
-            }
-            check(not gated or r["kernel_vs_f64"] <= 2.0 * r["plain_vs_f64"],
-                  f"zoo depth-2 {what}: kernel path {r['kernel_vs_f64']} "
-                  f"from the f64 path, plain path {r['plain_vs_f64']}")
-            if act != "off":
-                r["fed_plain_gemms_equal_plain"] = bool(torch.equal(
-                    bits16(fed[i]), bits16(p)))
-                check(r["fed_plain_gemms_equal_plain"],
-                      f"zoo depth-2 {what}: the kernel path fed the plain "
-                      "GEMM outputs differs from the plain path")
+        res[f"expert_act_{act}"] = r_act
     del params
     return res
 
@@ -4659,6 +4698,453 @@ def phase_model_zoo(ops, ref, smi, cfgs=None):
     return res, totals
 
 
+FRONT_DEV = "cuda"
+FRONT_ARCHS = ("paligemma-3b", "whisper-tiny")
+FRONT_TRAIN_STEPS = 3
+# paligemma-3b: 4 requests, each 256 stub patches and a 128-token prompt,
+# then 32 decode steps; training on 2 x (256 + 1024) positions.
+PALI_SERVE = {"batch": 4, "prompt": 128, "steps": 32}
+PALI_TRAIN = {"batch": 2, "seq": 1024}
+# whisper-tiny: 8 requests of 1500 stub frames and a 32-token prompt, 64
+# decode steps; training on 8 x 1500 frames by 448 text tokens.
+WHISPER_SERVE = {"batch": 8, "prompt": 32, "steps": 64}
+WHISPER_TRAIN = {"batch": 8, "seq": 448}
+
+
+def front_embeds(shape, seed):
+    """Stub frontend embeddings (patches / frames) ~ N(0, 1) in bf16 from
+    a seeded generator on the card."""
+    g = torch.Generator(device=FRONT_DEV)
+    g.manual_seed(seed)
+    return torch.randn(shape, generator=g, device=FRONT_DEV).to(
+        torch.bfloat16)
+
+
+def front_params(cfg, seed=0):
+    """init_params on the card; for a layer-norm model (whisper) the norm
+    scales 1 + N(0, 0.1) and biases N(0, 0.1) from a seeded generator:
+    the reference's init zeroes both, which zeroes every normed stream
+    (and would leave the GEMMs all-zero blocks)."""
+    from repro_torch.models import init_params
+    params = init_params(cfg, seed=seed, device=FRONT_DEV)
+    if cfg.norm == "ln":
+        g = torch.Generator(device=FRONT_DEV)
+        g.manual_seed(seed + 100)
+
+        def walk(tree, name):
+            for k, v in tree.items():
+                if isinstance(v, dict):
+                    walk(v, k)
+                elif name.startswith("ln") or name.endswith("norm"):
+                    r = torch.randn(v.shape, generator=g, device=FRONT_DEV)
+                    v.copy_(0.1 * r + (1.0 if k == "scale" else 0.0))
+        walk(params, "")
+    return params
+
+
+def front_gemms(cfg, mode):
+    """The mixed GEMMs of one model call: 4 a dense layer, 7 a whisper
+    decoder layer (6 in decode, which reads the cross K/V from the
+    cache), 4 an encoder layer (prefill only); the tied heads are not
+    quantized."""
+    if cfg.family == "audio":
+        dec = 6 if mode == "decode" else 7
+        return dec * cfg.n_units + (4 * cfg.enc_layers
+                                    if mode != "decode" else 0)
+    return 4 * cfg.n_units
+
+
+def front_prompt(cfg, run, seed):
+    """The prefill batch of a serving run: tokens and the frontend's
+    embeddings."""
+    rng = np.random.default_rng(seed)
+    B = run["batch"]
+    batch = {"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab, (B, run["prompt"]))).to(FRONT_DEV)}
+    if cfg.family == "vlm":
+        batch["patches"] = front_embeds((B, cfg.img_tokens, cfg.d_model),
+                                        seed)
+    else:
+        batch["frames"] = front_embeds((B, cfg.enc_seq, cfg.d_model), seed)
+    return batch
+
+
+def front_cache(cfg, pc, T, tier):
+    """A decode cache of T positions holding a prefill cache ``pc``: the
+    bf16 lanes copied, or under kv_mor each layer's K/V quantized by
+    ``quantize_kv_mor`` (as the engine's splice does); whisper's cross
+    K/V copied whole."""
+    from repro_torch.models import init_cache
+    from repro_torch.models.attention import quantize_kv_mor
+    t = next(iter(pc))
+    B, P = pc[t]["k"].shape[1:3]
+    cache = init_cache(cfg, B, T, device=FRONT_DEV, **tier)
+    c = cache[t]
+    for name in ("k", "v"):
+        if tier.get("kv_mor"):
+            for l in range(cfg.n_units):
+                lanes = quantize_kv_mor(pc[t][name][l])
+                for suf, lane in zip(("", "_tags", "_scale"), lanes):
+                    c[name + suf][l, :, :P] = lane
+        else:
+            c[name][:, :, :P] = pc[t][name]
+    for name in ("xk", "xv"):
+        if name in c:
+            c[name].copy_(pc[t][name])
+    return cache
+
+
+def front_bytes_per_token(cache):
+    """Bytes a cached position holds over every layer (the self-attention
+    lanes; whisper's cross K/V are per request, not per token)."""
+    c = next(iter(cache.values()))
+    return sum(v.shape[0] * v.element_size() * int(np.prod(v.shape[3:]))
+               for k, v in c.items() if not k.startswith("x"))
+
+
+def gemm_m_spy(ops, seen):
+    """``ops.mixed_dot`` that records (M, N, K) of every call."""
+    orig = ops.mixed_dot
+
+    def dot(x2, mo, **kw):
+        seen.append((x2.shape[0], mo.shape[0], x2.shape[1]))
+        return orig(x2, mo, **kw)
+    return dot
+
+
+def front_quantize(cfg, params, name, totals):
+    """quantize_params (sub3) with the counters zeroed just before: one
+    mor_select_pack launch a weight matrix, all on the tile route."""
+    from repro_torch.core.policy import MoRPolicy
+    from repro_torch.serve.quantized import param_bytes, quantize_params
+    reset_counters()
+    t0 = time.perf_counter()
+    qparams, stats = quantize_params(params, MoRPolicy(recipe="sub3"))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    routes = tile_routes()
+    launches, _ = totals.add_current(name)
+    n_w = front_gemms(cfg, "prefill")
+    check(launches["mor_select_pack"] == n_w
+          and routes["mor_select_pack"]["tile"] == n_w,
+          f"{name}: mor_select_pack {routes['mor_select_pack']}, want "
+          f"{n_w} weight matrices on the tile route")
+    return qparams, {"quantize_s": dt, "weights": len(stats),
+                     "weight_matrices": n_w,
+                     "param_bytes": param_bytes(qparams)}
+
+
+def front_serve(cfg, qparams, name, tier, run, smi, totals, ops):
+    """make_prefill_fn on the run's requests, the cache into a decode
+    cache (``front_cache``), then ``run['steps']`` greedy make_decode_fn
+    steps at each row's position, the counters zeroed just before and
+    read just after (after one untimed prefill, so that the timed one
+    does not pay the first call's set-up): every GEMM on mixed_gemm (M >
+    64 on the tc path, the rest on the stream path), no plain call,
+    finite logits, bytes per token as computed."""
+    from repro_torch.core.policy import MoRDotPolicy
+    from repro_torch.models import make_decode_fn, make_prefill_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    batch = front_prompt(cfg, run, seed=1)
+    B, S, steps = run["batch"], run["prompt"], run["steps"]
+    P = S + (cfg.img_tokens if cfg.family == "vlm" else 0)
+    prefill = make_prefill_fn(cfg, MoRDotPolicy())
+    decode = make_decode_fn(cfg, MoRDotPolicy())
+    seen, step_ms, out = [], [], []
+    prefill(qparams, batch)
+    reset_counters()
+    with patched(ops, "mixed_dot", gemm_m_spy(ops, seen)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, pc, _ = prefill(qparams, batch)
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        n_prefill = len(seen)
+        finite = bool(torch.isfinite(logits[..., :cfg.vocab]).all())
+        cache = front_cache(cfg, pc, P + steps, tier)
+        del pc
+        tok = logits[:, -1:, :cfg.vocab].argmax(-1)
+        for i in range(steps):
+            cur = torch.full((B,), P + i, device=FRONT_DEV)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache, _ = decode(qparams, cache, tok, cur)
+            tok = logits[:, -1:, :cfg.vocab].argmax(-1)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            finite = finite and bool(torch.isfinite(
+                logits[..., :cfg.vocab]).all())
+            out.append(tok)
+    routes = tile_routes()
+    launches, paths = totals.add_current(name)
+    want_p, want_d = front_gemms(cfg, "prefill"), front_gemms(cfg, "decode")
+    check(finite, f"{name}: nonfinite logits")
+    check(n_prefill == want_p and len(seen) == want_p + steps * want_d,
+          f"{name}: {len(seen)} mixed GEMMs ({n_prefill} in the prefill), "
+          f"want {want_p} + {steps} x {want_d}")
+    big = sum(m > 64 for m, _, _ in seen)
+    check(launches["mixed_gemm"] == len(seen) and paths["tc"] == big
+          and paths["stream"] == len(seen) - big,
+          f"{name}: mixed_gemm {launches['mixed_gemm']} launches, paths "
+          f"{paths}, want {big} on tc (M > 64) of {len(seen)}")
+    check(not any(launches[k] for k in ("gam_quant", "mor_select_pack",
+                                        "mor_select_select")),
+          f"{name}: quantizer launches in serving: {launches}")
+    bpt = front_bytes_per_token(cache)
+    check(bpt == zoo_bytes_per_token(cfg, tier),
+          f"{name}: bytes_per_token {bpt}")
+    decode_s = sum(step_ms) / 1e3
+    shapes = sorted({(m, n, k) for m, n, k in seen})
+    row = {"run": name, "arch": cfg.name, "layers": cfg.n_units, **tier,
+           "requests": B, "prompt": S, "cached_prefill_positions": P,
+           "prefill_rows": B * P, "prefill_ms": prefill_ms,
+           "decode_steps": steps,
+           "decode_step_ms": float(np.median(step_ms)),
+           "decode_step_ms_first": step_ms[0],
+           "tokens_per_s": B * steps / decode_s,
+           "prefill_tokens_per_s": B * P / (prefill_ms / 1e3),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "bytes_per_token": bpt, "launches": launches,
+           "mixed_gemm_paths": paths, "routes": routes,
+           "gemm_shapes_mnk": shapes, "card": smi}
+    if cfg.family == "audio":
+        xk = cache["wdec"]["xk"]
+        row["cross_kv_bytes_per_request"] = 2 * xk[:, 0].numel() * \
+            xk.element_size()
+    del cache, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"frontends_serve": row})
+    return row, torch.cat(out, dim=1)
+
+
+def front_train_batch(cfg, run, step):
+    """SyntheticLM tokens and labels with the frontend's embeddings."""
+    batch = train_batch(cfg, step, run["batch"], run["seq"], FRONT_DEV)
+    shape = ((run["batch"], cfg.img_tokens, cfg.d_model)
+             if cfg.family == "vlm" else
+             (run["batch"], cfg.enc_seq, cfg.d_model))
+    batch["patches" if cfg.family == "vlm" else "frames"] = front_embeds(
+        shape, 10 + step)
+    return batch
+
+
+def front_train(cfg, name, pol, run, smi, totals):
+    """``train_run`` of a frontend family (``tokens_per_s``: the text
+    tokens), all on the tile route and the tc path; the encoder's layers
+    run under the layer remat too."""
+    res, launches, paths, routes = train_run(
+        cfg, name, pol, FRONT_TRAIN_STEPS, smi, totals,
+        init=lambda: front_params(cfg),
+        batch_fn=lambda s: front_train_batch(cfg, run, s),
+        dots=front_gemms(cfg, "train"), line="frontends_train_step")
+    check_tile_route(routes, launches, name)
+    check(paths["tc"] == launches["mixed_gemm"],
+          f"{name}: fused GEMMs off the tc path: {paths}")
+    return res
+
+
+def front_train_depth2(cfg, run, ops, ref, smi):
+    """``train_depth2`` on a frontend family at full width and depth 2
+    (whisper: 2 encoder layers too) on the main path's batch (paligemma:
+    2 x (256 + 1024) positions; whisper: 8 x 1500 frames by 448 tokens),
+    under sub3 and fused sub3: whisper's encoder GEMMs and xkv at M =
+    12000 (93.75 blocks of 128), their wgrads contracting over those
+    ragged rows."""
+    cfg = front_depth2_cfg(cfg)
+    params = front_params(cfg, seed=1)
+    batch = front_train_batch(cfg, run, 0)
+    B = run["batch"]
+    M = B * (run["seq"] + (cfg.img_tokens if cfg.family == "vlm" else 0))
+    want = fused_gemm_shapes(params["blocks"], M, B * cfg.enc_seq)
+    if cfg.family == "audio":
+        want |= fused_gemm_shapes(params["enc"]["blocks"], B * cfg.enc_seq)
+    res = train_depth2(cfg, ops, ref, params, batch, ("sub3",), want,
+                       front_gemms(cfg, "train"), f"{cfg.name} train depth-2")
+    res.update(positions=M, card=smi)
+    del params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def front_ragged_parity(cfg, qparams, ops, ref, smi):
+    """Every GEMM of a full-width, full-depth whisper prefill (8 x 1500
+    frames: the encoder's and the cross K/V's M = 12000 rows, 93.75
+    blocks of 128) held against the plain version on its real inputs at
+    ``gemm_tol`` (``checked_dot``), each on the path its M selects."""
+    from repro_torch.core.policy import MoRDotPolicy
+    from repro_torch.kernels.mixed_gemm import gemm_path
+    from repro_torch.models import make_prefill_fn
+    batch = front_prompt(cfg, WHISPER_SERVE, seed=1)
+    gemms = {}
+    reset_counters()
+    with patched(ops, "mixed_dot", checked_dot(ops, ref, gemms)):
+        make_prefill_fn(cfg, MoRDotPolicy())(qparams, batch)
+    torch.cuda.synchronize()
+    paths = gemm_paths()
+    calls = sum(v["calls"] for v in gemms.values())
+    big = sum(v["calls"] for k, v in gemms.items() if k[0] > 64)
+    check(paths["tc"] == big and paths["stream"] == calls - big,
+          f"whisper ragged parity: paths {paths}, want {big} tc of {calls}")
+    M = WHISPER_SERVE["batch"] * cfg.enc_seq
+    at_m = sum(v["calls"] for k, v in gemms.items() if k[0] == M)
+    check(at_m == 4 * cfg.enc_layers + cfg.n_units and gemm_path(M) == "tc",
+          f"whisper ragged parity: {at_m} GEMMs at M = {M} (the encoder's "
+          f"and the cross K/V's): {sorted(gemms)}")
+    return {"M": M, "M_blocks_of_128": M / 128, "paths": paths,
+            "gemms": [{"M": k[0], "N": k[1], "K": k[2], "out": k[3], **v}
+                      for k, v in sorted(gemms.items())], "card": smi}
+
+
+def front_refusal(cfg):
+    """The audio family refuses the quantized KV tiers by name, as
+    cache_specs, init_cache and a decode call on such a cache."""
+    from repro_torch.core.policy import MoRDotPolicy
+    from repro_torch.models import cache_specs, init_cache, make_decode_fn
+    out = {}
+    for tier in ("kv_fp8", "kv_mor"):
+        msgs = []
+        for call in (lambda: cache_specs(cfg, 1, 8, **{tier: True}),
+                     lambda: init_cache(cfg, 1, 8, device=FRONT_DEV,
+                                        **{tier: True})):
+            try:
+                call()
+                msgs.append(None)
+            except ValueError as e:
+                msgs.append(str(e))
+        # A bf16 cache given the tier's lanes (the decode refusal keys on
+        # them: k_scale, and k_tags beside it for kv_mor).
+        cache = init_cache(cfg, 1, 8, device=FRONT_DEV)
+        c = cache["wdec"]
+        c["k_scale"] = torch.zeros(c["k"].shape[:-1], device=FRONT_DEV)
+        if tier == "kv_mor":
+            c["k_tags"] = torch.zeros(c["k"].shape[:-1], dtype=torch.uint8,
+                                      device=FRONT_DEV)
+        try:
+            make_decode_fn(cfg, MoRDotPolicy())(
+                {}, cache, torch.zeros((1, 1), dtype=torch.int64,
+                                       device=FRONT_DEV),
+                torch.zeros(1, dtype=torch.int64, device=FRONT_DEV))
+            msgs.append(None)
+        except ValueError as e:
+            msgs.append(str(e))
+        check(all(m and "'audio'" in m and "_wdec_block" in m and tier in m
+                  for m in msgs), f"whisper {tier}: not refused by name: "
+              f"{msgs}")
+        out[tier] = msgs[0]
+    return out
+
+
+def front_depth2_cfg(cfg):
+    """``cfg`` at depth 2 (whisper: 2 encoder layers too)."""
+    over = {"n_layers": 2}
+    if cfg.family == "audio":
+        over["enc_layers"] = 2
+    return dataclasses.replace(cfg, **over)
+
+
+def front_depth2(cfg, run, ops, ref, smi):
+    """phase_depth2's check on a frontend family at full width and depth
+    2: a make_prefill_fn call on 4 requests of the main path's prompt
+    (paligemma: 256 patches + 128 tokens; whisper: 1500 frames + 32
+    tokens, the encoder's GEMMs at M = 6000, ragged) and a decode step
+    from its cache, three ways (``depth2_three_ways``)."""
+    from repro_torch.core.policy import MoRDotPolicy, MoRPolicy
+    from repro_torch.models import make_decode_fn, make_prefill_fn
+    from repro_torch.serve.quantized import quantize_params
+    cfg = front_depth2_cfg(cfg)
+    params, _ = quantize_params(front_params(cfg, seed=1),
+                                MoRPolicy(recipe="sub3"))
+    batch = front_prompt(cfg, {"batch": 4, "prompt": run["prompt"]}, seed=2)
+    P = run["prompt"] + (cfg.img_tokens if cfg.family == "vlm" else 0)
+    tok = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab, (4, 1))).to(FRONT_DEV)
+
+    def run_path(backend, _way):
+        pol = MoRDotPolicy(weight=MoRPolicy(backend=backend))
+        l1, pc, _ = make_prefill_fn(cfg, pol)(params, batch)
+        cache = front_cache(cfg, pc, P + 8, {})
+        l2, _, _ = make_decode_fn(cfg, pol)(
+            params, cache, tok, torch.full((4,), P, device=FRONT_DEV))
+        return l1[..., :cfg.vocab], l2[..., :cfg.vocab]
+
+    res, gemms = depth2_three_ways(run_path, ops, ref,
+                                   f"{cfg.name} depth-2",
+                                   ("prefill", "decode_step"))
+    if cfg.family == "audio":
+        M = 4 * cfg.enc_seq
+        at_m = sum(v["calls"] for k, v in gemms.items() if k[0] == M)
+        check(at_m == 4 * cfg.enc_layers + cfg.n_units,
+              f"{cfg.name} depth-2: {at_m} GEMMs at M = {M}: "
+              f"{sorted(gemms)}")
+    res.update(prompt=run["prompt"], cached_prefill_positions=P, card=smi)
+    del params
+    return res
+
+
+def phase_frontends(ops, ref, smi, cfgs=None):
+    """The frontend families, serving and training (module docstring,
+    item 13). ``cfgs``: {arch: config} overrides (a CPU rehearsal passes
+    reduced ones). Returns (the frontends line, the Totals of its
+    main-path runs)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import paper_default
+    t_phase = time.perf_counter()
+    cfgs = cfgs or {}
+    pali, whisper = (cfgs.get(a) or get_config(a) for a in FRONT_ARCHS)
+    totals = Totals()
+    res = {"card": smi}
+    policies = (("sub3", paper_default("sub3")),
+                ("sub3_fused", paper_default("sub3").replace(
+                    fuse_gemm=True)))
+    for cfg, serve_run, train_run, tiers in (
+            (pali, PALI_SERVE, PALI_TRAIN,
+             (("bf16", {}), ("kv_mor", {"kv_mor": True}))),
+            (whisper, WHISPER_SERVE, WHISPER_TRAIN, (("bf16", {}),))):
+        key = cfg.name.split("-")[0]
+        r = res[key] = {"serve": {}, "train": {}}
+        t0 = time.perf_counter()
+        params = front_params(cfg)
+        qparams, r["quantize"] = front_quantize(cfg, params, f"{key}_quantize",
+                                                totals)
+        del params
+        ref_out = None
+        for tier_name, tier in tiers:
+            row, out = front_serve(cfg, qparams, f"{key}_{tier_name}", tier,
+                                   serve_run, smi, totals, ops)
+            if ref_out is not None:
+                row["tokens_equal_to_bf16"] = float(
+                    (out == ref_out).float().mean())
+            ref_out = out
+            r["serve"][row["run"]] = row
+        if cfg.family == "audio":
+            r["ragged_parity"] = front_ragged_parity(cfg, qparams, ops, ref,
+                                                     smi)
+            r["kv_tier_refusal"] = front_refusal(cfg)
+        del qparams
+        for name, pol in policies:
+            r["train"][name] = front_train(cfg, f"{key}_{name}", pol,
+                                           train_run, smi, totals)
+        r["depth2"] = front_depth2(cfg, serve_run, ops, ref, smi)
+        r["train_depth2"] = front_train_depth2(cfg, train_run, ops,
+                                               ref, smi)
+        r["config"] = {"layers": cfg.n_units, "enc_layers": cfg.enc_layers,
+                       "d_model": cfg.d_model, "n_heads": cfg.n_heads,
+                       "n_kv": cfg.n_kv, "head_dim": cfg.head_dim,
+                       "d_ff": cfg.d_ff, "vocab": cfg.vocab,
+                       "img_tokens": cfg.img_tokens,
+                       "enc_seq": cfg.enc_seq, "params": cfg.param_count()}
+        r["s"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+    res["launches"] = totals.launches
+    res["phase_s"] = time.perf_counter() - t_phase
+    return res, totals
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4720,6 +5206,10 @@ def main():
     emit({"model_zoo": zoo})
     gc.collect()
     torch.cuda.empty_cache()
+    front, front_totals = phase_frontends(ops, ref, smi)
+    emit({"frontends": front})
+    gc.collect()
+    torch.cuda.empty_cache()
     depth2 = phase_depth2(cfg, ops, ref)
     serve_grad = phase_serve_grad()
     train, train_launches, train_paths, train_routes = phase_train(cfg)
@@ -4754,6 +5244,7 @@ def main():
         by_path = {"engine": launches.get(name, 0),
                    "serve_tiers": serve_totals.launches[name],
                    "model_zoo": zoo_totals.launches[name],
+                   "frontends": front_totals.launches[name],
                    "train": train_launches[name],
                    "train_state": state_launches[name],
                    "generic_smem": generic_launches[name],
@@ -4775,7 +5266,7 @@ def main():
             # train_shapes: the tc path.
             entry["launches_by_gemm_path"] = {
                 k: engine_paths[k] + serve_totals.paths[k] + train_paths[k]
-                + ft_paths[k] + zoo_totals.paths[k]
+                + ft_paths[k] + zoo_totals.paths[k] + front_totals.paths[k]
                 for k in ("stream", "tc")}
             entry["serve_tiers_gemm_paths"] = serve_totals.paths
             entry["parity_max_err_over_tol"] = gemm_parity
@@ -4791,6 +5282,7 @@ def main():
             entry["launches_by_route"] = {
                 r: engine_routes[name][r] + serve_totals.routes[name][r]
                 + zoo_totals.routes[name][r]
+                + front_totals.routes[name][r]
                 + train_routes[name][r] + state_routes[name][r]
                 + generic_routes[name][r] + ft_routes[name][r]
                 for r in ("tile", "generic")}

@@ -111,11 +111,11 @@ class ArchConfig:
 
 _REGISTRY: Dict[str, ArchConfig] = {}
 
-# Configs ported so far; the JAX registry holds eleven (whisper-tiny,
-# paligemma-3b, hymba-1.5b and xlstm-350m wait for their blocks).
+# Configs ported so far; the JAX registry holds eleven (hymba-1.5b and
+# xlstm-350m wait for the recurrent blocks).
 _ARCH_MODULES = ["llama3_8b", "nemotron3_8b", "minitron_4b",
                  "deepseek_coder_33b", "gemma_2b", "granite_moe_1b_a400m",
-                 "moonshot_v1_16b_a3b"]
+                 "moonshot_v1_16b_a3b", "paligemma_3b", "whisper_tiny"]
 
 
 def register(cfg: ArchConfig) -> ArchConfig:

@@ -64,12 +64,15 @@ def make_loss_fn(cfg: ArchConfig, policy: MoRDotPolicy, *,
     with respect to them to read the backward quantization stats. The
     total is ``loss + aux_coef * aux_loss`` as in the reference, where
     ``aux_loss`` sums the MoE layers' load-balance terms (0 for the dense
-    family)."""
+    family). The vlm family's labels cover the text positions only: the
+    first ``img_tokens`` logits (the patch prefix) are dropped."""
 
     def loss_fn(params, tokens, batch):
         logits, _, stats = T.forward(cfg, policy, params, batch,
                                      mode="train", tokens=tokens,
                                      remat=remat)
+        if cfg.family == "vlm":
+            logits = logits[:, cfg.img_tokens:]
         loss = cross_entropy(logits, batch["labels"])
         aux_loss = _collect_aux_losses(stats, loss.device)
         return loss + aux_coef * aux_loss, {
@@ -80,11 +83,14 @@ def make_loss_fn(cfg: ArchConfig, policy: MoRDotPolicy, *,
 
 def make_prefill_fn(cfg: ArchConfig, policy: MoRDotPolicy):
     """prefill_fn(params, batch) -> (logits[:, -1:], cache, stats): one
-    causal pass over ``batch['tokens']`` (B, S) with no cache input. The
-    logits are computed in full, as in the reference, and the last
-    position's returned; ``cache`` is every layer's bf16 K/V
-    (``{type: {"k", "v": (n_units, B, S, Hkv, dh)}}``), ready for
-    ``PagedKVPool.splice``. The reference's stats-token argument has no
+    causal pass over ``batch['tokens']`` (B, S) with no cache input (and
+    the frontend's ``patches`` / ``frames``). The logits are computed in
+    full, as in the reference, and the last position's returned;
+    ``cache`` is every layer's bf16 K/V (``{type: {"k", "v": (n_units,
+    B, P, Hkv, dh)}}``, P = S, or img_tokens + S for the vlm family;
+    whisper's ``wdec`` layers add the cross-attention's ``xk`` / ``xv``
+    (n_units, B, enc_seq, Hkv, dh)), ready for ``PagedKVPool.splice``
+    or a decode cache. The reference's stats-token argument has no
     counterpart (no backward in serving)."""
 
     def prefill_fn(params, batch):

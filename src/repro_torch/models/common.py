@@ -1,6 +1,8 @@
 """Shared model building blocks: norms, RoPE, activations, chunk sizes
-(port of ``repro.models.common``; the mesh constraints and scans have no
-counterpart in an eager single-device port)."""
+and sinusoidal positions (port of ``repro.models.common``, with the
+reference transformer's per-position ``_sinusoidal_at``; the mesh
+constraints and scans have no counterpart in an eager single-device
+port)."""
 from __future__ import annotations
 
 import math
@@ -11,7 +13,8 @@ import torch
 from repro_torch.core.formats import true_divide
 
 __all__ = ["rms_norm", "layer_norm", "rope_freqs", "apply_rope",
-           "activation", "glu_split", "pick_chunk"]
+           "sinusoidal_positions", "sinusoidal_at", "activation",
+           "glu_split", "pick_chunk"]
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
@@ -48,6 +51,29 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float):
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def sinusoidal_at(index: torch.Tensor, d_model: int) -> torch.Tensor:
+    """The sinusoidal embedding at each position of an integer tensor
+    ``index`` (any shape): (*index.shape, d_model) f32, sin at the even
+    columns and cos at the odd ones of index / 10000^(2i / d_model) (the
+    reference's ``transformer._sinusoidal_at`` mapped over every element;
+    decode adds it at each row's own position)."""
+    dim = torch.arange(0, d_model, 2, dtype=torch.float32,
+                       device=index.device)
+    ang = true_divide(index.to(torch.float32)[..., None],
+                      10000.0 ** true_divide(dim, float(d_model)))
+    out = torch.empty((*index.shape, d_model), dtype=torch.float32,
+                      device=index.device)
+    out[..., 0::2] = torch.sin(ang)
+    out[..., 1::2] = torch.cos(ang)
+    return out
+
+
+def sinusoidal_positions(seq: int, d_model: int,
+                         device=None) -> torch.Tensor:
+    """(seq, d_model) f32 sinusoidal embeddings of positions 0 .. seq-1."""
+    return sinusoidal_at(torch.arange(seq, device=device), d_model)
 
 
 class _Silu(torch.autograd.Function):

@@ -1,15 +1,27 @@
-"""Model assembly for the dense and MoE decoder families (port of the
+"""Model assembly for the dense, MoE, vlm and audio families (port of the
 train, prefill and decode paths of ``repro.models.transformer``).
 
 Parameters are nested dicts with the reference's key paths
 (``blocks/dense/wqkv``, ``blocks/dense/mlp/wi``, ``blocks/moe/moe/w1``,
-``blocks/moe/moe/router``, ``lm_head``, ``embed``,
-``blocks/dense/ln1/scale``, ...) keyed by the unit's layer types;
-per-layer leaves are stacked on a leading layer axis (an MoE layer's
-experts on the next one). Embeddings are padded to a multiple of 128
-rows and the padded logit columns are masked to -1e30. The decode cache
-has the reference's three tiers: bf16 K/V, fp8 (``kv_fp8``) and MoR
-(``kv_mor``); an MoE layer's KV lanes are a dense layer's.
+``blocks/moe/moe/router``, ``blocks/wdec/xwkv``, ``enc/blocks/wqkv``,
+``lm_head``, ``embed``, ``blocks/dense/ln1/scale``, ...) keyed by the
+unit's layer types; per-layer leaves are stacked on a leading layer axis
+(an MoE layer's experts on the next one). Embeddings are padded to a
+multiple of 128 rows and the padded logit columns are masked to -1e30.
+The decode cache has the reference's three tiers: bf16 K/V, fp8
+(``kv_fp8``) and MoR (``kv_mor``); an MoE layer's KV lanes are a dense
+layer's.
+
+The vlm family (paligemma) puts ``batch['patches']`` (stub patch
+embeddings) before the token embeddings in train and prefill modes and
+attends with the ``prefix`` mask there; decode stays causal over the
+cache, whose positions count the image tokens. The audio family
+(whisper) adds sinusoidal positions, runs the encoder stack
+(``params['enc']``: dense layers, bidirectional, no rope) on
+``batch['frames']`` and decodes with ``wdec`` layers: causal
+self-attention and cross-attention on the encoder output, whose K/V
+(``xk`` / ``xv``) the prefill cache holds. It serves on the bf16 KV tier
+only (:func:`cache_specs`).
 """
 from __future__ import annotations
 
@@ -20,26 +32,25 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.device import ieee_f32_matmul, resolve_device
-from repro_torch.core.linear import N_BWD_EVENTS
+from repro_torch.core.linear import N_BWD_EVENTS, mor_dot
 from repro_torch.core.mor import STATS_WIDTH
 from repro_torch.core.policy import MoRDotPolicy
 from repro_torch.kernels import ops as kops
 
 from . import blocks as B
+from .attention import flash_attention
+from .common import sinusoidal_at, sinusoidal_positions
 
 __all__ = ["init_params", "make_tokens", "cache_specs", "init_cache",
            "forward", "padded_vocab", "resolve_device"]
 
 # The reference modules the families not ported yet wait for.
 _UNPORTED = {
-    "audio": "the whisper encoder and decoder blocks of "
-             "repro.models.transformer (frames frontend, cross-attention)",
-    "vlm": "the patch-prefix frontend of repro.models.transformer "
-           "(prefix attention)",
     "ssm": "repro.models.recurrent (mlstm / slstm)",
     "hybrid": "repro.models.recurrent (the hymba mamba mixer)",
 }
-_BLOCK_FN = {"dense": B.dense_block, "moe": B.moe_block}
+_DENSE_NAMES = ("qkv", "proj", "fc1", "fc2")
+_WDEC_NAMES = ("qkv", "proj", "xq", "xkv", "xproj", "fc1", "fc2")
 
 
 def padded_vocab(cfg: ArchConfig) -> int:
@@ -47,12 +58,15 @@ def padded_vocab(cfg: ArchConfig) -> int:
 
 
 def _unit_types(cfg: ArchConfig) -> Tuple[str, ...]:
-    """The layer types of one unit; a family that is not ported raises,
-    naming the reference code it waits for."""
+    """The layer types of one unit (the audio family's decoder layers are
+    ``wdec``); a family that is not ported raises, naming the reference
+    code it waits for."""
     if cfg.family in _UNPORTED:
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet: it needs "
             f"{_UNPORTED[cfg.family]}")
+    if cfg.family == "audio":
+        return ("wdec",)
     for t in cfg.unit:
         if t not in _BLOCK_FN:
             raise NotImplementedError(
@@ -75,7 +89,7 @@ def init_params(cfg: ArchConfig, seed: int = 0,
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    L, d, f = cfg.n_units, cfg.d_model, cfg.d_ff
+    d, f = cfg.d_model, cfg.d_ff
     hq, hkv, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
     Vp = padded_vocab(cfg)
     depth_std = 0.02 / max(1.0, (2 * cfg.n_layers) ** 0.5)
@@ -84,7 +98,7 @@ def init_params(cfg: ArchConfig, seed: int = 0,
         return (torch.randn(shape, generator=gen, device=dev,
                             dtype=torch.float32) * std).to(dtype)
 
-    def stacked(shape, std, dtype=torch.bfloat16):
+    def stacked(L, shape, std, dtype=torch.bfloat16):
         # One layer at a time: the f32 draw of a whole stack would not
         # fit beside the model at full width.
         out = torch.empty((L, *shape), dtype=dtype, device=dev)
@@ -92,30 +106,43 @@ def init_params(cfg: ArchConfig, seed: int = 0,
             out[l] = normal(shape, std, dtype)
         return out
 
-    def layer(t):
-        p = {"wqkv": stacked((d, (hq + 2 * hkv) * hd), 0.02),
-             "wo": stacked((hq * hd, d), depth_std)}
+    def norm_p(*lead):
+        # Zero scales (and, under layer norm, zero biases), as the
+        # reference's _norm_p.
+        p = {"scale": torch.zeros((*lead, d), device=dev)}
+        if cfg.norm == "ln":
+            p["bias"] = torch.zeros((*lead, d), device=dev)
+        return p
+
+    def layer(t, L):
+        p = {"wqkv": stacked(L, (d, (hq + 2 * hkv) * hd), 0.02),
+             "wo": stacked(L, (hq * hd, d), depth_std)}
+        if t == "wdec":
+            p["xwq"] = stacked(L, (d, hq * hd), 0.02)
+            p["xwkv"] = stacked(L, (d, 2 * hkv * hd), 0.02)
+            p["xwo"] = stacked(L, (hq * hd, d), depth_std)
+            p["lnx"] = norm_p(L)
         if t == "moe":
             E = cfg.n_experts
-            p["moe"] = {"router": stacked((d, E), 0.02, torch.float32),
-                        "w1": stacked((E, d, _ffin(cfg, f)), 0.02),
-                        "w2": stacked((E, f, d), depth_std)}
+            p["moe"] = {"router": stacked(L, (d, E), 0.02, torch.float32),
+                        "w1": stacked(L, (E, d, _ffin(cfg, f)), 0.02),
+                        "w2": stacked(L, (E, f, d), depth_std)}
         else:
-            p["mlp"] = {"wi": stacked((d, _ffin(cfg, f)), 0.02),
-                        "wo": stacked((f, d), depth_std)}
-        p["ln1"] = {"scale": torch.zeros((L, d), device=dev)}
-        p["ln2"] = {"scale": torch.zeros((L, d), device=dev)}
+            p["mlp"] = {"wi": stacked(L, (d, _ffin(cfg, f)), 0.02),
+                        "wo": stacked(L, (f, d), depth_std)}
+        p["ln1"] = norm_p(L)
+        p["ln2"] = norm_p(L)
         return p
 
     embed = normal((Vp, d), 0.02)
     embed[cfg.vocab:] = 0
-    params: Dict[str, Any] = {
-        "embed": embed,
-        "final_norm": {"scale": torch.zeros(d, device=dev)},
-    }
+    params: Dict[str, Any] = {"embed": embed, "final_norm": norm_p()}
     if not cfg.tie_embed:
         params["lm_head"] = normal((d, Vp), 0.02)
-    params["blocks"] = {t: layer(t) for t in types}
+    params["blocks"] = {t: layer(t, cfg.n_units) for t in types}
+    if cfg.family == "audio":  # the whisper encoder stack
+        params["enc"] = {"blocks": layer("dense", cfg.enc_layers),
+                         "final_norm": norm_p()}
     return params
 
 
@@ -125,20 +152,27 @@ def _layer_tokens(t: str, cfg: ArchConfig):
     if t == "moe":
         per_expert = (cfg.n_experts, *one)
         return {"qkv": one, "proj": one, "w1": per_expert, "w2": per_expert}
-    return {n: one for n in ("qkv", "proj", "fc1", "fc2")}
+    return {n: one for n in (_WDEC_NAMES if t == "wdec" else _DENSE_NAMES)}
 
 
 def make_tokens(cfg: ArchConfig, device="cuda"):
     """Zero bwd-stat tokens, stacked over layers: one (N_BWD_EVENTS,
     STATS_WIDTH) token per GEMM of a layer, one per expert for an MoE
-    layer's 'w1' / 'w2'; each requires grad, and its gradient carries the
-    backward quantization stats out of the train step."""
+    layer's 'w1' / 'w2'; the audio family's encoder layers under 'enc'
+    (stacked over ``enc_layers``). Each requires grad, and its gradient
+    carries the backward quantization stats out of the train step."""
     types = _unit_types(cfg)
     dev = resolve_device(device)
-    return {"blocks": {t: {
-        n: torch.zeros((cfg.n_units, *shape), dtype=torch.float32,
-                       device=dev, requires_grad=True)
-        for n, shape in _layer_tokens(t, cfg).items()} for t in types}}
+
+    def stack(t, L):
+        return {n: torch.zeros((L, *shape), dtype=torch.float32,
+                               device=dev, requires_grad=True)
+                for n, shape in _layer_tokens(t, cfg).items()}
+
+    toks = {"blocks": {t: stack(t, cfg.n_units) for t in types}}
+    if cfg.family == "audio":
+        toks["enc"] = stack("dense", cfg.enc_layers)
+    return toks
 
 
 def cache_specs(cfg: ArchConfig, batch: int, seq: int,
@@ -147,10 +181,14 @@ def cache_specs(cfg: ArchConfig, batch: int, seq: int,
     over layers: bf16 K/V; with ``kv_fp8`` float8_e4m3fn K/V payloads and
     per-(position, head) f32 scales; with ``kv_mor`` uint8 K/V payloads,
     uint8 tags and f32 GAM scales (the reference's lanes and dtypes). The
-    dense and MoE layer types hold the same lanes."""
+    dense and MoE layer types hold the same lanes; a ``wdec`` layer adds
+    the cross-attention's bf16 ``xk`` / ``xv`` (L, batch, enc_seq, hkv,
+    hd) and takes the bf16 tier only (:func:`_refuse_kv_tier`)."""
     types = _unit_types(cfg)
     if kv_fp8 and kv_mor:
         raise ValueError("kv_fp8 and kv_mor are mutually exclusive")
+    if kv_fp8 or kv_mor:
+        _refuse_kv_tier(cfg, "kv_fp8" if kv_fp8 else "kv_mor")
     L, hkv, hd = cfg.n_units, cfg.n_kv, cfg.head_dim
     kv = (L, batch, seq, hkv, hd)
     row = (L, batch, seq, hkv)
@@ -166,7 +204,27 @@ def cache_specs(cfg: ArchConfig, batch: int, seq: int,
                   "v_scale": (row, torch.float32)}
     else:
         leaves = {"k": (kv, torch.bfloat16), "v": (kv, torch.bfloat16)}
-    return {t: dict(leaves) for t in types}
+    out = {t: dict(leaves) for t in types}
+    if "wdec" in out:
+        x = ((L, batch, cfg.enc_seq, hkv, hd), torch.bfloat16)
+        out["wdec"].update(xk=x, xv=x)
+    return out
+
+
+def _refuse_kv_tier(cfg: ArchConfig, tier: str):
+    """The audio family serves on the bf16 KV tier only. The reference's
+    ``_wdec_block`` hands ``attn_sublayer`` only the cache's ``k`` / ``v``
+    lanes, so under ``kv_fp8`` / ``kv_mor`` its fp8 and MoR branches never
+    run: K/V are cast into the payload buffers with no scale and the scale
+    and tag lanes are dropped from the returned cache
+    (``repro.models.transformer._wdec_block``)."""
+    if cfg.family == "audio":
+        raise ValueError(
+            f"{tier} is not supported for family 'audio' ({cfg.name}): "
+            "repro.models.transformer._wdec_block passes only the k / v "
+            "lanes to the self-attention, so the reference drops the "
+            "scale and tag lanes of a quantized KV tier; serve it on the "
+            "bf16 tier")
 
 
 def init_cache(cfg: ArchConfig, batch: int, seq: int, kv_fp8: bool = False,
@@ -196,10 +254,95 @@ def _layer(tree, l: int):
     return out
 
 
-def _train_layer(t, p_l, x, tok_l, policy, cfg):
+def _wdec_block(p, x, tok, policy, cfg, mode, cache, cur_index,
+                enc_out=None, **attn_kw):
+    """Whisper decoder layer: causal self-attention without rope,
+    cross-attention on the encoder output (in decode mode on the cached
+    ``xk`` / ``xv``, with a zero stats row for 'xkv'), then the MLP."""
+    xn = B.norm(p["ln1"], x, cfg)
+    kv_cache = (None if cache is None else
+                {"k": cache["k"], "v": cache["v"]})
+    a, new_kv, st_a = B.attn_sublayer(p, xn, tok, policy, cfg, mode,
+                                      kv_cache, cur_index, kind="causal",
+                                      use_rope=False)
+    x = x + a
+    xq = B.norm(p["lnx"], x, cfg)
+    bsz, S, _ = xq.shape
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv, cfg.head_dim
+    q, st_xq = mor_dot(xq, p["xwq"], B._tok(tok, "xq"), policy)
+    q = q.reshape(bsz, S, hq, hd)
+    if mode == "decode":
+        xk, xv = cache["xk"], cache["xv"]
+        st_xkv = torch.zeros_like(st_xq)
+    else:
+        kvx, st_xkv = mor_dot(enc_out, p["xwkv"], B._tok(tok, "xkv"),
+                              policy)
+        xk, xv = torch.chunk(kvx, 2, dim=-1)
+        xk = xk.reshape(bsz, -1, hkv, hd)
+        xv = xv.reshape(bsz, -1, hkv, hd)
+    xo = flash_attention(q, xk, xv, kind="full")
+    xo = xo.reshape(bsz, S, hq * hd)
+    xa, st_xo = mor_dot(xo, p["xwo"], B._tok(tok, "xproj"), policy)
+    x = x + xa
+    xn2 = B.norm(p["ln2"], x, cfg)
+    m, st_m = B.mlp_sublayer(p["mlp"], xn2, tok, policy, cfg)
+    x = x + m
+    new_cache = None
+    if new_kv is not None:
+        new_cache = {**new_kv, "xk": xk.to(torch.bfloat16),
+                     "xv": xv.to(torch.bfloat16)}
+    return x, new_cache, {**st_a, "xq": st_xq, "xkv": st_xkv,
+                          "xproj": st_xo, **st_m}
+
+
+_BLOCK_FN = {"dense": B.dense_block, "moe": B.moe_block,
+             "wdec": _wdec_block}
+
+
+def _block_kw(t, attn_kw, enc_out):
+    return dict(attn_kw, enc_out=enc_out) if t == "wdec" else attn_kw
+
+
+def _layer_fn(t, p_l, x, tok_l, policy, cfg, attn_kw, enc_out):
     x, _, st = _BLOCK_FN[t](p_l, x, tok_l, policy, cfg, "train", None,
-                            None, kind="causal")
+                            None, **_block_kw(t, attn_kw, enc_out))
     return x, st
+
+
+def _train_layer(remat, *args):
+    """One layer in train mode, under ``torch.utils.checkpoint``
+    (non-reentrant) with ``remat``: (x, stats)."""
+    if remat:
+        return checkpoint(_layer_fn, *args, use_reentrant=False)
+    return _layer_fn(*args)
+
+
+def _stack_rows(rows):
+    """Every stats leaf of a list of per-layer dicts, stacked over layers
+    (an MoE layer's scalar aux_loss / dropped become (n_units,))."""
+    return {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
+
+
+def _encode(cfg, policy, params, tokens, frames, dtype, remat):
+    """The audio encoder: frames (cast to the embeddings' dtype) plus
+    their sinusoidal positions through the dense encoder layers (train
+    mode: bidirectional, no rope; remat per layer when asked, as the
+    reference), then its final norm. Returns (enc_out, stats {'dense':
+    per-layer rows})."""
+    e = frames.to(dtype)
+    e = e + sinusoidal_positions(e.shape[1], cfg.d_model,
+                                 device=e.device)[None].to(e.dtype)
+    kw = {"kind": "full", "use_rope": False}
+    rows = []
+    for l in range(cfg.enc_layers):
+        p_l = _layer(params["enc"]["blocks"], l)
+        tok_l = (None if tokens is None else
+                 {k: v[l] for k, v in tokens["enc"].items()})
+        e, st = _train_layer(remat, "dense", p_l, e, tok_l, policy, cfg, kw,
+                             None)
+        rows.append(st)
+    return (B.norm(params["enc"]["final_norm"], e, cfg),
+            {"dense": _stack_rows(rows)})
 
 
 class HeadMatmul(torch.autograd.Function):
@@ -268,20 +411,54 @@ def forward(cfg: ArchConfig, policy: MoRDotPolicy, params, batch, *,
 
     Prefill mode: ``batch['tokens']`` (B, S), causal over the whole
     sequence with no cache input; the returned cache is every layer's
-    bf16 K/V, ``{type: {"k", "v": (n_units, B, S, Hkv, dh)}}``.
+    bf16 K/V, ``{type: {"k", "v": (n_units, B, P, Hkv, dh)}}`` (a
+    ``wdec`` layer's also ``xk`` / ``xv``).
 
     Decode mode: ``batch['token']`` (B, S) against ``cache`` -- S == 1
     for a decode step, S > 1 for a prefill chunk -- with ``cur_index``
     (scalar or (B,)) the position of each row's last incoming token.
     The cache is updated in place and returned.
+
+    Frontends (train and prefill): the vlm family takes
+    ``batch['patches']`` (B, img_tokens, d) before the tokens (P = B's
+    img_tokens + S positions, the logits too; the prefix attends
+    bidirectionally), the audio family ``batch['frames']`` (B, enc_seq,
+    d) for the encoder. Stats: ``{"blocks": {type: ...}}``, and for the
+    audio family ``"enc": {"dense": ...}`` (a decode call runs no
+    encoder and reports none).
     """
     types = _unit_types(cfg)
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode {mode!r}")
+    if mode == "decode" and "k_scale" in cache.get("wdec", {}):
+        _refuse_kv_tier(cfg, "kv_mor" if "k_tags" in cache["wdec"]
+                        else "kv_fp8")
     ids = batch["token"] if mode == "decode" else batch["tokens"]
     x = params["embed"][ids]
     if cfg.family in ("dense", "vlm") and cfg.tie_embed:
         x = x * torch.tensor(cfg.d_model**0.5, dtype=x.dtype)  # gemma
+
+    attn_kw: Dict[str, Any] = {"kind": "causal"}
+    enc_out = None
+    stats: Dict[str, Any] = {}
+    if cfg.family == "vlm" and mode != "decode":
+        x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
+        attn_kw = {"kind": "prefix", "prefix_len": cfg.img_tokens}
+    if cfg.family == "audio":
+        if mode == "decode":
+            # The S incoming tokens sit at cur - (S-1) .. cur of each row.
+            S = x.shape[1]
+            cur = torch.as_tensor(cur_index, dtype=torch.int64,
+                                  device=x.device).reshape(-1)
+            posn = cur[:, None] - (S - 1) + torch.arange(S, device=x.device)
+            pos = sinusoidal_at(posn, cfg.d_model)  # (b, S, d)
+        else:
+            pos = sinusoidal_positions(x.shape[1], cfg.d_model,
+                                       device=x.device)[None]
+        x = x + pos.to(x.dtype)
+        if mode != "decode":
+            enc_out, stats["enc"] = _encode(cfg, policy, params, tokens,
+                                            batch["frames"], x.dtype, remat)
 
     rows = {t: [] for t in types}
     kvs = {t: [] for t in types}
@@ -291,27 +468,20 @@ def forward(cfg: ArchConfig, policy: MoRDotPolicy, params, batch, *,
             tok_l = (None if tokens is None else
                      {k: v[l] for k, v in tokens["blocks"][t].items()})
             if mode == "train":
-                if remat:
-                    x, st = checkpoint(_train_layer, t, p_l, x, tok_l,
-                                       policy, cfg, use_reentrant=False)
-                else:
-                    x, st = _train_layer(t, p_l, x, tok_l, policy, cfg)
-            elif mode == "prefill":
-                x, kv, st = _BLOCK_FN[t](p_l, x, tok_l, policy, cfg, mode,
-                                         None, None, kind="causal")
-                kvs[t].append(kv)
+                x, st = _train_layer(remat, t, p_l, x, tok_l, policy, cfg,
+                                     attn_kw, enc_out)
             else:
-                c_l = {k: v[l] for k, v in cache[t].items()}
-                x, _, st = _BLOCK_FN[t](p_l, x, tok_l, policy, cfg, mode,
-                                        c_l, cur_index, kind="causal")
+                c_l = (None if mode == "prefill" else
+                       {k: v[l] for k, v in cache[t].items()})
+                x, kv, st = _BLOCK_FN[t](p_l, x, tok_l, policy, cfg, mode,
+                                         c_l, cur_index,
+                                         **_block_kw(t, attn_kw, enc_out))
+                kvs[t].append(kv)
             rows[t].append(st)
     if mode == "prefill":
         cache = {t: {k: torch.stack([kv[k] for kv in kvs[t]])
-                     for k in ("k", "v")} for t in types}
-    # Every stats leaf stacked over layers (an MoE layer's scalar
-    # aux_loss / dropped become (n_units,)).
-    stats = {"blocks": {t: {k: torch.stack([r[k] for r in rows[t]])
-                            for k in rows[t][0]} for t in types}}
+                     for k in kvs[t][0]} for t in types}
+    stats["blocks"] = {t: _stack_rows(rows[t]) for t in types}
 
     x = B.norm(params["final_norm"], x, cfg)
     head = params["embed"].T if cfg.tie_embed else params["lm_head"]

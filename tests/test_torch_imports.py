@@ -40,6 +40,8 @@ def test_port_tree_is_present():
                  "src/repro_torch/configs/gemma_2b.py",
                  "src/repro_torch/configs/granite_moe_1b_a400m.py",
                  "src/repro_torch/configs/moonshot_v1_16b_a3b.py",
+                 "src/repro_torch/configs/paligemma_3b.py",
+                 "src/repro_torch/configs/whisper_tiny.py",
                  "chip_smoke.py"):
         assert must in names
 

@@ -160,11 +160,41 @@ def test_params_tokens_cache_specs_match_reference(name):
                                          ("xlstm-350m", "ssm"),
                                          ("hymba-1.5b", "hybrid")])
 def test_unported_families_raise_by_name(arch, family):
+    """The recurrent families (ssm, hybrid) raise, naming the reference
+    module they wait for. The frontend families (audio, vlm) are ported
+    (``tests/test_torch_frontends.py``): init_params, make_tokens,
+    cache_specs and a train forward run and give the reference's key
+    paths and shapes."""
     jcfg = jreduced(jget_config(arch))
     cfg = tbase.ArchConfig(**dataclasses.asdict(jcfg))
     assert cfg.family == family
-    where = "repro.models.recurrent" if family in ("ssm", "hybrid") else \
-        "repro.models.transformer"
+    if family in ("audio", "vlm"):
+        jp = _jflat(jax.eval_shape(lambda: jinit_params(
+            jcfg, jax.random.PRNGKey(0))))
+        tp = _flat(init_params(cfg, device="cpu"))
+        assert {k: tuple(v.shape) for k, v in tp.items()} == \
+            {k: v.shape for k, v in jp.items()}
+        jt = _jflat(jax.eval_shape(lambda: jmake_tokens(jcfg)))
+        assert {k: tuple(v.shape) for k, v in _flat(make_tokens(
+            cfg, device="cpu")).items()} == {k: v.shape for k, v in jt.items()}
+        js = _jflat(jcache_specs(jcfg, 1, 8))
+        assert _flat(cache_specs(cfg, 1, 8)) == {
+            k: (tuple(v.shape), getattr(torch, str(v.dtype)))
+            for k, v in js.items()}
+        rng = np.random.default_rng(0)
+        batch = {"tokens": torch.from_numpy(rng.integers(0, 512, (1, 8)))}
+        front = {"audio": ("frames", cfg.enc_seq),
+                 "vlm": ("patches", cfg.img_tokens)}[family]
+        batch[front[0]] = torch.from_numpy(rng.normal(
+            size=(1, front[1], cfg.d_model))).to(torch.bfloat16)
+        logits, _, _ = tT.forward(cfg, MoRDotPolicy(),
+                                  init_params(cfg, device="cpu"), batch,
+                                  mode="train", remat=False)
+        extra = cfg.img_tokens if family == "vlm" else 0
+        assert logits.shape == (1, 8 + extra, 512)
+        assert torch.isfinite(logits).all()
+        return
+    where = "repro.models.recurrent"
     for call in (lambda: init_params(cfg, device="cpu"),
                  lambda: make_tokens(cfg, device="cpu"),
                  lambda: cache_specs(cfg, 1, 8),
