@@ -142,17 +142,19 @@
    reduced nemotron3-8b (d 64) on the card, every f32 select launching.
 
 11. The serving tiers (``phase_serve_tiers``), llama3-8b at full width
-   and depth with sub3 QTensor weights quantized once: (a) the engine on
-   bf16, kv_fp8, kv_mor and kv_mor + kv_mor_cold=64 + kv_guard pools
-   (phase_engine's 8 requests and one of 300 + 32 tokens): every GEMM
-   on the stream path, bytes per token 131,072 / 67,584 / 68,096, pages
+   with sub3 QTensor weights, each tree quantized once: (a) at depth 8
+   (``SERVE_TIER_LAYERS``) the engine on bf16, kv_fp8, kv_mor and kv_mor
+   + kv_mor_cold=64 + kv_guard pools (phase_engine's 8 requests and one
+   of 300 + 32 tokens): every GEMM on the stream path, bytes per token
+   32,768 / 16,896 / 17,024 / 17,024, pages
    sealed and every sealed slab equal to the CPU's
    ``recompress_kv_nvfp4`` of its hot lanes, step and chunk ms, tokens/s,
    peak GB, the pool's census and the share of tokens equal to the bf16
    run's; (b) layer 0's fp8 and MoR lanes written on the card equal to
    ``quantize_kv`` / ``quantize_kv_mor`` on the CPU on the bf16 run's
-   rows, bit for bit; (c) ``make_prefill_fn`` on a 2048-token prompt
-   with all 4L + 1 GEMMs on the tc path, that prompt served through
+   rows, bit for bit (at depth 8 too); (c) at full depth,
+   ``make_prefill_fn`` on a 2048-token prompt with all 4L + 1 GEMMs on
+   the tc path, that prompt served through
    ``_full_prefill`` into a kv_mor pool beside the chunked engine, and a
    depth-2 512-token prefill three ways (step 5's rule); (d)
    the KV-page guard on a trashed page of a MoR and an fp8 pool (4
@@ -167,14 +169,15 @@
    weights (the expert stacks and routers stay dense, as in the
    reference) on bf16 and kv_mor pools, phase_engine's 8 requests: every
    attention GEMM on the stream path, every expert event on gam_quant,
-   no plain call, bytes per token 49,152 / 26,496, step and chunk ms,
-   tokens/s, peak GB, a profiled decode call with its ATen operators and
-   launches, each layer's dropped share and aux_loss in a prefill chunk;
+   no selection, no plain call, bytes per token 49,152 / 26,496, step
+   and chunk ms, tokens/s, peak GB, a profiled decode call with its ATen
+   operators and launches, each layer's dropped share and aux_loss in a
+   prefill chunk;
    then 3 AdamW steps of 2 x 1024 tokens under sub3 and fused sub3:
    finite loss, grad norm and aux_loss > 0, the total equal to loss +
    0.01 aux_loss, the router bf16 after the first step, every event and
    fused GEMM on the kernels. (b) moonshot-v1-16b-a3b at full width and
-   depth 4 (``MOONSHOT_LAYERS``): 4 requests on a bf16 pool (32,768
+   depth 2 (``MOONSHOT_LAYERS``): 4 requests on a bf16 pool (16,384
    bytes per token) and one sub3 step. (c) gemma-2b at full depth on
    bf16 and kv_mor pools (18,432 / 9,396 bytes per token), every GEMM
    but the tied head on the stream path. (d) ``moe_sublayer`` alone at
@@ -220,8 +223,31 @@
    sub3 with every forward, dgrad and wgrad GEMM held against the plain
    version (whisper's wgrads contracting over the 12000 ragged rows).
 
+14. The recurrent families (``phase_recurrent``), full width and depth
+   (hymba-1.5b: 32 layers of sliding-window attention beside the mamba
+   mixer; xlstm-350m: 12 units of an mLSTM and an sLSTM layer), random
+   seeded weights: (a) served by the Engine (``zoo_serve``) with sub3
+   QTensor weights (193 / 72 packs, all ``tile``; the mixers' plain
+   leaves dense) on a bf16 pool (4 slots, max_seq 512, one-shot
+   prefill) with 8 staggered requests of 32-300 prompt tokens and 32
+   new ones: admissions while other slots decode, every GEMM on
+   mixed_gemm (the tc path for a prefill of M > 64), no activation
+   quantizer launch, no plain call, bytes per token 40,960 / 0 and
+   state bytes per slot 7,168,000 / 50,626,752 exactly, the decode
+   step's and each prefill's ms, a profiled decode call, the host
+   seconds inside the prefills' scans; (b) two AdamW steps on one state
+   (``train_run``), 2 x 128 tokens each, under sub3 and fused sub3, and
+   at depth 2 one under the tensor recipe (profiled: device ms and idle
+   share): every event and fused GEMM on the kernels, each step's ms,
+   peak GB and the host ms inside its scans; (c) each family at depth
+   2: every weight pack equal to the plain version's, bit for bit; a
+   prefill (hymba 2560 tokens, its window masking; xlstm 512) and 4
+   decode steps three ways; training on the main path's batch under the
+   tensor recipe and sub3, kernel path against plain path, with the
+   fused GEMMs held to the plain version.
+
 Prints JSON lines (the ``kernels``, ``engine``, ``serve_tiers``,
-``model_zoo``, ``frontends``, ``train``, ``train_state``,
+``model_zoo``, ``frontends``, ``recurrent``, ``train``, ``train_state``,
 ``fault_tolerance``, ``generic_smem`` and ``kernel_api`` lines among
 them) and ends with
 ``{"ok": true, "device":
@@ -246,6 +272,13 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 BF16_FLOPS = 989e12           # H100 SXM dense bf16 tensor-core peak
 N_LAYERS = 32                 # llama3-8b depth; cut only if time forces it
+# The serving tiers' engine runs (phase_serve_tiers (a), (b)) at depth 8:
+# they are host-paced (the card idle ~0.92 of a decode step), so their
+# time scales with depth, and every check they make (lanes, tokens,
+# census, sealing, bytes per token) holds at any depth; the script's
+# 1,200 s limit needs the room. The 2048-token prefill and the one-shot
+# against chunked prefill stay at full depth.
+SERVE_TIER_LAYERS = 8
 # Training: depth cut to 4 layers because the AdamW state (bf16 params,
 # f32 master and two f32 moments, bf16 grads, ~18 B/param) of all 32
 # layers (~135 GB) does not fit the 80 GB card; 4 layers and the
@@ -883,7 +916,9 @@ def profile_decode(eng, calls=3):
     (all slots on the trash page, the same work as a 4-slot decode
     step), from torch.profiler, and the device's busy share of the host
     wall time. PERF.md's breakdown rests on it, so a profile without
-    device time fails the run."""
+    device time fails the run. Device activity only: the profiler spends
+    ~0.2 ms of host time on each event it records, and recording the
+    CPU operators too slowed the profiled calls themselves."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     slots = eng.scfg.slots
@@ -893,8 +928,7 @@ def profile_decode(eng, calls=3):
     cur = np.zeros(slots, np.int32)
     eng._step_fn(bt, toks, cur)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(calls):
             eng._step_fn(bt, toks, cur)
@@ -1043,12 +1077,14 @@ def depth2_three_ways(run, ops, ref, what, names, gate=True):
     gemms = {}
     dots = {"kernel": checked_dot(ops, ref, gemms), "f64": f64_mixed_dot(ref),
             "fed": plain_mixed_dot(ops)}
-    out = {}
+    out, way_s = {}, {}
     for way in DEPTH2_WAYS:
+        t = time.perf_counter()
         with patched(ops, "mixed_dot", dots.get(way, ops.mixed_dot)):
             out[way] = run("torch" if way == "plain" else "auto", way)
+        way_s[way] = time.perf_counter() - t
     res = {"gemms": [{"M": k[0], "N": k[1], "K": k[2], "out": k[3], **v}
-                     for k, v in sorted(gemms.items())]}
+                     for k, v in sorted(gemms.items())], "way_s": way_s}
     for i, name in enumerate(names):
         k, p, e, fed = (out[w][i] for w in ("kernel", "plain", "f64", "fed"))
         check(torch.equal(k, out["repeat"][i]),
@@ -1939,8 +1975,7 @@ def profile_train_step(step_fn, params, opt, batch, must, steps=1):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             out = step_fn(params, opt, batch)
@@ -3644,8 +3679,8 @@ def serve_tier_run(cfg, qparams, name, tier, smi, totals, ref_out=None):
     want_bpt = 2 * L * {"bf16": hkv * dh * 2, "kv_fp8": hkv * dh + 4 * hkv}.get(
         name, hkv * dh + hkv + 4 * hkv)
     check(bpt == want_bpt, f"{name}: bytes_per_token {bpt} != {want_bpt}")
-    if L == N_LAYERS:
-        check(bpt == {"bf16": 131072, "kv_fp8": 67584}.get(name, 68096),
+    if L == SERVE_TIER_LAYERS:
+        check(bpt == {"bf16": 32768, "kv_fp8": 16896}.get(name, 17024),
               f"{name}: bytes_per_token {bpt}")
     tokens = sum(len(r.out) for r in reqs)
     row = {"tier": name, **{k: v for k, v in tier.items()},
@@ -3976,16 +4011,17 @@ def guard_trash(qparams_fn, smi, totals):
 
 
 def phase_serve_tiers(cfg, ops, ref, smi, n_layers=N_LAYERS):
-    """The serving tiers on llama3-8b at full width and ``n_layers`` with
-    sub3 QTensor weights quantized once (the engines take the tree with
-    ``quantize=None``): (a) four engine runs (bf16, kv_fp8, kv_mor,
-    kv_mor + kv_mor_cold=64 + kv_guard) of the 9 requests; (b) the
-    layer-0 lanes against the CPU quantizers; (c) a 2048-token
-    make_prefill_fn on the tc path, _full_prefill against chunked prefill
-    on a kv_mor pool, and the depth-2 three-way prefill; (d) the KV-page
-    guard. The counters are zeroed just before each main-path part and
-    read just after (the depth-2 comparison's calls are not counted).
-    Returns (result, Totals of the parts)."""
+    """The serving tiers on llama3-8b at full width with sub3 QTensor
+    weights, each tree quantized once (the engines take it with
+    ``quantize=None``): at ``SERVE_TIER_LAYERS`` (a) four engine runs
+    (bf16, kv_fp8, kv_mor, kv_mor + kv_mor_cold=64 + kv_guard) of the 9
+    requests and (b) the layer-0 lanes against the CPU quantizers; at
+    ``n_layers`` (c) a 2048-token make_prefill_fn on the tc path and
+    _full_prefill against chunked prefill on a kv_mor pool; the depth-2
+    three-way prefill; (d) the KV-page guard. The counters are zeroed
+    just before each main-path part and read just after (the depth-2
+    comparison's calls are not counted). Returns (result, Totals of the
+    parts)."""
     from repro_torch.core.policy import MoRPolicy
     from repro_torch.models import init_params
     from repro_torch.serve.quantized import param_bytes, quantize_params
@@ -3998,20 +4034,28 @@ def phase_serve_tiers(cfg, ops, ref, smi, n_layers=N_LAYERS):
         q, _ = quantize_params(params, MoRPolicy(recipe="sub3"))
         return q
 
-    reset_counters()
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    qparams = qparams_fn(cfg)
-    torch.cuda.synchronize()
+    def quantized(c):
+        """qparams_fn with the counters zeroed just before: one pack a
+        weight matrix. Returns (tree, quantize s, weight bytes)."""
+        reset_counters()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        q = qparams_fn(c)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t
+        k, _ = totals.add_current(f"weight quantization, {c.n_units} layers")
+        check(k["mor_select_pack"] == 4 * c.n_units + 1,
+              f"weight packs: {k['mor_select_pack']}")
+        return q, dt, param_bytes(q)
+
+    c8 = dataclasses.replace(cfg, n_layers=SERVE_TIER_LAYERS)
+    qparams, dt, nbytes = quantized(c8)
     res = {"arch": cfg.name, "layers": cfg.n_units,
-           "quantize_s": time.perf_counter() - t,
-           "weight_bytes": param_bytes(qparams), "card": smi}
-    k, _ = totals.add_current("weight quantization")
-    check(k["mor_select_pack"] == 4 * cfg.n_units + 1,
-          f"weight packs: {k['mor_select_pack']}")
+           "engine_layers": c8.n_units, "engine_quantize_s": dt,
+           "engine_weight_bytes": nbytes, "card": smi}
     runs, ref_out = {}, None
     for name, tier in SERVE_TIERS.items():
-        row, out = serve_tier_run(cfg, qparams, name, tier, smi, totals,
+        row, out = serve_tier_run(c8, qparams, name, tier, smi, totals,
                                   ref_out)
         emit({"serve_tiers_run": row})
         runs[name] = {k2: v for k2, v in row.items() if k2 not in (
@@ -4019,7 +4063,11 @@ def phase_serve_tiers(cfg, ops, ref, smi, n_layers=N_LAYERS):
         if name == "bf16":
             ref_out = out
     res["runs"] = runs
-    res["lanes"] = lanes_vs_cpu(cfg, qparams, smi, totals)
+    res["lanes"] = lanes_vs_cpu(c8, qparams, smi, totals)
+    del qparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    qparams, res["quantize_s"], res["weight_bytes"] = quantized(cfg)
     pre = prefill_full(cfg, qparams, smi, totals)
     res["prefill"] = {k: v for k, v in pre.items() if k != "card"}
     del qparams
@@ -4041,11 +4089,12 @@ def phase_serve_tiers(cfg, ops, ref, smi, n_layers=N_LAYERS):
 
 # ------------------------------------------------------------- model zoo --
 ZOO_ARCHS = ("granite-moe-1b-a400m", "gemma-2b", "moonshot-v1-16b-a3b")
-# moonshot-v1-16b-a3b at depth 4: its 48 layers are ~27 B params with the
+# moonshot-v1-16b-a3b at depth 2: its 48 layers are ~27 B params with the
 # experts in bf16 (the 4-D expert stacks stay dense under quantize, as
 # in the reference), ~55 GB, and a decode call would make 48 x 64 x 2 =
-# 6,144 expert mor_dots. Depth 4 keeps every shape.
-MOONSHOT_LAYERS = 4
+# 6,144 expert mor_dots. Depth 2 keeps every shape (4 until the script's
+# time limit needed the room for the recurrent families).
+MOONSHOT_LAYERS = 2
 ZOO_TRAIN_STEPS = 3
 ZOO_DEV = "cuda"
 
@@ -4067,7 +4116,10 @@ def zoo_gemms(cfg):
     """(QTensor GEMMs of one model call, expert mor_dots of one model
     call): the attention GEMMs (and a dense layer's MLP) take the mixed
     GEMM, the untied head too; an MoE layer's experts run E x 2
-    mor_dots of two events each (one chunk: S <= 256)."""
+    mor_dots of two events each (one chunk: S <= 256); the recurrent
+    families' ``rec_gemms``."""
+    if cfg.family in REC_FAMILIES:
+        return rec_gemms(cfg), 0
     per_layer = 2 if cfg.family == "moe" else 4
     n_q = per_layer * cfg.n_units + (0 if cfg.tie_embed else 1)
     experts = 2 * cfg.n_experts * cfg.n_units if cfg.family == "moe" else 0
@@ -4094,13 +4146,23 @@ def zoo_layer_stats(eng):
                                                           "aux_loss")}
 
 
-def zoo_serve(cfg, params, name, tier, reqs, smi, totals, profile=True):
+def zoo_serve(cfg, params, name, tier, reqs, smi, totals, profile=True,
+              stagger=0, line="model_zoo_serve"):
     """One engine run (sub3 QTensor weights quantized by the Engine, the
     default MoRDotPolicy) with the counters zeroed just before the
-    Engine is built and read just after the run: every request done,
-    every QTensor GEMM on the stream path, every expert event on
-    gam_quant, no plain call, bytes_per_token as computed."""
+    Engine is built and read just after the run, request i submitted at
+    engine step ``stagger`` x i: every request done, one pack a weight
+    matrix on the tile route, every QTensor GEMM on mixed_gemm (a
+    one-shot prefill of M > 64 rows on the tc path, the rest on the
+    stream path), every expert event on gam_quant, no selection and no
+    plain call; bytes per token and recurrent state bytes per slot as
+    computed; the recurrent families' one-shot prefill (with ``stagger``,
+    admitted while other slots decode) and the host seconds inside its
+    scans. The decode step's, each prefill chunk's and each one-shot
+    prefill's ms, tokens/s and peak GB; with ``profile``, a profiled
+    decode call with its ATen operators and launches."""
     from repro_torch.core.policy import MoRDotPolicy, MoRPolicy
+    from repro_torch.kernels.mixed_gemm import gemm_path
     from repro_torch.serve import Engine, ServeConfig
     gc.collect()
     torch.cuda.empty_cache()
@@ -4109,10 +4171,17 @@ def zoo_serve(cfg, params, name, tier, reqs, smi, totals, profile=True):
     eng = Engine(cfg, MoRDotPolicy(), params,
                  ServeConfig(slots=4, max_seq=512, prefill_chunk=32, **tier),
                  quantize=MoRPolicy(recipe="sub3"), device=ZOO_DEV)
-    step_ms = {"decode": [], "prefill": []}
+    recurrent = cfg.family in REC_FAMILIES
+    check(eng.chunked_prefill != recurrent,
+          f"{name}: chunked prefill {eng.chunked_prefill}")
+    step_ms = {"decode": [], "prefill": [], "one_shot": []}
+    one_shot_m, beside = [], []
 
     def timed(fn, key):
         def wrapper(*a):
+            if key == "one_shot":
+                beside.append(sum(s == "decode" for s in eng.slot_state))
+                one_shot_m.append(len(a[1].prompt))
             torch.cuda.synchronize()
             t = time.perf_counter()
             out = fn(*a)
@@ -4123,10 +4192,17 @@ def zoo_serve(cfg, params, name, tier, reqs, smi, totals, profile=True):
 
     eng._decode_batch = timed(eng._decode_batch, "decode")
     eng._prefill_chunk_step = timed(eng._prefill_chunk_step, "prefill")
-    for r in reqs:
-        eng.submit(r)
+    eng._full_prefill = timed(eng._full_prefill, "one_shot")
+    scan = {"s": 0.0, "steps": 0}
+    pending, steps = list(reqs), 0
     t0 = time.perf_counter()
-    steps = eng.run_to_completion()
+    with scan_host_time(scan):
+        while pending or eng.queue or any(eng.slot_req):
+            while pending and steps >= stagger * (len(reqs) - len(pending)):
+                eng.submit(pending.pop(0))
+            eng.step()
+            steps += 1
+            check(steps < 5000, f"{name}: the engine did not drain")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     routes = tile_routes()
@@ -4138,33 +4214,54 @@ def zoo_serve(cfg, params, name, tier, reqs, smi, totals, profile=True):
               and all(0 <= t < cfg.vocab for t in r.out),
               f"{name} request {r.rid}: tokens {r.out}")
     check(not eng.quarantined and not eng.rejected, f"{name}: quarantine")
-    calls = eng.prefill_chunks + eng.decode_steps
+    check(not stagger or any(beside),
+          f"{name}: no admission while a slot decoded")
+    calls = eng.prefill_chunks + len(one_shot_m) + eng.decode_steps
     n_q, experts = zoo_gemms(cfg)
-    check(launches["mixed_gemm"] == n_q * calls
-          and paths["stream"] == launches["mixed_gemm"],
+    tc = n_q * sum(gemm_path(m) == "tc" for m in one_shot_m)
+    check(launches["mixed_gemm"] == n_q * calls and paths["tc"] == tc
+          and paths["stream"] == n_q * calls - tc,
           f"{name}: mixed_gemm {launches['mixed_gemm']} launches, paths "
-          f"{paths}, want {n_q} x {calls} model calls on the stream path")
+          f"{paths}, want {n_q} x {calls} model calls ({tc} on tc)")
     check(launches["mor_select_pack"] == n_q
           and routes["mor_select_pack"]["tile"] == n_q,
           f"{name}: mor_select_pack {routes['mor_select_pack']}, want "
           f"{n_q} weight matrices on the tile route")
-    check(launches["gam_quant"] == 2 * experts * calls,
+    check(launches["gam_quant"] == 2 * experts * calls
+          and launches["mor_select_select"] == 0,
           f"{name}: gam_quant launched {launches['gam_quant']} times, "
-          f"want 2 x {experts} expert mor_dots x {calls} calls")
-    bpt = eng.pool.bytes_per_token()
-    check(bpt == zoo_bytes_per_token(cfg, tier),
-          f"{name}: bytes_per_token {bpt}")
+          f"want 2 x {experts} expert mor_dots x {calls} calls; "
+          f"selections {launches['mor_select_select']}, want 0")
+    bpt, sbytes = eng.pool.bytes_per_token(), eng.pool.state_bytes_per_slot()
+    want = rec_bytes(cfg) if recurrent else (
+        zoo_bytes_per_token(cfg, tier), 0)
+    check((bpt, sbytes) == want, f"{name}: bytes per token {bpt}, state "
+          f"bytes per slot {sbytes}, want {want}")
     tokens = sum(len(r.out) for r in reqs)
-    row = {"run": name, "arch": cfg.name, "layers": cfg.n_units,
+    row = {"run": name, "arch": cfg.name, "layers": cfg.n_layers,
            **tier, "requests": len(reqs), "steps": steps,
+           "stagger": stagger, "chunked_prefill": eng.chunked_prefill,
            "prefill_chunks": eng.prefill_chunks,
            "decode_steps": eng.decode_steps,
            "decode_step_ms": float(np.median(step_ms["decode"])),
-           "prefill_chunk_ms": float(np.median(step_ms["prefill"])),
            "wall_s": wall, "tokens": tokens, "tokens_per_s": tokens / wall,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-           "bytes_per_token": bpt, "launches": launches,
+           "bytes_per_token": bpt, "state_bytes_per_slot": sbytes,
+           "weights": sorted(eng.qstats), "launches": launches,
            "mixed_gemm_paths": paths, "routes": routes, "card": smi}
+    if step_ms["prefill"]:
+        row["prefill_chunk_ms"] = float(np.median(step_ms["prefill"]))
+    if one_shot_m:
+        row.update(
+            prefills=len(one_shot_m),
+            admissions_beside_decoding=sum(b > 0 for b in beside),
+            prefill_ms=dict(zip(map(str, one_shot_m), step_ms["one_shot"])),
+            prefill_ms_per_token=float(np.median(
+                [t / m for t, m in zip(step_ms["one_shot"], one_shot_m)])))
+    if scan["steps"]:
+        row.update(scan_host_s=scan["s"], scan_steps=scan["steps"],
+                   scan_host_share_of_prefills=scan["s"] / (
+                       sum(step_ms["one_shot"]) / 1e3))
     if profile:
         row["profile"] = profile_decode(eng)
         row["aten_ops_per_decode_call"] = dispatched_ops(eng)
@@ -4183,29 +4280,58 @@ def zoo_serve(cfg, params, name, tier, reqs, smi, totals, profile=True):
     del eng
     gc.collect()
     torch.cuda.empty_cache()
-    emit({"model_zoo_serve": row})
+    emit({line: row})
     return row, out
 
 
+def train_want(pols, dots):
+    """{kernel: launches} of one training step under each of ``pols`` of
+    ``dots`` mor_dots a step: each mor_dot's 2 forward events, run twice
+    under the layer remat, and 3 backward events on gam_quant (the
+    tensor recipe), the selection (sub3) or the pack (fused, with 4
+    GEMMs a mor_dot)."""
+    want = {}
+    for pol in pols:
+        if pol.fuse_gemm:
+            step = {"mor_select_pack": dots * (2 * 2 + 3),
+                    "mixed_gemm": dots * 4}
+        elif pol.act.recipe == "tensor":
+            step = {"gam_quant": dots * (2 * 2 + 3)}
+        else:
+            step = {"mor_select_select": dots * (2 * 2 + 3)}
+        for kern, n in step.items():
+            want[kern] = want.get(kern, 0) + n
+    return want
+
+
 def train_run(cfg, name, pol, steps, smi, totals, *, init, batch_fn, dots,
-              line, on_step=None, ctx=None):
+              line, on_step=None, ctx=None, profile=None):
     """``steps`` AdamW steps of make_train_step from ``init()``'s params on
-    ``batch_fn(step)``, the counters zeroed just before and read just
-    after: finite loss and grad norm, grad norm > 0, every event (and,
-    fused, every GEMM) on the kernels: ``dots`` mor_dots a step, each
-    with 2 forward events run twice under the layer remat and 3 backward
-    events, and 4 GEMMs under the fused lowering. ``on_step(step,
-    params, metrics, row)`` adds a family's figures and checks to each
-    step's row (emitted as ``line``), inside ``ctx`` (a context manager,
-    such as a spy) around the steps. Returns (the run's figures,
-    launches, GEMM paths, tile routes)."""
+    ``batch_fn(step)`` (``pol`` a policy, or a sequence of them: one step
+    under each, on one state), the counters zeroed just before and read
+    just after: finite loss and grad norm, grad norm > 0, every event
+    (and, fused, every GEMM) on the kernels: ``dots`` mor_dots a step,
+    each with 2 forward events run twice under the layer remat and 3
+    backward events (on ``gam_quant`` under the tensor recipe, the
+    selection under sub3, packs under the fused lowering), and 4 GEMMs
+    under the fused lowering (``train_want``). ``on_step(step, params,
+    metrics, row)`` adds a family's figures and checks to each step's
+    row (emitted as ``line``), inside ``ctx`` (a context manager, such
+    as a spy) around the steps. With ``profile`` (a kernel the profile
+    must show), one more step on the last batch under the profiler,
+    not counted. Returns (the run's figures, launches, GEMM paths, tile
+    routes)."""
     from repro_torch.optim import AdamWConfig, init_opt_state
     from repro_torch.train import TrainConfig, make_train_step
+    pols = tuple(pol) if isinstance(pol, (list, tuple)) else (pol,) * steps
     params = init()
     opt = init_opt_state(params)
-    step_fn = make_train_step(cfg, pol, TrainConfig(
-        optimizer=AdamWConfig(warmup_steps=1)))
-    batches = [batch_fn(s) for s in range(steps)]
+    fns = {}
+    for p in pols:
+        if p not in fns:
+            fns[p] = make_train_step(cfg, p, TrainConfig(
+                optimizer=AdamWConfig(warmup_steps=1)))
+    batches = [batch_fn(s) for s in range(len(pols))]
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.synchronize()
@@ -4213,10 +4339,10 @@ def train_run(cfg, name, pol, steps, smi, totals, *, init, batch_fn, dots,
     rows = []
     reset_counters()
     with ctx or contextlib.nullcontext():
-        for s, batch in enumerate(batches):
+        for s, (p, batch) in enumerate(zip(pols, batches)):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            params, opt, m = step_fn(params, opt, batch)
+            params, opt, m = fns[p](params, opt, batch)
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
             row = {"run": name, "step": s, "step_ms": dt * 1e3,
@@ -4233,15 +4359,11 @@ def train_run(cfg, name, pol, steps, smi, totals, *, init, batch_fn, dots,
             rows.append(row)
     routes = tile_routes()
     launches, paths = totals.add_current(name)
-    events = dots * steps * (2 * 2 + 3)
-    if pol.fuse_gemm:
-        want = {"mor_select_pack": events, "mixed_gemm": dots * steps * 4}
-    else:
-        want = {"mor_select_select": events}
-    for kern, n in want.items():
+    for kern, n in train_want(pols, dots).items():
         check(launches[kern] == n, f"{name}: {kern} launched "
               f"{launches[kern]} times, want {n} (every event)")
-    res = {"arch": cfg.name, "layers": cfg.n_units, "steps": rows,
+    steps = len(pols)
+    res = {"arch": cfg.name, "layers": cfg.n_layers, "steps": rows,
            "step_ms_median": float(np.median([r["step_ms"] for r in rows])),
            "peak_mem_gb": max(r["peak_mem_gb"] for r in rows),
            "launches_per_step": {k: v / steps for k, v in launches.items()},
@@ -4250,7 +4372,10 @@ def train_run(cfg, name, pol, steps, smi, totals, *, init, batch_fn, dots,
            "routes_per_step": {k: {r: n / steps for r, n in v.items()}
                                for k, v in routes.items()},
            "card": smi}
-    del params, opt, step_fn, batches
+    if profile:
+        res["profile"] = profile_train_step(fns[pols[-1]], params, opt,
+                                            batches[-1], profile)
+    del params, opt, fns, batches
     gc.collect()
     torch.cuda.empty_cache()
     return res, launches, paths, routes
@@ -5145,6 +5270,323 @@ def phase_frontends(ops, ref, smi, cfgs=None):
     return res, totals
 
 
+# ---------------------------------------------------- recurrent families --
+REC_DEV = "cuda"
+REC_ARCHS = ("hymba-1.5b", "xlstm-350m")
+REC_FAMILIES = ("hybrid", "ssm")
+# 8 requests of 32 to 300 prompt tokens and 32 new tokens each on 4 slots
+# (max_seq 512); request i is submitted at engine step REC_STAGGER * i, so
+# one-shot prefills are admitted while other slots decode.
+REC_PROMPTS = (32, 300, 96, 200, 64, 256, 128, 160)
+REC_NEW, REC_STAGGER = 32, 4
+# Training on 2 x 128 SyntheticLM tokens a step (two scan chunks): two
+# AdamW steps on one state at full width and depth, under sub3 and then
+# fused sub3; one step at depth 2 under the tensor recipe (its events on
+# gam_quant; the QTensor GEMMs of serving take bf16 activations and
+# launch none), then profiled. The scans run a Python
+# step a token a layer (a hymba step took ~22 s, an xlstm step ~42 s at
+# 2 x 256 tokens on an NVIDIA H100 80GB HBM3, 700 W), so the sequence
+# and the step count are cut to fit the script's time, and the profiler
+# (~0.2 ms of host time an event recorded there; ~2.4 x 10^5 kernels a
+# full-depth hymba step) gets the depth-2 step.
+REC_TRAIN = {"batch": 2, "seq": 128}
+REC_POLICIES = ("sub3", "sub3_fused")
+# Depth 2, three ways: a prefill and 4 decode steps after it (each step
+# runs every GEMM three times in the plain version, ~0.1 s each); hymba's
+# prompt of 2560 tokens masks with its 2048 window (xlstm has no window:
+# 512 tokens).
+REC_DEPTH2_PROMPT = {"hybrid": 2560, "ssm": 512}
+REC_DEPTH2_DECODE = 4
+# At full width and depth: bytes per token, recurrent state bytes per
+# slot and weight packs.
+REC_EXACT = {"hymba-1.5b": (40960, 7168000, 193),
+             "xlstm-350m": (0, 50626752, 72)}
+# The recurrent layer types' mor_dot weights, by leaf name.
+REC_GEMM_LEAVES = ("wqkv", "wo", "wi", "w_in", "w_out", "w_up", "w_qkv",
+                   "w_down", "w_x", "w_ff1", "w_ff2")
+
+
+def rec_gemms(cfg):
+    """Mixed GEMMs of one model call with QTensor weights: 6 a hymba
+    layer (qkv, proj, the mixer's in and out, the MLP's two) and its
+    untied head; 6 an xLSTM unit (an mLSTM's up, qkv, down; an sLSTM's
+    wx, ff1, ff2), the tied head not quantized. Also the mor_dots of a
+    training step (less the head). REC_EXACT's count at full depth."""
+    n = 6 * cfg.n_units + (0 if cfg.tie_embed else 1)
+    check(not rec_full(cfg) or n == REC_EXACT[cfg.name][2],
+          f"{cfg.name}: {n} weight matrices")
+    return n
+
+
+def rec_bytes(cfg):
+    """(bytes per token of the paged K/V, recurrent state bytes of one
+    slot) from the config; REC_EXACT's at full depth."""
+    L = cfg.n_units
+    if cfg.family == "hybrid":
+        di, N, cw = cfg.mamba_d_inner, cfg.ssm_state, cfg.conv_width
+        out = (2 * L * cfg.n_kv * cfg.head_dim * 2,
+               L * (di * N * 4 + (cw - 1) * di * 2))
+    else:
+        H, d = cfg.n_heads, cfg.d_model
+        dh = 2 * d // H
+        out = 0, L * (4 * (H * dh * dh + H * dh + H) + 4 * 4 * d)
+    check(not rec_full(cfg) or out == REC_EXACT[cfg.name][:2],
+          f"{cfg.name}: {out}")
+    return out
+
+
+@contextlib.contextmanager
+def scan_host_time(acc):
+    """Adds to ``acc['s']`` the host seconds spent issuing the recurrent
+    scans' chunks (the forward's, and the backward's recomputes under the
+    chunk checkpoint) and to ``acc['steps']`` their time steps: the
+    host's share of a prefill or a training step inside the scans."""
+    from repro_torch.models import common
+    inner = common._scan_chunk
+
+    def timed(f, n, *args):
+        t = time.perf_counter()
+        out = inner(f, n, *args)
+        acc["s"] += time.perf_counter() - t
+        acc["steps"] += args[n].shape[0]
+        return out
+    with patched(common, "_scan_chunk", timed):
+        yield acc
+
+
+def rec_requests(vocab):
+    from repro_torch.serve import Request
+    rng = np.random.default_rng(0)
+    return [Request(i, rng.integers(0, vocab, L).astype(np.int32),
+                    max_tokens=REC_NEW) for i, L in enumerate(REC_PROMPTS)]
+
+
+def rec_full(cfg):
+    """Whether ``cfg`` is the registry's own (full width and depth)."""
+    from repro_torch.configs import get_config
+    return cfg.name in REC_EXACT and cfg == get_config(cfg.name)
+
+
+def rec_check_weights(cfg, row):
+    """The Engine's sub3 tree of a recurrent family: one pack a GEMM
+    weight (hymba's K and N of 1600 / 2240 end in padded blocks), the
+    mixers' plain leaves dense."""
+    w = row["weights"]
+    check(len(w) == (7 if cfg.family == "hybrid" else 6)
+          and all(k == "lm_head" or k.rsplit("/", 1)[-1] in REC_GEMM_LEAVES
+                  for k in w), f"{row['run']}: quantized leaves {w}")
+
+
+def rec_train(cfg, name, policies, smi, totals, profile=None, seed=0):
+    """``train_run`` of a recurrent family from init_params: one AdamW
+    step under each of ``policies`` (train_policies' names) on one state,
+    REC_TRAIN's SyntheticLM batches, 6 mor_dots a hymba layer or an
+    xLSTM unit, every event on the tile route, every fused GEMM on the tc
+    path; each step's row also holds the host ms inside its scans."""
+    from repro_torch.models import init_params
+    pols = train_policies()
+    scan = {"s": 0.0, "steps": 0}
+
+    def on_step(s, params, m, row):
+        row.update(policy=policies[s], scan_host_ms=scan["s"] * 1e3,
+                   scan_steps=scan["steps"],
+                   scan_host_share=scan["s"] * 1e3 / row["step_ms"])
+        scan.update(s=0.0, steps=0)
+
+    res, launches, paths, routes = train_run(
+        cfg, name, [pols[p] for p in policies], len(policies), smi, totals,
+        init=lambda: init_params(cfg, seed=seed, device=REC_DEV),
+        batch_fn=lambda s: train_batch(cfg, s, REC_TRAIN["batch"],
+                                       REC_TRAIN["seq"], REC_DEV),
+        dots=6 * cfg.n_units, line="recurrent_train_step", on_step=on_step,
+        ctx=scan_host_time(scan), profile=profile)
+    check_tile_route(routes, launches, name)
+    check(paths["tc"] == launches["mixed_gemm"],
+          f"{name}: fused GEMMs off the tc path: {paths}")
+    res.update(policies=list(policies), launches=launches,
+               mixed_gemm_paths=paths)
+    return res
+
+
+def rec_train_depth2(cfg, ops, ref, smi):
+    """``train_depth2`` at full width and depth 2 (hymba: 2 layers;
+    xLSTM: one unit) on the main path's batch under the tensor recipe
+    (its events on gam_quant) and sub3: kernel path against plain path;
+    fused sub3 with every forward, dgrad and wgrad GEMM held against the
+    plain version."""
+    from repro_torch.models import init_params
+    c2 = dataclasses.replace(cfg, n_layers=2)
+    params = init_params(c2, seed=1, device=REC_DEV)
+    batch = train_batch(c2, 0, REC_TRAIN["batch"], REC_TRAIN["seq"],
+                        REC_DEV)
+    gemm_w = {k: v for k, v in flat_tree(params["blocks"]).items()
+              if k.rsplit("/", 1)[-1] in REC_GEMM_LEAVES}
+    want = fused_gemm_shapes(gemm_w,
+                             REC_TRAIN["batch"] * REC_TRAIN["seq"])
+    res = train_depth2(c2, ops, ref, params, batch, ("tensor", "sub3"),
+                       want, 6 * c2.n_units, f"{cfg.name} train depth-2")
+    res.update(layers=c2.n_layers, card=smi)
+    del params, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def packs_equal(qk, qp, what):
+    """Every QTensor leaf of a tree quantized on the kernels (``qk``)
+    against the plain version's (``qp``): each lane bit for bit, the
+    stats rows as ``compare_rows``'s. Returns the number of weight
+    matrices held (a stacked leaf's layers each)."""
+    from repro_torch.serve.quantized import _LANES, QTensor
+    fk, fp = flat_tree(qk), flat_tree(qp)
+    check(fk.keys() == fp.keys(), f"{what}: leaves differ")
+    n = 0
+    for key, a in fk.items():
+        b = fp[key]
+        check(isinstance(a, QTensor) == isinstance(b, QTensor),
+              f"{what} {key}: quantized on one path only")
+        if not isinstance(a, QTensor):
+            continue
+        for lane in _LANES:
+            la, lb = getattr(a.mo, lane), getattr(b.mo, lane)
+            check(la.shape == lb.shape and torch.equal(raw(la), raw(lb)),
+                  f"{what} {key}: lane {lane} differs from the plain version")
+        compare_rows({key: a.stats}, {key: b.stats}, f"{what} {key} stats")
+        n += a.mo.tags.shape[0] if a.is_stacked else 1
+    return n
+
+
+def rec_cache(cfg, pc, T):
+    """A decode cache of T positions (batch 1) holding a prefill cache
+    ``pc``: its K/V at the first positions, its recurrent state whole."""
+    from repro_torch.models import init_cache
+    from repro_torch.serve.paged import leaf_paths
+    cache = init_cache(cfg, 1, T, device=REC_DEV)
+    got = dict(leaf_paths(pc))
+    for key, leaf in leaf_paths(cache):
+        if key.rsplit("/", 1)[-1] in ("k", "v"):
+            leaf[:, :, :got[key].shape[2]] = got[key]
+        else:
+            leaf.copy_(got[key])
+    return cache
+
+
+def rec_depth2(cfg, ops, ref, smi):
+    """At full width and depth 2, sub3 weights, every pack held against
+    the plain version's (``packs_equal``): a make_prefill_fn of
+    REC_DEPTH2_PROMPT tokens (hymba: its 2048-token window masking) and
+    REC_DEPTH2_DECODE decode steps from its cache on tokens drawn from a
+    seed, three ways (``depth2_three_ways``)."""
+    from repro_torch.core.policy import MoRDotPolicy, MoRPolicy
+    from repro_torch.models import (init_params, make_decode_fn,
+                                    make_prefill_fn)
+    from repro_torch.serve.quantized import quantize_params
+    c2 = dataclasses.replace(cfg, n_layers=2)
+    dense = init_params(c2, seed=1, device=REC_DEV)
+    pol = MoRPolicy(recipe="sub3")
+    params, _ = quantize_params(dense, pol)
+    packs = packs_equal(params, quantize_params(
+        dense, pol.replace(backend="torch"))[0], f"{cfg.name} depth-2")
+    check(packs == rec_gemms(c2), f"{cfg.name} depth-2: {packs} packs")
+    del dense
+    P, n = REC_DEPTH2_PROMPT[cfg.family], REC_DEPTH2_DECODE
+    rng = np.random.default_rng(3)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (1, P))).to(
+        REC_DEV)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab, (n, 1, 1))).to(
+        REC_DEV)
+
+    def run_path(backend, _way):
+        pol = MoRDotPolicy(weight=MoRPolicy(backend=backend))
+        l1, pc, _ = make_prefill_fn(c2, pol)(params, {"tokens": prompt})
+        cache = rec_cache(c2, pc, P + n)
+        decode = make_decode_fn(c2, pol)
+        outs = []
+        for i in range(n):
+            l2, cache, _ = decode(params, cache, toks[i], torch.full(
+                (1,), P + i, device=REC_DEV))
+            outs.append(l2[..., :cfg.vocab])
+        return l1[..., :cfg.vocab], torch.cat(outs, dim=1)
+
+    res, gemms = depth2_three_ways(run_path, ops, ref,
+                                   f"{cfg.name} depth-2",
+                                   ("prefill", "decode"))
+    n_q = rec_gemms(c2)
+    calls = sum(v["calls"] for v in gemms.values())
+    at_p = sum(v["calls"] for k, v in gemms.items() if k[0] == P)
+    check(calls == n_q * (1 + n) and at_p == n_q,
+          f"{cfg.name} depth-2: {calls} GEMMs, {at_p} at M = {P}: "
+          f"{sorted(gemms)}")
+    res.update(prompt=P, decode_steps=n, window=cfg.window,
+               packs_equal_plain=packs, card=smi)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def phase_recurrent(ops, ref, smi, cfgs=None):
+    """The recurrent families, serving and training (module docstring,
+    item 14). ``cfgs``: {arch: config} overrides (a CPU rehearsal passes
+    reduced ones). Returns (the recurrent line, the Totals of its
+    main-path runs)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    t_phase = time.perf_counter()
+    cfgs = cfgs or {}
+    totals = Totals()
+    res = {"card": smi}
+    for arch in REC_ARCHS:
+        cfg = cfgs.get(arch) or get_config(arch)
+        key = arch.split("-")[0]
+        r = res[key] = {}
+        t0 = time.perf_counter()
+        params = init_params(cfg, seed=0, device=REC_DEV)
+        r["serve"], _ = zoo_serve(cfg, params, f"{key}_serve", {},
+                                  rec_requests(cfg.vocab), smi, totals,
+                                  stagger=REC_STAGGER,
+                                  line="recurrent_serve")
+        rec_check_weights(cfg, r["serve"])
+        del params
+        parts = {"serve": time.perf_counter() - t0}
+        t = time.perf_counter()
+        r["train"] = rec_train(cfg, f"{key}_train", REC_POLICIES, smi,
+                               totals)
+        parts["train"] = time.perf_counter() - t
+        t = time.perf_counter()
+        r["train"]["tensor_depth2"] = rec_train(
+            dataclasses.replace(cfg, n_layers=2), f"{key}_depth2_tensor",
+            ("tensor",), smi, totals, profile="gam_quant", seed=1)
+        parts["train_tensor_depth2"] = time.perf_counter() - t
+        t = time.perf_counter()
+        r["depth2"] = rec_depth2(cfg, ops, ref, smi)
+        parts["depth2"] = time.perf_counter() - t
+        t = time.perf_counter()
+        r["train_depth2"] = rec_train_depth2(cfg, ops, ref, smi)
+        parts["train_depth2"] = time.perf_counter() - t
+        r["parts_s"] = parts
+        r["config"] = {"layers": cfg.n_layers, "unit": list(cfg.unit),
+                       "d_model": cfg.d_model, "n_heads": cfg.n_heads,
+                       "n_kv": cfg.n_kv, "head_dim": cfg.head_dim,
+                       "d_ff": cfg.d_ff, "d_inner": cfg.mamba_d_inner,
+                       "ssm_state": cfg.ssm_state, "window": cfg.window,
+                       "vocab": cfg.vocab, "params": cfg.param_count()}
+        r["s"] = time.perf_counter() - t0
+        gc.collect()
+        torch.cuda.empty_cache()
+    for kern in ("mor_select_pack", "mor_select_select", "gam_quant",
+                 "mixed_gemm"):
+        check(totals.launches[kern] > 0,
+              f"recurrent: {kern} launched no time on its path")
+    check(totals.paths["stream"] > 0 and totals.paths["tc"] > 0,
+          f"recurrent: GEMM paths {totals.paths}")
+    res["launches"] = totals.launches
+    res["gemm_paths"] = totals.paths
+    res["routes"] = totals.routes
+    res["phase_s"] = time.perf_counter() - t_phase
+    return res, totals
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5210,6 +5652,10 @@ def main():
     emit({"frontends": front})
     gc.collect()
     torch.cuda.empty_cache()
+    rec, rec_totals = phase_recurrent(ops, ref, smi)
+    emit({"recurrent": rec})
+    gc.collect()
+    torch.cuda.empty_cache()
     depth2 = phase_depth2(cfg, ops, ref)
     serve_grad = phase_serve_grad()
     train, train_launches, train_paths, train_routes = phase_train(cfg)
@@ -5245,6 +5691,7 @@ def main():
                    "serve_tiers": serve_totals.launches[name],
                    "model_zoo": zoo_totals.launches[name],
                    "frontends": front_totals.launches[name],
+                   "recurrent": rec_totals.launches[name],
                    "train": train_launches[name],
                    "train_state": state_launches[name],
                    "generic_smem": generic_launches[name],
@@ -5267,8 +5714,9 @@ def main():
             entry["launches_by_gemm_path"] = {
                 k: engine_paths[k] + serve_totals.paths[k] + train_paths[k]
                 + ft_paths[k] + zoo_totals.paths[k] + front_totals.paths[k]
-                for k in ("stream", "tc")}
+                + rec_totals.paths[k] for k in ("stream", "tc")}
             entry["serve_tiers_gemm_paths"] = serve_totals.paths
+            entry["recurrent_gemm_paths"] = rec_totals.paths
             entry["parity_max_err_over_tol"] = gemm_parity
             entry["train_shapes"] = {g: timing[f"mixed_gemm_{g}"]
                                      for g in ("fwd", "dgrad", "wgrad")}
@@ -5283,6 +5731,7 @@ def main():
                 r: engine_routes[name][r] + serve_totals.routes[name][r]
                 + zoo_totals.routes[name][r]
                 + front_totals.routes[name][r]
+                + rec_totals.routes[name][r]
                 + train_routes[name][r] + state_routes[name][r]
                 + generic_routes[name][r] + ft_routes[name][r]
                 for r in ("tile", "generic")}

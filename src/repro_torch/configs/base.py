@@ -111,11 +111,11 @@ class ArchConfig:
 
 _REGISTRY: Dict[str, ArchConfig] = {}
 
-# Configs ported so far; the JAX registry holds eleven (hymba-1.5b and
-# xlstm-350m wait for the recurrent blocks).
+# Every config of the reference's registry.
 _ARCH_MODULES = ["llama3_8b", "nemotron3_8b", "minitron_4b",
                  "deepseek_coder_33b", "gemma_2b", "granite_moe_1b_a400m",
-                 "moonshot_v1_16b_a3b", "paligemma_3b", "whisper_tiny"]
+                 "moonshot_v1_16b_a3b", "paligemma_3b", "whisper_tiny",
+                 "hymba_1_5b", "xlstm_350m"]
 
 
 def register(cfg: ArchConfig) -> ArchConfig:

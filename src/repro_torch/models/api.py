@@ -89,7 +89,8 @@ def make_prefill_fn(cfg: ArchConfig, policy: MoRDotPolicy):
     ``cache`` is every layer's bf16 K/V (``{type: {"k", "v": (n_units,
     B, P, Hkv, dh)}}``, P = S, or img_tokens + S for the vlm family;
     whisper's ``wdec`` layers add the cross-attention's ``xk`` / ``xv``
-    (n_units, B, enc_seq, Hkv, dh)), ready for ``PagedKVPool.splice``
+    (n_units, B, enc_seq, Hkv, dh); a recurrent layer its final state,
+    hymba's under ``ssm``), ready for ``PagedKVPool.splice``
     or a decode cache. The reference's stats-token argument has no
     counterpart (no backward in serving)."""
 

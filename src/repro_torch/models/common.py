@@ -1,20 +1,21 @@
-"""Shared model building blocks: norms, RoPE, activations, chunk sizes
-and sinusoidal positions (port of ``repro.models.common``, with the
-reference transformer's per-position ``_sinusoidal_at``; the mesh
-constraints and scans have no counterpart in an eager single-device
-port)."""
+"""Shared model building blocks: norms, RoPE, activations, chunk sizes,
+the chunked scan of the recurrent mixers and sinusoidal positions (port
+of ``repro.models.common``, with the reference transformer's
+per-position ``_sinusoidal_at``; the mesh constraints have no
+counterpart in an eager single-device port)."""
 from __future__ import annotations
 
 import math
 from typing import Callable
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.formats import true_divide
 
 __all__ = ["rms_norm", "layer_norm", "rope_freqs", "apply_rope",
            "sinusoidal_positions", "sinusoidal_at", "activation",
-           "glu_split", "pick_chunk"]
+           "glu_split", "pick_chunk", "chunked_scan"]
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6):
@@ -158,3 +159,43 @@ def pick_chunk(n: int, target: int) -> int:
     while n % c:
         c -= 1
     return c
+
+
+def _scan_chunk(f, n_carry, *args):
+    """``f`` over the steps of one chunk: args are the carry's tensors,
+    then the chunk's inputs (leading axis = steps). Returns the final
+    carry's tensors and the stacked per-step outputs."""
+    carry, xs = tuple(args[:n_carry]), args[n_carry:]
+    ys = []
+    for x_t in zip(*(x.unbind(0) for x in xs)):
+        carry, y = f(carry, x_t)
+        ys.append(y)
+    return (*carry, torch.stack(ys))
+
+
+def chunked_scan(f: Callable, init, xs, length: int, chunk: int,
+                 remat: bool = False):
+    """The reference's ``lax.scan`` over ``length`` steps in outer chunks
+    of ``pick_chunk(length, chunk)`` steps (a prime length above
+    ``chunk`` falls to chunks of 1, as there).
+
+    ``f(carry, x_t) -> (carry, y_t)``; ``init`` is a tuple of tensors,
+    ``xs`` a tuple of tensors with leading axis ``length``, ``y_t`` one
+    tensor. Returns (final carry, ys stacked on a leading ``length``
+    axis). With ``remat`` (train mode) each chunk runs under
+    ``torch.utils.checkpoint`` (non-reentrant), as the reference's inner
+    ``jax.checkpoint``: the backward keeps only the chunk-boundary
+    carries and recomputes one chunk's steps at a time."""
+    chunk = pick_chunk(length, chunk)
+    carry, n = tuple(init), len(init)
+    ys = []
+    for c0 in range(0, length, chunk):
+        xs_c = tuple(x[c0:c0 + chunk] for x in xs)
+        if remat:
+            out = checkpoint(_scan_chunk, f, n, *carry, *xs_c,
+                             use_reentrant=False)
+        else:
+            out = _scan_chunk(f, n, *carry, *xs_c)
+        carry = tuple(out[:n])
+        ys.append(out[n])
+    return carry, torch.cat(ys)

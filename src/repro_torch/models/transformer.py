@@ -1,10 +1,12 @@
-"""Model assembly for the dense, MoE, vlm and audio families (port of the
-train, prefill and decode paths of ``repro.models.transformer``).
+"""Model assembly for every family of the reference: dense, MoE, vlm,
+audio, hybrid (hymba) and ssm (xLSTM) (port of the train, prefill and
+decode paths of ``repro.models.transformer``).
 
 Parameters are nested dicts with the reference's key paths
 (``blocks/dense/wqkv``, ``blocks/dense/mlp/wi``, ``blocks/moe/moe/w1``,
 ``blocks/moe/moe/router``, ``blocks/wdec/xwkv``, ``enc/blocks/wqkv``,
-``lm_head``, ``embed``, ``blocks/dense/ln1/scale``, ...) keyed by the
+``lm_head``, ``embed``, ``blocks/dense/ln1/scale``,
+``blocks/hymba/ssm/w_in``, ``blocks/mlstm/w_qkv``, ...) keyed by the
 unit's layer types; per-layer leaves are stacked on a leading layer axis
 (an MoE layer's experts on the next one). Embeddings are padded to a
 multiple of 128 rows and the padded logit columns are masked to -1e30.
@@ -22,6 +24,14 @@ cache, whose positions count the image tokens. The audio family
 self-attention and cross-attention on the encoder output, whose K/V
 (``xk`` / ``xv``) the prefill cache holds. It serves on the bf16 KV tier
 only (:func:`cache_specs`).
+
+The recurrent families (``models.recurrent``): a ``hymba`` layer runs
+sliding-window attention (``cfg.window``, in every mode) and the mamba
+mixer in parallel on the same normed input; its cache holds the K/V
+lanes and the mixer's state under ``ssm`` (``hymba/ssm/h``,
+``hymba/ssm/conv``), and it serves on the bf16 KV tier only. xLSTM's
+unit is an ``mlstm`` and an ``slstm`` layer, whose caches are their
+recurrent state alone (no K/V lanes, so the KV tiers change nothing).
 """
 from __future__ import annotations
 
@@ -38,19 +48,19 @@ from repro_torch.core.policy import MoRDotPolicy
 from repro_torch.kernels import ops as kops
 
 from . import blocks as B
+from . import recurrent as R
 from .attention import flash_attention
 from .common import sinusoidal_at, sinusoidal_positions
 
 __all__ = ["init_params", "make_tokens", "cache_specs", "init_cache",
            "forward", "padded_vocab", "resolve_device"]
 
-# The reference modules the families not ported yet wait for.
-_UNPORTED = {
-    "ssm": "repro.models.recurrent (mlstm / slstm)",
-    "hybrid": "repro.models.recurrent (the hymba mamba mixer)",
-}
 _DENSE_NAMES = ("qkv", "proj", "fc1", "fc2")
 _WDEC_NAMES = ("qkv", "proj", "xq", "xkv", "xproj", "fc1", "fc2")
+# The GEMMs of each layer type (its tokens and stats rows).
+_GEMM_NAMES = {"dense": _DENSE_NAMES, "wdec": _WDEC_NAMES,
+               "hymba": ("qkv", "proj", "ssm_in", "ssm_out", "fc1", "fc2"),
+               "mlstm": ("up", "qkv", "down"), "slstm": ("wx", "ff1", "ff2")}
 
 
 def padded_vocab(cfg: ArchConfig) -> int:
@@ -59,19 +69,12 @@ def padded_vocab(cfg: ArchConfig) -> int:
 
 def _unit_types(cfg: ArchConfig) -> Tuple[str, ...]:
     """The layer types of one unit (the audio family's decoder layers are
-    ``wdec``); a family that is not ported raises, naming the reference
-    code it waits for."""
-    if cfg.family in _UNPORTED:
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet: it needs "
-            f"{_UNPORTED[cfg.family]}")
+    ``wdec``); an unknown type raises, as in the reference."""
     if cfg.family == "audio":
         return ("wdec",)
     for t in cfg.unit:
         if t not in _BLOCK_FN:
-            raise NotImplementedError(
-                f"layer type {t!r} is not ported yet (repro.models."
-                "recurrent)")
+            raise ValueError(t)
     return tuple(cfg.unit)
 
 
@@ -114,7 +117,51 @@ def init_params(cfg: ArchConfig, seed: int = 0,
             p["bias"] = torch.zeros((*lead, d), device=dev)
         return p
 
+    def f32_of_bf16(L, shape, std):
+        # The reference's _lin(...).astype(f32): bf16 values, f32 dtype.
+        return stacked(L, shape, std).to(torch.float32)
+
+    def mamba(L):
+        di, N, cw = cfg.mamba_d_inner, cfg.ssm_state, cfg.conv_width
+        r = max(1, d // 16)
+        a_log = torch.log(torch.arange(1, N + 1, dtype=torch.float32,
+                                       device=dev))
+        return {"w_in": stacked(L, (d, 2 * di), 0.02),
+                "conv_w": stacked(L, (cw, di), 0.02, torch.float32),
+                "w_bc": f32_of_bf16(L, (di, 2 * N), 0.02),
+                "w_dt_down": f32_of_bf16(L, (di, r), 0.02),
+                "w_dt_up": f32_of_bf16(L, (r, di), 0.02),
+                # softplus^-1(0.01)
+                "dt_bias": torch.full((L, di), -4.6, device=dev),
+                "A_log": a_log.expand(L, di, N).contiguous(),
+                "D": torch.ones((L, di), device=dev),
+                "w_out": stacked(L, (di, d), depth_std)}
+
+    def mlstm(L):
+        di, H = 2 * d, cfg.n_heads
+        bias = torch.cat([torch.zeros(H, device=dev),
+                          torch.full((H,), 3.0, device=dev)])
+        return {"ln1": norm_p(L), "w_up": stacked(L, (d, 2 * di), 0.02),
+                "w_qkv": stacked(L, (di, 3 * di), 0.02),
+                "w_gate": stacked(L, (di, 2 * H), 0.02),
+                "gate_bias": bias.expand(L, 2 * H).contiguous(),
+                "out_norm": torch.zeros((L, di), device=dev),
+                "w_down": stacked(L, (di, d), depth_std)}
+
+    def slstm(L):
+        H = cfg.n_heads
+        dh, ff = d // H, -(-int(d * 4 / 3) // 64) * 64
+        return {"ln1": norm_p(L), "w_x": stacked(L, (d, 4 * d), 0.02),
+                "r": stacked(L, (H, dh, 4 * dh), 0.02),
+                "out_norm": torch.zeros((L, d), device=dev),
+                "w_ff1": stacked(L, (d, 2 * ff), 0.02),
+                "w_ff2": stacked(L, (ff, d), depth_std)}
+
     def layer(t, L):
+        if t == "mlstm":
+            return mlstm(L)
+        if t == "slstm":
+            return slstm(L)
         p = {"wqkv": stacked(L, (d, (hq + 2 * hkv) * hd), 0.02),
              "wo": stacked(L, (hq * hd, d), depth_std)}
         if t == "wdec":
@@ -130,6 +177,8 @@ def init_params(cfg: ArchConfig, seed: int = 0,
         else:
             p["mlp"] = {"wi": stacked(L, (d, _ffin(cfg, f)), 0.02),
                         "wo": stacked(L, (f, d), depth_std)}
+        if t == "hymba":
+            p["ssm"] = mamba(L)
         p["ln1"] = norm_p(L)
         p["ln2"] = norm_p(L)
         return p
@@ -152,7 +201,7 @@ def _layer_tokens(t: str, cfg: ArchConfig):
     if t == "moe":
         per_expert = (cfg.n_experts, *one)
         return {"qkv": one, "proj": one, "w1": per_expert, "w2": per_expert}
-    return {n: one for n in (_WDEC_NAMES if t == "wdec" else _DENSE_NAMES)}
+    return {n: one for n in _GEMM_NAMES[t]}
 
 
 def make_tokens(cfg: ArchConfig, device="cuda"):
@@ -183,7 +232,11 @@ def cache_specs(cfg: ArchConfig, batch: int, seq: int,
     uint8 tags and f32 GAM scales (the reference's lanes and dtypes). The
     dense and MoE layer types hold the same lanes; a ``wdec`` layer adds
     the cross-attention's bf16 ``xk`` / ``xv`` (L, batch, enc_seq, hkv,
-    hd) and takes the bf16 tier only (:func:`_refuse_kv_tier`)."""
+    hd) and takes the bf16 tier only (:func:`_refuse_kv_tier`), as does a
+    ``hymba`` layer, whose ``ssm`` holds the mamba state (``h`` (L, batch,
+    di, N) f32, ``conv`` (L, batch, cw - 1, di) bf16). The ``mlstm`` and
+    ``slstm`` layers hold their f32 state alone (``C`` / ``n`` / ``m``;
+    ``h`` / ``c`` / ``n`` / ``m``), on every tier."""
     types = _unit_types(cfg)
     if kv_fp8 and kv_mor:
         raise ValueError("kv_fp8 and kv_mor are mutually exclusive")
@@ -204,36 +257,60 @@ def cache_specs(cfg: ArchConfig, batch: int, seq: int,
                   "v_scale": (row, torch.float32)}
     else:
         leaves = {"k": (kv, torch.bfloat16), "v": (kv, torch.bfloat16)}
-    out = {t: dict(leaves) for t in types}
+    f32 = torch.float32
+    out = {}
+    for t in types:
+        if t == "mlstm":
+            H, dh = cfg.n_heads, 2 * cfg.d_model // cfg.n_heads
+            out[t] = {"C": ((L, batch, H, dh, dh), f32),
+                      "n": ((L, batch, H, dh), f32),
+                      "m": ((L, batch, H), f32)}
+        elif t == "slstm":
+            out[t] = {n: ((L, batch, cfg.d_model), f32)
+                      for n in ("h", "c", "n", "m")}
+        else:
+            out[t] = dict(leaves)
     if "wdec" in out:
         x = ((L, batch, cfg.enc_seq, hkv, hd), torch.bfloat16)
         out["wdec"].update(xk=x, xv=x)
+    if "hymba" in out:
+        di, cw = cfg.mamba_d_inner, cfg.conv_width
+        out["hymba"]["ssm"] = {
+            "h": ((L, batch, di, cfg.ssm_state), f32),
+            "conv": ((L, batch, cw - 1, di), torch.bfloat16)}
     return out
 
 
+_KV_BF16_ONLY = {"audio": "_wdec_block", "hybrid": "_hymba_block"}
+
+
 def _refuse_kv_tier(cfg: ArchConfig, tier: str):
-    """The audio family serves on the bf16 KV tier only. The reference's
-    ``_wdec_block`` hands ``attn_sublayer`` only the cache's ``k`` / ``v``
-    lanes, so under ``kv_fp8`` / ``kv_mor`` its fp8 and MoR branches never
-    run: K/V are cast into the payload buffers with no scale and the scale
-    and tag lanes are dropped from the returned cache
-    (``repro.models.transformer._wdec_block``)."""
-    if cfg.family == "audio":
+    """The audio and hybrid families serve on the bf16 KV tier only. The
+    reference's ``_wdec_block`` and ``_hymba_block`` hand
+    ``attn_sublayer`` only the cache's ``k`` / ``v`` lanes, so under
+    ``kv_fp8`` / ``kv_mor`` its fp8 and MoR branches never run: K/V are
+    cast into the payload buffers with no scale and the scale and tag
+    lanes are dropped from the returned cache."""
+    block = _KV_BF16_ONLY.get(cfg.family)
+    if block is not None:
         raise ValueError(
-            f"{tier} is not supported for family 'audio' ({cfg.name}): "
-            "repro.models.transformer._wdec_block passes only the k / v "
-            "lanes to the self-attention, so the reference drops the "
-            "scale and tag lanes of a quantized KV tier; serve it on the "
-            "bf16 tier")
+            f"{tier} is not supported for family {cfg.family!r} "
+            f"({cfg.name}): repro.models.transformer.{block} passes only "
+            "the k / v lanes to the self-attention, so the reference "
+            "drops the scale and tag lanes of a quantized KV tier; serve "
+            "it on the bf16 tier")
 
 
 def init_cache(cfg: ArchConfig, batch: int, seq: int, kv_fp8: bool = False,
                kv_mor: bool = False, device="cuda"):
     dev = resolve_device(device)
-    return {t: {k: torch.zeros(s, dtype=dt, device=dev)
-                for k, (s, dt) in leaves.items()}
-            for t, leaves in cache_specs(cfg, batch, seq, kv_fp8,
-                                         kv_mor).items()}
+
+    def zeros(spec):
+        if isinstance(spec, dict):
+            return {k: zeros(v) for k, v in spec.items()}
+        shape, dt = spec
+        return torch.zeros(shape, dtype=dt, device=dev)
+    return zeros(cache_specs(cfg, batch, seq, kv_fp8, kv_mor))
 
 
 def _is_quantized(w) -> bool:
@@ -242,7 +319,8 @@ def _is_quantized(w) -> bool:
 
 
 def _layer(tree, l: int):
-    """Layer ``l`` of a stacked params tree (QTensors slice their lanes)."""
+    """Layer ``l`` of a stacked params or cache tree (views; QTensors
+    slice their lanes)."""
     out = {}
     for k, v in tree.items():
         if isinstance(v, dict):
@@ -295,8 +373,44 @@ def _wdec_block(p, x, tok, policy, cfg, mode, cache, cur_index,
                           "xproj": st_xo, **st_m}
 
 
+def _hymba_block(p, x, tok, policy, cfg, mode, cache, cur_index,
+                 **attn_kw):
+    """Hymba layer: sliding-window attention and the mamba mixer in
+    parallel on the same normed input, both added to the residual, then
+    the MLP. The cache's K/V lanes go to the attention, its ``ssm``
+    state to the mixer."""
+    xn = B.norm(p["ln1"], x, cfg)
+    kv_cache = (None if cache is None else
+                {"k": cache["k"], "v": cache["v"]})
+    a, new_kv, st_a = B.attn_sublayer(p, xn, tok, policy, cfg, mode,
+                                      kv_cache, cur_index, **attn_kw)
+    s, new_ssm, st_s = R.mamba_mix(p["ssm"], xn, tok, policy, cfg, mode,
+                                   None if cache is None else cache["ssm"])
+    x = x + a + s
+    xn2 = B.norm(p["ln2"], x, cfg)
+    m, st_m = B.mlp_sublayer(p["mlp"], xn2, tok, policy, cfg)
+    x = x + m
+    new_cache = None if new_kv is None else {**new_kv, "ssm": new_ssm}
+    return x, new_cache, {**st_a, **st_s, **st_m}
+
+
+def _mlstm_block(p, x, tok, policy, cfg, mode, cache, cur_index,
+                 **attn_kw):
+    xn = B.norm(p["ln1"], x, cfg)
+    y, new_cache, st = R.mlstm_mix(p, xn, tok, policy, cfg, mode, cache)
+    return x + y, new_cache, st
+
+
+def _slstm_block(p, x, tok, policy, cfg, mode, cache, cur_index,
+                 **attn_kw):
+    xn = B.norm(p["ln1"], x, cfg)
+    y, new_cache, st = R.slstm_mix(p, xn, tok, policy, cfg, mode, cache)
+    return x + y, new_cache, st
+
+
 _BLOCK_FN = {"dense": B.dense_block, "moe": B.moe_block,
-             "wdec": _wdec_block}
+             "wdec": _wdec_block, "hymba": _hymba_block,
+             "mlstm": _mlstm_block, "slstm": _slstm_block}
 
 
 def _block_kw(t, attn_kw, enc_out):
@@ -317,10 +431,13 @@ def _train_layer(remat, *args):
     return _layer_fn(*args)
 
 
-def _stack_rows(rows):
-    """Every stats leaf of a list of per-layer dicts, stacked over layers
-    (an MoE layer's scalar aux_loss / dropped become (n_units,))."""
-    return {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
+def _stack_tree(trees):
+    """Per-layer trees (cache lanes, stats rows) stacked over layers,
+    leaf by leaf (an MoE layer's scalar aux_loss / dropped become
+    (n_units,))."""
+    if isinstance(trees[0], dict):
+        return {k: _stack_tree([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
 
 
 def _encode(cfg, policy, params, tokens, frames, dtype, remat):
@@ -342,7 +459,7 @@ def _encode(cfg, policy, params, tokens, frames, dtype, remat):
                              None)
         rows.append(st)
     return (B.norm(params["enc"]["final_norm"], e, cfg),
-            {"dense": _stack_rows(rows)})
+            {"dense": _stack_tree(rows)})
 
 
 class HeadMatmul(torch.autograd.Function):
@@ -410,14 +527,17 @@ def forward(cfg: ArchConfig, policy: MoRDotPolicy, params, batch, *,
     the forward stats returned are those of the first run.
 
     Prefill mode: ``batch['tokens']`` (B, S), causal over the whole
-    sequence with no cache input; the returned cache is every layer's
-    bf16 K/V, ``{type: {"k", "v": (n_units, B, P, Hkv, dh)}}`` (a
-    ``wdec`` layer's also ``xk`` / ``xv``).
+    sequence (hymba: sliding-window) with no cache input; the returned
+    cache is every layer's bf16 K/V, ``{type: {"k", "v": (n_units, B, P,
+    Hkv, dh)}}`` (a ``wdec`` layer's also ``xk`` / ``xv``), and a
+    recurrent layer's final state (hymba's under ``ssm``).
 
     Decode mode: ``batch['token']`` (B, S) against ``cache`` -- S == 1
     for a decode step, S > 1 for a prefill chunk -- with ``cur_index``
     (scalar or (B,)) the position of each row's last incoming token.
-    The cache is updated in place and returned.
+    The cache is updated in place and returned: the K/V lanes at the
+    incoming positions, a recurrent layer's state wholesale (the
+    recurrent mixers take S == 1).
 
     Frontends (train and prefill): the vlm family takes
     ``batch['patches']`` (B, img_tokens, d) before the tokens (P = B's
@@ -430,9 +550,11 @@ def forward(cfg: ArchConfig, policy: MoRDotPolicy, params, batch, *,
     types = _unit_types(cfg)
     if mode not in ("train", "prefill", "decode"):
         raise ValueError(f"mode {mode!r}")
-    if mode == "decode" and "k_scale" in cache.get("wdec", {}):
-        _refuse_kv_tier(cfg, "kv_mor" if "k_tags" in cache["wdec"]
-                        else "kv_fp8")
+    if mode == "decode":
+        for t in ("wdec", "hymba"):
+            if "k_scale" in cache.get(t, {}):
+                _refuse_kv_tier(cfg, "kv_mor" if "k_tags" in cache[t]
+                                else "kv_fp8")
     ids = batch["token"] if mode == "decode" else batch["tokens"]
     x = params["embed"][ids]
     if cfg.family in ("dense", "vlm") and cfg.tie_embed:
@@ -444,6 +566,9 @@ def forward(cfg: ArchConfig, policy: MoRDotPolicy, params, batch, *,
     if cfg.family == "vlm" and mode != "decode":
         x = torch.cat([batch["patches"].to(x.dtype), x], dim=1)
         attn_kw = {"kind": "prefix", "prefix_len": cfg.img_tokens}
+    if cfg.family == "hybrid" and cfg.window:
+        # Hymba: sliding-window attention beside the global SSM state.
+        attn_kw = {"kind": "sliding", "window": cfg.window}
     if cfg.family == "audio":
         if mode == "decode":
             # The S incoming tokens sit at cur - (S-1) .. cur of each row.
@@ -471,17 +596,15 @@ def forward(cfg: ArchConfig, policy: MoRDotPolicy, params, batch, *,
                 x, st = _train_layer(remat, t, p_l, x, tok_l, policy, cfg,
                                      attn_kw, enc_out)
             else:
-                c_l = (None if mode == "prefill" else
-                       {k: v[l] for k, v in cache[t].items()})
+                c_l = None if mode == "prefill" else _layer(cache[t], l)
                 x, kv, st = _BLOCK_FN[t](p_l, x, tok_l, policy, cfg, mode,
                                          c_l, cur_index,
                                          **_block_kw(t, attn_kw, enc_out))
                 kvs[t].append(kv)
             rows[t].append(st)
     if mode == "prefill":
-        cache = {t: {k: torch.stack([kv[k] for kv in kvs[t]])
-                     for k in kvs[t][0]} for t in types}
-    stats["blocks"] = {t: _stack_rows(rows[t]) for t in types}
+        cache = {t: _stack_tree(kvs[t]) for t in types}
+    stats["blocks"] = {t: _stack_tree(rows[t]) for t in types}
 
     x = B.norm(params["final_norm"], x, cfg)
     head = params["embed"].T if cfg.tie_embed else params["lm_head"]

@@ -231,14 +231,13 @@ def inject_stale_amax(amax, seed: int = 0, shrink: float = 8.0):
     "other slot's tokens",
 )
 def inject_kv_page_trash(pool, page: int, seed: int = 0):
-    """In place on the pool's leaves (the engine owns its pool; each
-    leaf holds the page on axis 1). Integer lanes other than uint8 are
-    left alone: the fault models data corruption the guard must catch,
-    not an impossible tag."""
+    """In place on the pool's paged leaves (the engine owns its pool; each
+    holds the page on axis 1; slot-dense state has no pages). Integer
+    lanes other than uint8 are left alone: the fault models data
+    corruption the guard must catch, not an impossible tag."""
     del seed  # whole-page trash: position within the page is moot
-    for leaves in pool.leaves.values():
-        for leaf in leaves.values():
-            if leaf.is_floating_point():
-                leaf[:, page] = float("nan")
-            elif leaf.dtype == torch.uint8:
-                leaf[:, page] = 0xFF
+    for _, leaf in pool.paged_leaves():
+        if leaf.is_floating_point():
+            leaf[:, page] = float("nan")
+        elif leaf.dtype == torch.uint8:
+            leaf[:, page] = 0xFF

@@ -19,8 +19,13 @@ each decoding slot's pages for nonfinite lanes before its logits are
 read, so the quarantine names the corrupted lane. ``_full_prefill`` is
 the one-shot prefill (``make_prefill_fn`` plus ``PagedKVPool.splice``,
 the tier's quantizer at the splice) of families whose state cannot be
-paged; the dense and MoE families, whose caches are all positional,
-prefill in chunks. Under ``quantize`` the MoE expert stacks (4-D) and
+paged (``chunked_prefill`` is False unless every cache leaf is
+positional, as in the reference): the recurrent families (hymba,
+xLSTM), whose state the splice writes into the slot's row. The dense and
+MoE families prefill in chunks. Every batched decode step runs all
+slots; slots that are not decoding ride along on the trash page and
+overwrite their own recurrent state, which admission replaces. Under
+``quantize`` the MoE expert stacks (4-D) and
 routers stay dense, as in the reference: the expert GEMMs run through
 ``mor_dot`` under the engine's ``MoRDotPolicy``, and every slot of a
 decode batch (idle ones on token 0 at position 0) feeds the same expert
@@ -43,7 +48,7 @@ from repro_torch.models import make_decode_fn, make_prefill_fn
 from repro_torch.models.attention import quantize_kv, quantize_kv_mor
 from repro_torch.models.transformer import resolve_device
 
-from .paged import PagedKVPool
+from .paged import PagedKVPool, leaf_paths
 from .quantized import quantize_params
 
 __all__ = ["Request", "ServeConfig", "Engine", "PromptTooLongError"]
@@ -103,10 +108,6 @@ class Engine:
             raise NotImplementedError(
                 f"family {cfg.family!r} needs a modality frontend the "
                 "engine does not drive (frames/patches inputs)")
-        if cfg.family in ("ssm", "hybrid"):
-            raise NotImplementedError(
-                f"family {cfg.family!r} is not ported yet: its recurrent "
-                "state waits for repro.models.recurrent")
         if mesh is not None:
             raise NotImplementedError(
                 "tensor-parallel serving (mesh) is not ported yet")
@@ -132,10 +133,9 @@ class Engine:
                                 n_pages=scfg.pool_pages, kv_mor=scfg.kv_mor,
                                 device=self.device)
         self._sealed = set()  # (slot, page index) sub4-recompressed
-        # Every cache leaf of the dense and MoE families is positional,
-        # so prefill is chunked; _full_prefill serves families whose
-        # state is not.
-        self.chunked_prefill = True
+        # Chunked prefill needs every cache leaf positional (pageable);
+        # the recurrent families prefill in one shot at admission.
+        self.chunked_prefill = self.pool.all_paged and self.pool.has_paged
         self._prefill = make_prefill_fn(cfg, policy)
         self._decode = make_decode_fn(cfg, policy)
 
@@ -157,8 +157,9 @@ class Engine:
     def _step_fn(self, bt: torch.Tensor, toks: np.ndarray,
                  cur: np.ndarray) -> torch.Tensor:
         """One model call: gather the rows' pages, run the decode
-        function (writes the new K/V into the gathered cache), scatter
-        the written positions back. Returns the logits."""
+        function (writes the new K/V into the gathered cache and the new
+        recurrent state into the pool's), scatter the written positions
+        back. Returns the logits."""
         cache = self.pool.gather(bt)
         toks_t = torch.as_tensor(toks, dtype=torch.int64, device=self.device)
         cur_t = torch.as_tensor(cur, dtype=torch.int64, device=self.device)
@@ -231,14 +232,12 @@ class Engine:
     # ---------------------------------------------------------- prefill --
     def _full_prefill(self, slot: int, req: Request):
         """One-shot prefill: the whole prompt in one causal pass, its bf16
-        cache quantized to the pool's tier and spliced into this slot's
-        pages."""
+        K/V quantized to the pool's tier and spliced into this slot's
+        pages, its recurrent state into the slot's row."""
         prompt = torch.as_tensor(np.asarray(req.prompt)[None],
                                  dtype=torch.int64, device=self.device)
         logits, pcache, _ = self._prefill(self.params, {"tokens": prompt})
-        by_key: Dict[str, torch.Tensor] = {
-            f"{t}/{k}": leaf for t, leaves in pcache.items()
-            for k, leaf in leaves.items()}
+        by_key: Dict[str, torch.Tensor] = dict(leaf_paths(pcache))
         for key in list(by_key):
             if key.rsplit("/", 1)[-1] not in ("k", "v"):
                 continue

@@ -10,11 +10,16 @@ decode step can always run over all slots. The pool is updated in
 place (``scatter``, ``splice``, ``recompress_pages``); the reference
 threads it through a donated jit.
 
-Every leaf of the dense and MoE families' caches is positional, so all
-are paged: the K/V payloads and, in the fp8 and MoR tiers, the scale and
-tag lanes. Leaves are named by their key paths as in the reference
-(``dense/k``, ``moe/k_scale``, ``dense/k_tags``, ...), and walked in the
-order of those keys sorted (the reference's pytree order).
+Only leaves whose sequence axis spans ``max_seq`` are paged: the K/V
+payloads and, in the fp8 and MoR tiers, the scale and tag lanes (every
+leaf of the dense and MoE families' caches). Recurrent state (hymba's
+``ssm/h`` and ``ssm/conv``, the xLSTM cells) and whisper's cross K/V have
+no position axis and stay slot-dense, ``(n_units, slots, ...)``: a
+batched step reads and replaces them at the full slot count, and
+``splice`` writes one slot's row. Leaves are named by their key paths as
+in the reference (``dense/k``, ``moe/k_scale``, ``hymba/ssm/h``,
+``mlstm/C``, ...), and walked in the reference's pytree order (each
+level's keys sorted).
 """
 from __future__ import annotations
 
@@ -33,6 +38,35 @@ from repro_torch.models.attention import (kv_bytes_per_element,
 __all__ = ["PagedKVPool", "MOR_BLOCK_ROWS"]
 
 MOR_BLOCK_ROWS = 128  # Partition("block").block_shape[0]
+
+
+def _is_paged_key(key: str) -> bool:
+    """KV leaves with a max_seq position axis; xk / xv (encoder cross-KV,
+    enc_seq axis) and recurrent state stay slot-dense."""
+    return key.rsplit("/", 1)[-1] in ("k", "v", "k_scale", "v_scale",
+                                      "k_tags", "v_tags")
+
+
+def leaf_paths(tree, prefix=""):
+    """[(key path, leaf)] of a nested dict, each level's keys sorted."""
+    out = []
+    for k in sorted(tree):
+        key = f"{prefix}/{k}" if prefix else k
+        v = tree[k]
+        out += leaf_paths(v, key) if isinstance(v, dict) else [(key, v)]
+    return out
+
+
+def _map(fn, tree, *others, prefix=""):
+    """``fn(key path, leaf, *other leaves)`` over a nested dict, keeping
+    its structure."""
+    out = {}
+    for k, v in tree.items():
+        key = f"{prefix}/{k}" if prefix else k
+        rest = [o[k] for o in others]
+        out[k] = (_map(fn, v, *rest, prefix=key) if isinstance(v, dict)
+                  else fn(key, v, *rest))
+    return out
 
 
 class PagedKVPool:
@@ -62,24 +96,32 @@ class PagedKVPool:
         self.kv_mor = kv_mor
         self.device = torch.device(device)
 
-        specs = cache_specs(cfg, slots, max_seq, kv_fp8, kv_mor)
-        self.leaves: Dict[str, Dict[str, torch.Tensor]] = {}
-        for t, leaves in specs.items():
-            self.leaves[t] = {}
-            for key, (shape, dtype) in sorted(leaves.items()):
+        def storage(key, spec):
+            shape, dtype = spec
+            if _is_paged_key(key):
+                # (n_units, B, max_seq, ...) -> (n_units, pages, ps, ...)
                 n_units, _, _, *tail = shape
-                self.leaves[t][key] = torch.zeros(
-                    (n_units, self.n_pages + 1, page_size, *tail),
-                    dtype=dtype, device=self.device)
+                shape = (n_units, self.n_pages + 1, page_size, *tail)
+            return torch.zeros(shape, dtype=dtype, device=self.device)
+
+        # {type: {leaf: tensor}}, nested as cache_specs (hymba's 'ssm').
+        self.leaves = _map(storage, cache_specs(cfg, slots, max_seq, kv_fp8,
+                                                kv_mor))
+        paged = [_is_paged_key(k) for k, _ in self._by_key()]
+        self.has_paged = any(paged)
+        self.all_paged = all(paged)
         self.block_table = np.full((slots, self.pages_per_seq), self.trash,
                                    np.int32)
         self.free: collections.deque = collections.deque(range(self.n_pages))
         self._owned: List[List[int]] = [[] for _ in range(slots)]
 
     def _by_key(self):
-        """[(key path, leaf)] in the reference's (sorted key) order."""
-        return sorted((f"{t}/{k}", leaf) for t, leaves in self.leaves.items()
-                      for k, leaf in leaves.items())
+        """[(key path, leaf)] in the reference's pytree order."""
+        return leaf_paths(self.leaves)
+
+    def paged_leaves(self):
+        """[(key path, leaf)] of the paged (positional) leaves."""
+        return [(k, v) for k, v in self._by_key() if _is_paged_key(k)]
 
     # ------------------------------------------------------- allocation --
     def free_pages(self) -> int:
@@ -115,44 +157,60 @@ class PagedKVPool:
                                device=self.device)
 
     def gather(self, bt: torch.Tensor):
-        """Dense cache {type: {leaf: (n_units, B, max_seq, ...)}} of the
-        pages ``bt`` (B, pages_per_seq) selects (a copy)."""
+        """Dense cache of the pages ``bt`` (B, pages_per_seq) selects: the
+        paged leaves as (n_units, B, max_seq, ...) copies; the slot-dense
+        state leaves passed through as they are, at the full slot count
+        (the caller only mixes them into full-width batches; a decode
+        step updates them in place)."""
         B, pp = bt.shape
-        out = {}
-        for t, leaves in self.leaves.items():
-            out[t] = {}
-            for key, leaf in leaves.items():
-                n_units, _, ps, *tail = leaf.shape
-                out[t][key] = leaf[:, bt].reshape(n_units, B, pp * ps, *tail)
-        return out
+
+        def g(key, leaf):
+            if not _is_paged_key(key):
+                return leaf
+            n_units, _, ps, *tail = leaf.shape
+            return leaf[:, bt].reshape(n_units, B, pp * ps, *tail)
+        return _map(g, self.leaves)
 
     def scatter(self, dense, bt: torch.Tensor, positions: torch.Tensor):
         """Write back the rows a step touched: ``positions`` (B, S) are
-        the positions each row wrote; only those rows move pool-ward."""
+        the positions each row wrote; only those rows move pool-ward.
+        State leaves are replaced wholesale (a no-op for the leaves
+        ``gather`` passed through and the step updated in place)."""
         B, _ = positions.shape
         rows = torch.arange(B, device=self.device)[:, None]
         page_ids = bt[rows, positions // self.page_size]
         offs = positions % self.page_size
-        for t, leaves in self.leaves.items():
-            for key, leaf in leaves.items():
-                leaf[:, page_ids, offs] = dense[t][key][:, rows, positions]
+
+        def s(key, leaf, new):
+            if not _is_paged_key(key):
+                if new is not leaf:
+                    leaf.copy_(new)
+            else:
+                leaf[:, page_ids, offs] = new[:, rows, positions]
+        _map(s, self.leaves, dense)
 
     def splice(self, slot: int, dense_by_key: Dict[str, torch.Tensor],
                n_positions: int):
         """Write a single-sequence (B = 1) prefill cache into ``slot``:
         ``dense_by_key`` maps key paths (``"dense/k"``, ``"dense/k_scale"``,
-        ...) to (n_units, 1, P, ...) leaves, whose rows 0..n_positions-1
-        scatter through the slot's block table. Leaves not named are left
-        alone."""
+        ``"hymba/ssm/h"``, ...) to (n_units, 1, P, ...) K/V leaves, whose
+        rows 0..n_positions-1 scatter through the slot's block table, and
+        (n_units, 1, ...) state leaves, which land in the slot's row.
+        Leaves not named are left alone."""
         pos = torch.arange(n_positions, device=self.device)
         bt = torch.as_tensor(self.block_table[slot], dtype=torch.int64,
                              device=self.device)
         page_ids, offs = bt[pos // self.page_size], pos % self.page_size
         for key, leaf in self._by_key():
             d = dense_by_key.get(key)
-            if d is not None:
+            if d is None:
+                continue
+            if _is_paged_key(key):
                 leaf[:, page_ids, offs] = d[:, 0, :n_positions].to(
                     device=self.device, dtype=leaf.dtype)
+            else:
+                leaf[:, slot] = d[:, 0].to(device=self.device,
+                                           dtype=leaf.dtype)
 
     # -------------------------------------------------- MoR cold tier --
     def _kv_lane_groups(self):
@@ -191,7 +249,7 @@ class PagedKVPool:
     # ----------------------------------------------------- inspection --
     def guard_check(self, slot: int) -> Optional[str]:
         """KV-page guard: a finiteness sweep over ``slot``'s owned pages.
-        Float lanes (bf16 / fp8 K/V, scale grids) must be finite
+        Paged float lanes (bf16 / fp8 K/V, scale grids) must be finite
         everywhere -- unwritten positions are zero -- so any NaN or Inf is
         corruption. Each lane is reduced on its device and the flags read
         with one host copy; the first bad lane in key order is named.
@@ -201,7 +259,7 @@ class PagedKVPool:
             return None
         idx = torch.as_tensor(pages, dtype=torch.int64, device=self.device)
         keys, flags = [], []
-        for key, leaf in self._by_key():
+        for key, leaf in self.paged_leaves():
             if leaf.is_floating_point():
                 keys.append(key)
                 flags.append(torch.isfinite(
@@ -216,9 +274,16 @@ class PagedKVPool:
     def bytes_per_token(self) -> int:
         """Physical pool bytes per cache position, summed over the paged
         leaves and layers (bf16 2 B an element; MoR 1 B of payload plus
-        the tag and scale lanes)."""
+        the tag and scale lanes); 0 for a pool of state alone."""
         return int(sum(leaf.shape[0] * int(np.prod(leaf.shape[3:]))
-                       * leaf.element_size() for _, leaf in self._by_key()))
+                       * leaf.element_size()
+                       for _, leaf in self.paged_leaves()))
+
+    def state_bytes_per_slot(self) -> int:
+        """Bytes of one slot's row of the slot-dense (state) leaves."""
+        return int(sum(leaf[:, 0].numel() * leaf.element_size()
+                       for k, leaf in self._by_key()
+                       if not _is_paged_key(k)))
 
     def kv_cache_stats(self) -> Dict[str, float]:
         """Host-side tag census over written rows (scale > 0) of owned

@@ -179,17 +179,29 @@ def qdot(x: torch.Tensor, qw: QTensor, *, backend: str = "auto",
     return y.reshape(*lead, qw.shape[1])
 
 
+# Leaves the recurrent mixers read in plain einsums and elementwise code
+# (``models.recurrent``), never as a mor_dot weight: the mamba mixer's
+# conv taps, B/C and dt projections, dt bias, A and skip D, the mLSTM's
+# gate projection and bias. The reference quantizes those that pass
+# ``min_size`` and its mamba_mix then fails on them (a QTensor has no
+# ``astype``); the port keeps them dense, as the reference's routers.
+_MIXER_LEAVES = ("conv_w", "w_bc", "w_dt_down", "w_dt_up", "dt_bias",
+                 "A_log", "D", "w_gate", "gate_bias")
+
+
 def _is_gemm_weight(name: str, leaf) -> bool:
     """Leaves that feed a mor_dot / head GEMM as the weight: 2-D single
     matrices and 3-D layer stacks, excluding embeddings, norm scales,
-    routers and biases by name segment. 4-D stacked-expert MoE weights
-    stay dense, as in the reference (their GEMMs run through mor_dot
-    under the serving policy)."""
+    routers, biases and the recurrent mixers' plain leaves by name
+    segment. 4-D stacked-expert MoE weights (and the sLSTM's 4-D
+    recurrence) stay dense, as in the reference (the expert GEMMs run
+    through mor_dot under the serving policy)."""
     if not isinstance(leaf, torch.Tensor) or leaf.ndim not in (2, 3):
         return False
     for seg in name.split("/"):
         if ("embed" in seg or "norm" in seg or seg.startswith("ln")
-                or seg in ("scale", "bias", "router")):
+                or seg in ("scale", "bias", "router")
+                or seg in _MIXER_LEAVES):
             return False
     return True
 

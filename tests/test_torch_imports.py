@@ -42,6 +42,9 @@ def test_port_tree_is_present():
                  "src/repro_torch/configs/moonshot_v1_16b_a3b.py",
                  "src/repro_torch/configs/paligemma_3b.py",
                  "src/repro_torch/configs/whisper_tiny.py",
+                 "src/repro_torch/configs/hymba_1_5b.py",
+                 "src/repro_torch/configs/xlstm_350m.py",
+                 "src/repro_torch/models/recurrent.py",
                  "chip_smoke.py"):
         assert must in names
 

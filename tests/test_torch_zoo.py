@@ -160,47 +160,39 @@ def test_params_tokens_cache_specs_match_reference(name):
                                          ("xlstm-350m", "ssm"),
                                          ("hymba-1.5b", "hybrid")])
 def test_unported_families_raise_by_name(arch, family):
-    """The recurrent families (ssm, hybrid) raise, naming the reference
-    module they wait for. The frontend families (audio, vlm) are ported
-    (``tests/test_torch_frontends.py``): init_params, make_tokens,
+    """Every family is ported now: the frontend families (audio, vlm;
+    ``tests/test_torch_frontends.py``) and the recurrent ones (ssm,
+    hybrid; ``tests/test_torch_recurrent.py``). init_params, make_tokens,
     cache_specs and a train forward run and give the reference's key
     paths and shapes."""
     jcfg = jreduced(jget_config(arch))
     cfg = tbase.ArchConfig(**dataclasses.asdict(jcfg))
     assert cfg.family == family
-    if family in ("audio", "vlm"):
-        jp = _jflat(jax.eval_shape(lambda: jinit_params(
-            jcfg, jax.random.PRNGKey(0))))
-        tp = _flat(init_params(cfg, device="cpu"))
-        assert {k: tuple(v.shape) for k, v in tp.items()} == \
-            {k: v.shape for k, v in jp.items()}
-        jt = _jflat(jax.eval_shape(lambda: jmake_tokens(jcfg)))
-        assert {k: tuple(v.shape) for k, v in _flat(make_tokens(
-            cfg, device="cpu")).items()} == {k: v.shape for k, v in jt.items()}
-        js = _jflat(jcache_specs(jcfg, 1, 8))
-        assert _flat(cache_specs(cfg, 1, 8)) == {
-            k: (tuple(v.shape), getattr(torch, str(v.dtype)))
-            for k, v in js.items()}
-        rng = np.random.default_rng(0)
-        batch = {"tokens": torch.from_numpy(rng.integers(0, 512, (1, 8)))}
-        front = {"audio": ("frames", cfg.enc_seq),
-                 "vlm": ("patches", cfg.img_tokens)}[family]
+    jp = _jflat(jax.eval_shape(lambda: jinit_params(
+        jcfg, jax.random.PRNGKey(0))))
+    tp = _flat(init_params(cfg, device="cpu"))
+    assert {k: tuple(v.shape) for k, v in tp.items()} == \
+        {k: v.shape for k, v in jp.items()}
+    jt = _jflat(jax.eval_shape(lambda: jmake_tokens(jcfg)))
+    assert {k: tuple(v.shape) for k, v in _flat(make_tokens(
+        cfg, device="cpu")).items()} == {k: v.shape for k, v in jt.items()}
+    js = _jflat(jcache_specs(jcfg, 1, 8))
+    assert _flat(cache_specs(cfg, 1, 8)) == {
+        k: (tuple(v.shape), getattr(torch, str(v.dtype)))
+        for k, v in js.items()}
+    rng = np.random.default_rng(0)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, 512, (1, 8)))}
+    front = {"audio": ("frames", cfg.enc_seq),
+             "vlm": ("patches", cfg.img_tokens)}.get(family)
+    if front:
         batch[front[0]] = torch.from_numpy(rng.normal(
             size=(1, front[1], cfg.d_model))).to(torch.bfloat16)
-        logits, _, _ = tT.forward(cfg, MoRDotPolicy(),
-                                  init_params(cfg, device="cpu"), batch,
-                                  mode="train", remat=False)
-        extra = cfg.img_tokens if family == "vlm" else 0
-        assert logits.shape == (1, 8 + extra, 512)
-        assert torch.isfinite(logits).all()
-        return
-    where = "repro.models.recurrent"
-    for call in (lambda: init_params(cfg, device="cpu"),
-                 lambda: make_tokens(cfg, device="cpu"),
-                 lambda: cache_specs(cfg, 1, 8),
-                 lambda: tT.forward(cfg, MoRDotPolicy(), {}, {})):
-        with pytest.raises(NotImplementedError, match=where):
-            call()
+    logits, _, _ = tT.forward(cfg, MoRDotPolicy(),
+                              init_params(cfg, device="cpu"), batch,
+                              mode="train", remat=False)
+    extra = cfg.img_tokens if family == "vlm" else 0
+    assert logits.shape == (1, 8 + extra, 512)
+    assert torch.isfinite(logits).all()
 
 
 # ---------------------------------------------------------------- models --
@@ -487,13 +479,23 @@ def test_pool_bytes_and_guard_match_reference(name, tier, want):
 @pytest.mark.parametrize("arch", ("whisper-tiny", "paligemma-3b",
                                   "xlstm-350m", "hymba-1.5b"))
 def test_engine_refuses_unported_families(arch):
+    """The engine refuses the frontend families (audio, vlm) with the
+    reference's message, as the reference's engine does; the recurrent
+    families (ssm, hybrid) are ported: the engine builds, with one-shot
+    prefill and the reference pool's key paths (the state slot-dense)."""
     jcfg = jreduced(jget_config(arch))
     cfg = tbase.ArchConfig(**dataclasses.asdict(jcfg))
-    with pytest.raises(NotImplementedError) as te:
-        Engine(cfg, MoRDotPolicy(), {}, device="cpu")
     if cfg.family in ("audio", "vlm"):
+        with pytest.raises(NotImplementedError) as te:
+            Engine(cfg, MoRDotPolicy(), {}, device="cpu")
         with pytest.raises(NotImplementedError) as je:
             JEngine(jcfg, J_DOT, {})
         assert str(te.value) == str(je.value)
-    else:
-        assert "repro.models.recurrent" in str(te.value)
+        return
+    eng = Engine(cfg, MoRDotPolicy(), init_params(cfg, device="cpu"),
+                 ServeConfig(slots=2, max_seq=32, page_size=8,
+                             prefill_chunk=8), device="cpu")
+    jp = JPool(jcfg, 2, 32, page_size=8)
+    assert not eng.chunked_prefill
+    assert list(jp._keys) == [k for k, _ in eng.pool._by_key()]
+    assert eng.pool.bytes_per_token() == jp.bytes_per_token()
