@@ -102,9 +102,9 @@
 
 9. Fault tolerance (``phase_fault_tolerance``): checkpoint/restart and
    the chaos harness. (a) Run (iii)'s compressed state (FP8_MOMENTS,
-   'mor_ef', the guard) on deepseek-coder-33b at full width and depth 1
-   (the run's disk writes must stay under the machine's ~45 GiB; see
-   ``FT_ARCH``) with the step rebuilt around
+   'mor_ef', the guard) on granite-moe-1b-a400m at full width and depth
+   1 (the phase's time goes to writing, reading and hashing the
+   checkpoints' bytes; see ``FT_ARCH``) with the step rebuilt around
    ``make_grad_fault('nan' | 'inf', seed=3)``: an injected batch is
    dropped with every lane of the state bit-identical (per-leaf sha256
    digests), the next clean one is not; then ``Checkpointer.save``, one
@@ -164,12 +164,14 @@
    the catching step.
 
 12. The model zoo (``phase_model_zoo``): the MoE family and gemma-2b.
-   (a) granite-moe-1b-a400m at full width and depth (24 layers, 32
-   experts, top-8) served by the Engine with sub3 QTensor attention
+   (a) granite-moe-1b-a400m at full width (32 experts, top-8) and 8 of
+   its 24 layers (``GRANITE_LAYERS``) served by the Engine with sub3
+   QTensor attention
    weights (the expert stacks and routers stay dense, as in the
    reference) on bf16 and kv_mor pools, phase_engine's 8 requests: every
    attention GEMM on the stream path, every expert event on gam_quant,
-   no selection, no plain call, bytes per token 49,152 / 26,496, step
+   no selection, no plain call, bytes per token 16,384 / 8,832 (49,152 /
+   26,496 at full depth), step
    and chunk ms, tokens/s, peak GB, a profiled decode call with its ATen
    operators and launches, each layer's dropped share and aux_loss in a
    prefill chunk;
@@ -202,13 +204,15 @@
    engine refuses both families, as the reference's does), and trained
    3 AdamW steps each under sub3 and fused sub3 (finite loss and grad
    norm, every event and fused GEMM on the kernels, the tile route and
-   the tc path). (a) paligemma-3b at full width and depth (18 layers;
-   256 stub patch embeddings before the tokens, attending
-   bidirectionally): 4 requests of a 128-token prompt (4 x 384 prefill
-   rows on the tc path), 32 decode steps (M = 4, stream path) on a bf16
-   and a kv_mor cache (18,432 / 9,396 bytes per token); training on 2 x
-   (256 + 1024) positions. (b) whisper-tiny at full width and depth (4
-   encoder and 4 decoder layers, 1500 stub frames): 8 requests of a
+   the tc path). (a) paligemma-3b at full width (256 stub patch
+   embeddings before the tokens, attending bidirectionally), served at
+   6 of its 18 layers (``FRONT_SERVE_LAYERS``): 4 requests of a 128-token
+   prompt (4 x 384 prefill rows on the tc path), 32 decode steps (M = 4,
+   stream path) on a bf16 and a kv_mor cache (6,144 / 3,132 bytes per
+   token; 18,432 / 9,396 at full depth); trained at full depth (18
+   layers) on 2 x (256 + 1024) positions. (b) whisper-tiny at full
+   width and depth (4 encoder and 4 decoder layers, 1500 stub frames): 8
+   requests of a
    32-token prompt, 64 decode steps on the bf16 cache (6,144 bytes per
    token); every GEMM of a full prefill held against the plain version
    at M = 12000 (the encoder's and the cross K/V's, 93.75 blocks of 128)
@@ -236,7 +240,9 @@
    state bytes per slot 7,168,000 / 50,626,752 exactly, the decode
    step's and each prefill's ms, a profiled decode call, the host
    seconds inside the prefills' scans; (b) two AdamW steps on one state
-   (``train_run``), 2 x 128 tokens each, under sub3 and fused sub3, and
+   (``train_run``), 2 x 128 tokens each, at a quarter of the depth
+   (``REC_TRAIN_LAYERS``: hymba 8 of 32 layers, xlstm 3 of 12 units)
+   under sub3 and fused sub3, and
    at depth 2 one under the tensor recipe (profiled: device ms and idle
    share): every event and fused GEMM on the kernels, each step's ms,
    peak GB and the host ms inside its scans; (c) each family at depth
@@ -246,10 +252,38 @@
    tensor recipe and sub3, kernel path against plain path, with the
    fused GEMMs held to the plain version.
 
+15. Mesh-aware statistics (``phase_multi_device``, after step 6's
+   depth-2 step): the script starts MD_WORLD = 4 processes of itself
+   (``--multi-device-rank``) on cuda:0, a gloo world through a
+   ``file://`` store (NCCL refuses two ranks on one device), the
+   kernels built by this process and only loaded by the ranks. (a)
+   ``mor_dot`` at llama3-8b's training wi shape (x 2048 x 4096 sharded
+   4 x 512 by rows, dy to match, w 4096 x 28672 replicated) under the
+   tensor recipe, sub3 and fused sub3 with ``with_mesh_axes``, against
+   the one-rank run of the global batch on the card: y and dx bit for
+   bit, the ranks' dw summed within the bf16 roundings' bound
+   (``md_dw_bound``: 2^-8 of the partials' and the one-rank dw's
+   magnitudes, + 1e-5; it must refuse the sum without a rank), every stats
+   row bit for bit but rel_err (rtol 2e-6), every fused pack's lanes
+   equal to the one-rank pack's rows. (b) gemma-2b at full width (depth
+   2, or 1 where the per-rank memory reckoning leaves under 10 GB of the
+   card free), 1 x 1024 tokens a rank: two steps of ``make_train_step(
+   TrainConfig(mor_mesh_axes=('data',)))`` on each rank, every forward
+   quantization event of the first held against the one-rank
+   quantization of the same global operand (the activation's shards
+   gathered), and its stats rows compared with the one-rank step's on
+   the global 4 x 1024 batch (counted: cuBLAS sums a GEMM of 4096 rows
+   in another order than one of 1024); the second step timed beside the
+   one-rank step, with the collectives a step and their host seconds;
+   then kernel path against
+   plain path on the four ranks (``train_depth2`` on the mesh). (c) A
+   NaN in one rank's shard: every rank's amax and guard lanes equal the
+   one-rank run's, and ``pmax_over`` is NaN on every rank.
+
 Prints JSON lines (the ``kernels``, ``engine``, ``serve_tiers``,
 ``model_zoo``, ``frontends``, ``recurrent``, ``train``, ``train_state``,
-``fault_tolerance``, ``generic_smem`` and ``kernel_api`` lines among
-them) and ends with
+``fault_tolerance``, ``generic_smem``, ``kernel_api`` and
+``multi_device`` lines among them) and ends with
 ``{"ok": true, "device":
 ...}``. Exits non-zero on any failure, without a card, or without the
 rest of the repository beside it.
@@ -1732,8 +1766,9 @@ def checked_f32_select(ops, ref, seen):
     from repro_torch.core.partition import Partition
     orig = ops.mor_select
 
-    def select(x, part, mode="sub3", algo="gam", *, backend="auto"):
-        k = orig(x, part, mode, algo, backend=backend)
+    def select(x, part, mode="sub3", algo="gam", *, backend="auto",
+               mesh_axes=()):
+        k = orig(x, part, mode, algo, backend=backend, mesh_axes=mesh_axes)
         if x.dtype != torch.float32:
             return k
         M, K = x.shape
@@ -2016,11 +2051,17 @@ CKPT_DIR = ROOT / "build" / "ckpt"
 # The model of the checkpoints: the card's machine accepts ~45 GiB of
 # disk writes a run, and the phase writes three checkpoints (the
 # compressed state's, the preempted Trainer's, the resumed Trainer's
-# final one). nemotron3-8b's 256k-vocab embedding and head alone make
-# ~29 GB of compressed state at any depth; deepseek-coder-33b at full
-# width and one layer (0.99 B params, a 32k vocab) makes ~13.5 GB of
-# compressed state and ~13.9 GB of the Trainer's dense state.
-FT_ARCH, FT_LAYERS, PREEMPT_STEPS = "deepseek-coder-33b", 1, 4
+# final one), and the phase's time goes mostly to writing, reading and
+# hashing (``digest_tree``) them. nemotron3-8b's 256k-vocab embedding and
+# head alone make ~29 GB of compressed state at any depth;
+# deepseek-coder-33b at full width and one layer (0.99 B params, a 32k
+# vocab; PRs 22-26) made 12.4 GB of compressed state and ~13.9 GB of the
+# Trainer's dense state, gemma-2b at one layer (0.63 B) 9.7 / 8.9 GB.
+# granite-moe-1b-a400m at full width and one layer (0.10 B params: a
+# tied 49k-vocab embedding and one layer of 32 experts) makes about a
+# tenth of deepseek's bytes, with the MoE leaves (4-D expert stacks, the
+# router) in the state.
+FT_ARCH, FT_LAYERS, PREEMPT_STEPS = "granite-moe-1b-a400m", 1, 4
 _PINNED = [None]  # the host buffer digest_tree copies leaves through
 
 
@@ -2751,7 +2792,8 @@ def fused_gemm_shapes(blocks, M, enc_M=None):
     return out
 
 
-def train_depth2(cfg, ops, ref, params, batch, recipes, want, dots, what):
+def train_depth2(cfg, ops, ref, params, batch, recipes, want, dots, what,
+                 axes=()):
     """One loss-and-gradient evaluation, kernel path against plain path
     (``backend='torch'`` on the same CUDA tensors), under each of
     ``recipes`` (fake-quant: 'tensor', 'sub3'): loss bit for bit, forward
@@ -2761,8 +2803,12 @@ def train_depth2(cfg, ops, ref, params, batch, recipes, want, dots, what):
     embedding's gather backward accumulates with atomics). Fused sub3:
     every mixed_gemm of the step held against the plain version on its
     real inputs at 1e-5 sum|a||b| + 1 bf16 ulp, its (M, N, K) covering
-    ``want``, 4 GEMMs for each of the ``dots`` mor_dots."""
-    pols = train_policies()
+    ``want``, 4 GEMMs for each of the ``dots`` mor_dots. ``axes``: the
+    mesh axes of every event (``with_mesh_axes``; the caller binds the
+    mesh)."""
+    from repro_torch.core.policy import with_mesh_axes
+    pols = {k: with_mesh_axes(p, axes) if axes else p
+            for k, p in train_policies().items()}
     res = {}
     for name in recipes:
         k = step_grads(cfg, with_backend(pols[name], "auto"), params, batch)
@@ -2819,6 +2865,455 @@ def phase_train_depth2(cfg, ops, ref):
     del params
     torch.cuda.empty_cache()
     return res
+
+
+# The multi_device phase: four ranks on the one card, each its own process
+# over gloo (NCCL refuses two ranks on one device), through a file://
+# store; mor_dot at llama3-8b's training wi shape, then data-parallel
+# training of MD_ARCH at full width, 1 x MD_SEQ tokens a rank.
+MD_WORLD = 4
+MD_ARCH = "gemma-2b"
+MD_SEQ = 1024
+MD_DOT = (2048, 4096, 28672)   # x (M, K), w (K, N): llama3-8b's wi
+MD_NAN_AT = 2                  # the rank whose shard holds the NaN
+MD_DEV = "cuda"
+MD_DIR = ROOT / "build" / "multi_device"
+MD_TIMEOUT = 900
+# A rank's share of the card beyond its tensors: its CUDA context and
+# cuBLAS workspace (the parent keeps one too), and the allocator's slack
+# (with expandable segments; without them a first card run of the phase
+# at depth 2 held 4.18 GiB reserved but unallocated a rank, and failed
+# out of memory).
+MD_CONTEXT_BYTES = 0.75e9
+MD_SLACK_BYTES = 1e9
+
+
+def md_depth(cfg):
+    """Depth of MD_ARCH's training: 2, or 1 where the per-rank reckoning
+    (bf16 params and grads, f32 master and two moments, f32 logits with
+    their softmax and gradient, bf16 activations of a layer saved for the
+    backward, the f32 copy of the largest leaf that ``global_norm``
+    makes, context and slack) leaves less than 10 GB of the card free
+    with MD_WORLD ranks and the parent. Returns (depth, the
+    reckoning)."""
+    total = torch.cuda.get_device_properties(0).total_memory
+    for depth in (2, 1):
+        c = dataclasses.replace(cfg, n_layers=depth)
+        n = c.param_count()
+        state = n * (2 + 2 + 4 + 4 + 4)
+        logits = MD_SEQ * c.vocab * 4 * 3
+        acts = depth * MD_SEQ * (12 * c.d_model + 4 * c.d_ff) * 2
+        largest = 4 * max(c.vocab * c.d_model, 2 * c.d_model * c.d_ff)
+        per_rank = state + logits + acts + largest + MD_CONTEXT_BYTES + \
+            MD_SLACK_BYTES
+        free = total - MD_WORLD * per_rank - MD_CONTEXT_BYTES
+        row = {"depth": depth, "params": n, "per_rank_gb": per_rank / 1e9,
+               "free_gb": free / 1e9, "card_gb": total / 1e9}
+        if free >= 10e9:
+            return depth, row
+    return 1, row
+
+
+def md_rows_equal(got, want, what):
+    """Stats rows of a sharded run against the one-rank run's: every lane
+    but the relative error bit for bit, that within rtol 2e-6 (the ranks'
+    partial sums associate differently; tests/test_sharded_mor.py)."""
+    from repro_torch.core.mor import STAT_REL_ERR
+    lanes = [i for i in range(got.shape[-1]) if i != STAT_REL_ERR]
+    check(same_bits([got[..., lanes]], [want[..., lanes]]),
+          f"{what}: stats {got.tolist()} vs one rank {want.tolist()}")
+    g, w = got[..., STAT_REL_ERR], want[..., STAT_REL_ERR]
+    check(bool(torch.all((g - w).abs() <= 2e-6 * w.abs() + 1e-7)),
+          f"{what}: rel_err {g.tolist()} vs one rank {w.tolist()}")
+
+
+def md_run_dot(x, w, dy, pol, packs):
+    """mor_dot forward and backward: (y, fwd stats, dx, dw, bwd stats),
+    the packs quantize_for_gemm made appended to ``packs``."""
+    from repro_torch.core import linear
+    from repro_torch.core.linear import mor_dot, new_token
+    spy = linear.quantize_for_gemm
+
+    def quantize(t, p):
+        mo, st = spy(t, p)
+        packs.append(mo)
+        return mo, st
+
+    x = x.detach().requires_grad_(True)
+    w = w.detach().requires_grad_(True)
+    tok = new_token(x.device)
+    with patched(linear, "quantize_for_gemm", quantize):
+        y, st = mor_dot(x, w, tok, pol)
+        y.backward(dy)
+    return y.detach(), st, x.grad, w.grad, tok.grad
+
+
+def md_dw_bound(mass, want):
+    """Elementwise bound on |sum of the ranks' dw - the one-rank dw|.
+    Each rank's partial dw and the one-rank dw are bf16 roundings of f32
+    sums over the same quantized products (the row blocks are whole, so
+    the ranks quantize exactly as the one rank does): each rounding is
+    at most 2^-8 of its value, so the error is within 2^-8 (sum_r |dw_r|
+    + |dw|). ``mass`` is sum_r |dw_r|. The f32 sums' own rounding adds
+    ~sqrt(2048) 2^-24 of the ~1.3 that |x| |dy| sums to an entry (~4e-6):
+    1e-5."""
+    return 2.0 ** -8 * (mass + want.abs()) + 1e-5
+
+
+def md_mor_dot(rank, mesh, totals):
+    """(a): mor_dot at the wi shape under TENSOR_MOR, sub3 and fused sub3
+    (128 x 128 blocks), x and dy sharded by rows, w replicated, against
+    the one-rank run of the global batch that each rank makes itself on
+    the same card: y and dx bit for bit, the ranks' dw summed (f32,
+    gloo) within ``md_dw_bound`` of the one-rank dw (and that bound
+    refusing the sum without this rank's partial, and twice the dw),
+    every forward and backward stats row
+    (``md_rows_equal``), and under fused sub3 every pack's tags, scales
+    and payload lanes equal to the one-rank pack's rows."""
+    import torch.distributed as dist
+
+    from repro_torch.core import collectives as col
+    from repro_torch.core.policy import with_mesh_axes
+    M, K, N = MD_DOT
+    g = torch.Generator(device=MD_DEV).manual_seed(7)
+    x = torch.randn(M, K, generator=g, device=MD_DEV).to(torch.bfloat16)
+    w = (torch.randn(K, N, generator=g, device=MD_DEV) * 0.02).to(
+        torch.bfloat16)
+    dy = (torch.randn(M, N, generator=g, device=MD_DEV) * 1e-3).to(
+        torch.bfloat16)
+    m = M // MD_WORLD
+    rows = slice(rank * m, (rank + 1) * m)
+    res = {}
+    for name, pol in train_policies().items():
+        one_packs, packs = [], []
+        one = md_run_dot(x, w, dy, pol, one_packs)
+        reset_counters()
+        with col.use_mesh(mesh):
+            got = md_run_dot(x[rows], w, dy[rows],
+                             with_mesh_axes(pol, ("data",)), packs)
+        totals.add_current(f"multi_device mor_dot {name}")
+        what = f"multi_device rank {rank} mor_dot {name}"
+        check(same_bits([got[0]], [one[0][rows]]), f"{what}: y differs")
+        check(same_bits([got[2]], [one[2][rows]]), f"{what}: dx differs")
+        md_rows_equal(got[1], one[1], f"{what} fwd")
+        md_rows_equal(got[4], one[4], f"{what} bwd")
+        part, want = got[3].float(), one[3].float()
+        dw, mass = part.clone(), part.abs()
+        dist.all_reduce(dw)
+        dist.all_reduce(mass)
+        bound = md_dw_bound(mass, want)
+        err = (dw - want).abs()
+        check(bool(torch.all(err <= bound)),
+              f"{what}: summed dw off by {float(err.max())}, "
+              f"{float((err / bound).max())} of its bound")
+        # The gate catches the faults it is there for: a rank's partial
+        # left out of the sum, or a dw twice the one-rank one.
+        dropped = (dw - part - want).abs()
+        check(not bool(torch.all(dropped <= bound)),
+              f"{what}: the dw gate passes a sum without this rank")
+        check(not bool(torch.all(want.abs() <= bound)),
+              f"{what}: the dw gate passes twice the dw")
+        check(len(packs) == len(one_packs), f"{what}: pack counts")
+        for p, q in zip(packs, one_packs):
+            if p.shape != q.shape:  # sharded rows: this rank's block rows
+                b = p.shape[-2] // p.block[0]
+                q = dataclasses.replace(q, **{
+                    k: getattr(q, k)[..., rank * (
+                        b if k in ("tags", "scales") else p.shape[-2]):
+                        (rank + 1) * (b if k in ("tags", "scales")
+                                      else p.shape[-2]), :]
+                    for k in ("tags", "scales", "payload_q",
+                              "payload_bf16")})
+            for k in ("tags", "scales", "payload_q", "payload_bf16"):
+                check(same_bits([getattr(p, k)], [getattr(q, k)]),
+                      f"{what}: pack {k} differs")
+        res[name] = {"packs": len(packs), "dw_max_abs_err": float(err.max()),
+                     "dw_err_over_bound": float((err / bound).max()),
+                     "dw_dropped_rank_max_err": float(dropped.max()),
+                     "y_dx_stats": "bit for bit"}
+        del one, got, dw, part, want, mass, bound, err, dropped, one_packs, \
+            packs
+    return res
+
+
+def md_step(cfg, pol, params, batch, axes, mesh, steps=2):
+    """``steps`` make_train_step steps (TrainConfig(mor_mesh_axes=axes))
+    from ``params``: (the first step's forward stats rows by key path,
+    its forward quantization events as (operand, policy, stats row) in
+    call order, the last step's wall seconds, its collectives and their
+    host seconds, the losses)."""
+    from repro_torch.core import collectives as col
+    from repro_torch.core import linear
+    from repro_torch.optim import AdamWConfig, init_opt_state
+    from repro_torch.train import TrainConfig, make_train_step
+    from repro_torch.train import train_step as ts
+    trees, events = [], []
+    summarize, quantize = ts.summarize_mor_stats, linear.mor_quantize
+
+    def tree_spy(fwd, bwd, opt=None):
+        trees.append(flat_tree(fwd))
+        return summarize(fwd, bwd, opt)
+
+    def event_spy(x, p):
+        y, st = quantize(x, p)
+        if not trees:  # the first step, before its stats are summarized
+            events.append((x.detach(), p, st))
+        return y, st
+
+    step = make_train_step(cfg, pol, TrainConfig(
+        optimizer=AdamWConfig(warmup_steps=1), mor_mesh_axes=axes))
+    opt = init_opt_state(params)
+    losses = []
+    with patched(ts, "summarize_mor_stats", tree_spy), \
+            patched(linear, "mor_quantize", event_spy), col.use_mesh(mesh):
+        for _ in range(steps):
+            calls, host = col.COLLECTIVES["calls"], col.COLLECTIVES["host_s"]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt, metrics = step(params, opt, batch)
+            losses.append(float(metrics["loss"]))
+            wall = time.perf_counter() - t0
+    check(all(np.isfinite(losses)), f"multi_device step: losses {losses}")
+    del opt, params
+    return trees[0], events, wall, col.COLLECTIVES["calls"] - calls, \
+        col.COLLECTIVES["host_s"] - host, losses
+
+
+def md_events_vs_one_rank(events, n_fwd, mesh, what):
+    """The first ``n_fwd`` quantization events of a sharded step (the
+    forward's: an activation event, then a weight event, a mor_dot) held
+    against the one-rank quantization of the same global operand: the
+    activation's shards gathered from the ranks in row order, the
+    replicated weight as it is (``md_rows_equal``). Returns the rows
+    checked."""
+    from repro_torch.core import collectives as col
+    from repro_torch.core.mor import mor_quantize
+    check(len(events) >= n_fwd, f"{what}: {len(events)} events")
+    with col.use_mesh(mesh):
+        for i, (x, p, st) in enumerate(events[:n_fwd]):
+            if i % 2 == 0:  # activation rows, sharded by rank
+                g = col.all_gather_over(x, "data")
+                x = g.transpose(0, 1).reshape(x.shape[0], -1, x.shape[-1])
+            one = mor_quantize(x, p.replace(mesh_axes=()))[1]
+            md_rows_equal(st, one, f"{what} event {i}")
+    return n_fwd
+
+
+def md_train(rank, mesh, depth, ops, ref, totals):
+    """(b): MD_ARCH at full width and ``depth``, 1 x MD_SEQ tokens a
+    rank. Rank 0 first steps the global batch alone (MD_WORLD x MD_SEQ,
+    no mesh); then every rank steps its row under
+    TrainConfig(mor_mesh_axes=('data',)), twice, the second timed, losses
+    finite. Every forward quantization event of the first sharded step
+    is held against the one-rank quantization of the same global operand
+    (``md_events_vs_one_rank``). The one-rank step's forward stats rows
+    are compared too, and the rows equal (``md_rows_equal``'s rule) are
+    counted, not gated: cuBLAS sums a bf16 GEMM of 4 x 1024 rows in
+    another order than one of 1024, so from the first GEMM on the two
+    steps quantize operands a bf16 ulp apart in places. Then
+    ``train_depth2`` on the mesh: the kernel path against the plain path
+    (``backend='torch'``) under the tensor recipe and sub3, and fused
+    sub3 with every mixed_gemm held against the plain version
+    (``checked_gemm``)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.mor import STAT_REL_ERR
+    from repro_torch.models import init_params
+    cfg = dataclasses.replace(get_config(MD_ARCH), n_layers=depth)
+    pol = train_policies()["sub3"]
+    batch = train_batch(cfg, 0, batch=MD_WORLD, seq=MD_SEQ, device=MD_DEV)
+    mine = {k: v[rank:rank + 1] for k, v in batch.items()}
+    res = {"arch": cfg.name, "depth": depth, "tokens_per_rank": MD_SEQ}
+    one = [None]
+    if rank == 0:
+        fwd, _, wall, _, _, losses = md_step(
+            cfg, pol, init_params(cfg, seed=1, device=MD_DEV), batch, (),
+            mesh)
+        one[0] = {k: v.cpu() for k, v in fwd.items()}
+        res["one_rank"] = {"step_s": wall, "losses": losses,
+                           "tokens": MD_WORLD * MD_SEQ}
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.broadcast_object_list(one, src=0)
+    reset_counters()
+    fwd, events, wall, calls, host, losses = md_step(
+        cfg, pol, init_params(cfg, seed=1, device=MD_DEV), mine,
+        ("data",), mesh)
+    totals.add_current(f"multi_device train rank {rank}")
+    what = f"multi_device rank {rank}"
+    res["fwd_events_vs_one_rank_operand"] = md_events_vs_one_rank(
+        events, 2 * 4 * cfg.n_units, mesh, what)
+    del events
+    check(sorted(fwd) == sorted(one[0]), f"{what}: fwd stats trees")
+    lanes = [i for i in range(14) if i != STAT_REL_ERR]
+    same = total = 0
+    for k, v in fwd.items():
+        a = v.cpu().reshape(-1, v.shape[-1])
+        b = one[0][k].reshape(-1, a.shape[-1])
+        rel = (a[:, STAT_REL_ERR] - b[:, STAT_REL_ERR]).abs() <= \
+            2e-6 * b[:, STAT_REL_ERR].abs() + 1e-7
+        same += int(((bits16(a[:, lanes]) == bits16(b[:, lanes])).all(1)
+                     & rel).sum())
+        total += a.shape[0]
+    res["ranks"] = {"step_s": wall, "losses": losses,
+                    "collectives_per_step": calls,
+                    "collective_host_s_per_step": host,
+                    "fwd_stats_rows": total,
+                    "fwd_rows_equal_to_one_rank_step": same,
+                    "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = init_params(cfg, seed=1, device=MD_DEV)
+    from repro_torch.core import collectives as col
+    with col.use_mesh(mesh):
+        res["kernel_vs_plain"] = train_depth2(
+            cfg, ops, ref, params, mine, ("tensor", "sub3"),
+            fused_gemm_shapes(params["blocks"], MD_SEQ), 4 * cfg.n_units,
+            f"multi_device rank {rank}", axes=("data",))
+    del params
+    return res
+
+
+def md_nan(rank, mesh, totals):
+    """(c): one NaN in rank MD_NAN_AT's shard of a wi-shaped activation:
+    every rank's amax and guard-flag lanes (2, 12) under the tensor
+    recipe and sub3 equal the one-rank run's on the global operand (NaN
+    amax, GUARD_NONFINITE_AMAX set); pmax_over of a NaN on each rank in
+    turn is NaN on every rank."""
+    from repro_torch.core import collectives as col
+    from repro_torch.core.mor import STAT_AMAX, STAT_GUARD_FLAGS, mor_quantize
+    from repro_torch.core.policy import MoRPolicy
+    M, K, _ = MD_DOT
+    g = torch.Generator(device=MD_DEV).manual_seed(11)
+    x = torch.randn(M, K, generator=g, device=MD_DEV).to(torch.bfloat16)
+    m = M // MD_WORLD
+    x[MD_NAN_AT * m + 5, 17] = float("nan")
+    res = {}
+    lanes = [STAT_AMAX, STAT_GUARD_FLAGS]
+    for rec in ("tensor", "sub3"):
+        pol = MoRPolicy(recipe=rec)
+        _, one = mor_quantize(x, pol)
+        reset_counters()
+        with col.use_mesh(mesh):
+            _, got = mor_quantize(x[rank * m:(rank + 1) * m],
+                                  pol.replace(mesh_axes=("data",)))
+        totals.add_current(f"multi_device nan {rec}")
+        check(same_bits([got[lanes]], [one[lanes]]) and bool(
+            torch.isnan(one[STAT_AMAX])) and int(one[STAT_GUARD_FLAGS]) & 1,
+              f"multi_device rank {rank} nan {rec}: lanes {got[lanes]} vs "
+              f"one rank {one[lanes]}")
+        res[rec] = got[lanes].tolist()
+    pmax = []
+    with col.use_mesh(mesh):
+        for at in range(MD_WORLD):
+            t = torch.full((1,), float("nan") if rank == at else float(rank),
+                           device=MD_DEV)
+            pmax.append(float(col.pmax_over(t, ("data",))))
+    check(all(np.isnan(pmax)), f"multi_device rank {rank}: pmax {pmax}")
+    res["pmax_nan_each_rank"] = "nan"
+    return res
+
+
+def md_rank(rank, store, depth):
+    """One rank of the multi_device phase (``chip_smoke.py
+    --multi-device-rank RANK STORE DEPTH``): joins the gloo world, runs
+    (a)-(c) on cuda:0 and prints its result as the last line; a failed
+    check raises (exit non-zero)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core import collectives as col
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch.ranks import init_world
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_world(rank, MD_WORLD, store)
+    mesh = col.make_mesh((MD_WORLD,), ("data",), device=MD_DEV)
+    totals = Totals()
+    t0 = time.perf_counter()
+    res = {"rank": rank, "mor_dot": md_mor_dot(rank, mesh, totals)}
+    res["nan"] = md_nan(rank, mesh, totals)
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["train"] = md_train(rank, mesh, depth, ops, ref, totals)
+    res.update(launches=totals.launches, routes=totals.routes,
+               paths=totals.paths, s=time.perf_counter() - t0,
+               collectives=col.COLLECTIVES)
+    print(json.dumps(res), flush=True)
+
+
+def phase_multi_device(smi):
+    """Four ranks on the card (module docstring, item 15): the parent has
+    built the kernels; it starts MD_WORLD processes of this script on
+    cuda:0 (``md_rank``), each only loading them, and waits for all
+    (``launch.ranks.run_ranks``: a failed rank fails the phase, the
+    others are killed). Returns (the multi_device line, Totals of the
+    ranks' main-path runs summed)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.ranks import rank_env, run_ranks
+    t0 = time.perf_counter()
+    depth, reckoning = md_depth(get_config(MD_ARCH))
+    shutil.rmtree(MD_DIR, ignore_errors=True)
+    MD_DIR.mkdir(parents=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    env = rank_env(threads=2)
+    # Four processes share the card's memory: no rank may hold large
+    # reserved-but-unused blocks.
+    env["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+    try:
+        outs = run_ranks(
+            lambda r: [sys.executable, str(ROOT / "chip_smoke.py"),
+                       "--multi-device-rank", str(r), str(MD_DIR / "store"),
+                       str(depth)],
+            MD_WORLD, MD_TIMEOUT, env=env, cwd=str(ROOT))
+    finally:
+        shutil.rmtree(MD_DIR, ignore_errors=True)
+    ranks = [json.loads(o.strip().splitlines()[-1]) for o in outs]
+    check([r["rank"] for r in ranks] == list(range(MD_WORLD)),
+          "multi_device: a rank's result is missing")
+    totals = Totals()
+    totals.launches = {k: sum(r["launches"][k] for r in ranks)
+                       for k in ranks[0]["launches"]}
+    totals.routes = {k: {rt: sum(r["routes"][k][rt] for r in ranks)
+                         for rt in ("tile", "generic")} for k in TILE_KERNELS}
+    totals.paths = {k: sum(r["paths"][k] for r in ranks)
+                    for k in ("stream", "tc")}
+    for kern in ("gam_quant", "mor_select_select", "mor_select_pack",
+                 "mixed_gemm"):
+        check(totals.launches[kern] > 0,
+              f"multi_device: {kern} launched no time on its path")
+    check_tile_route(totals.routes, totals.launches, "multi_device")
+    train = [r["train"] for r in ranks]
+    res = {"world": MD_WORLD, "device": "cuda:0", "backend": "gloo",
+           "reckoning": reckoning, "checks": {
+               "a_mor_dot_wi": {r["rank"]: r["mor_dot"] for r in ranks},
+               "b_train": {"arch": train[0]["arch"], "depth": depth,
+                           "fwd_events_vs_one_rank_operand": [
+                               t["fwd_events_vs_one_rank_operand"]
+                               for t in train],
+                           "fwd_rows_equal_to_one_rank_step": [
+                               t["ranks"]["fwd_rows_equal_to_one_rank_step"]
+                               for t in train],
+                           "fwd_stats_rows": train[0]["ranks"][
+                               "fwd_stats_rows"],
+                           "kernel_vs_plain": {
+                               r["rank"]: r["train"]["kernel_vs_plain"]
+                               for r in ranks}},
+               "c_nan": {r["rank"]: r["nan"] for r in ranks}},
+           "step_s_one_rank": train[0]["one_rank"]["step_s"],
+           "tokens_one_rank": train[0]["one_rank"]["tokens"],
+           "step_s_ranks": [t["ranks"]["step_s"] for t in train],
+           "collectives_per_step": train[0]["ranks"]["collectives_per_step"],
+           "collective_host_s_per_step": [
+               t["ranks"]["collective_host_s_per_step"] for t in train],
+           "peak_gb_ranks": [t["ranks"]["peak_gb"] for t in train],
+           "losses_one_rank": train[0]["one_rank"]["losses"],
+           "losses_ranks": [t["ranks"]["losses"] for t in train],
+           "rank_s": [r["s"] for r in ranks],
+           "collectives_rank0": ranks[0]["collectives"],
+           "launches": totals.launches, "card": smi,
+           "phase_s": time.perf_counter() - t0}
+    return res, totals
 
 
 # The kernel API's full-width flash calls (bf16, causal, llama3-8b heads):
@@ -4095,6 +4590,13 @@ ZOO_ARCHS = ("granite-moe-1b-a400m", "gemma-2b", "moonshot-v1-16b-a3b")
 # 6,144 expert mor_dots. Depth 2 keeps every shape (4 until the script's
 # time limit needed the room for the recurrent families).
 MOONSHOT_LAYERS = 2
+# granite-moe-1b-a400m's engine runs and training steps at 8 of its 24
+# layers (its parity, expert-loop and depth-2 checks take one or two
+# layers): host-paced (the card idle ~0.88 of a decode call), their time
+# scales with depth, and every check they make holds at any depth. At
+# 24 layers they took 116 s of a 264 s model_zoo phase on a host where
+# the whole script took 1,093.4 s of its 1,200 (an H100 80GB HBM3, 700 W).
+GRANITE_LAYERS = 8
 ZOO_TRAIN_STEPS = 3
 ZOO_DEV = "cuda"
 
@@ -4777,6 +5279,8 @@ def phase_model_zoo(ops, ref, smi, cfgs=None):
     res = {"card": smi}
     res["moe_sublayer_parity"] = zoo_moe_parity(granite, ops, ref, smi)
     res["expert_loop"] = zoo_expert_loop(granite, smi)
+    if "granite-moe-1b-a400m" not in cfgs:
+        granite = dataclasses.replace(granite, n_layers=GRANITE_LAYERS)
     serve = {}
     params = init_params(granite, seed=0, device=ZOO_DEV)
     ref_out = None
@@ -4826,6 +5330,11 @@ def phase_model_zoo(ops, ref, smi, cfgs=None):
 FRONT_DEV = "cuda"
 FRONT_ARCHS = ("paligemma-3b", "whisper-tiny")
 FRONT_TRAIN_STEPS = 3
+# Depth of the engine-free serving runs (quantize, prefill, decode; for
+# whisper the ragged-GEMM parity too), by arch: paligemma-3b's at 6 of
+# its 18 layers (every check holds at any depth, and the runs' time is
+# per layer); training stays at full depth.
+FRONT_SERVE_LAYERS = {"paligemma-3b": 6}
 # paligemma-3b: 4 requests, each 256 stub patches and a 128-token prompt,
 # then 32 decode steps; training on 2 x (256 + 1024) positions.
 PALI_SERVE = {"batch": 4, "prompt": 128, "steps": 32}
@@ -5232,13 +5741,16 @@ def phase_frontends(ops, ref, smi, cfgs=None):
         key = cfg.name.split("-")[0]
         r = res[key] = {"serve": {}, "train": {}}
         t0 = time.perf_counter()
-        params = front_params(cfg)
-        qparams, r["quantize"] = front_quantize(cfg, params, f"{key}_quantize",
-                                                totals)
+        scfg = dataclasses.replace(cfg, n_layers=FRONT_SERVE_LAYERS.get(
+            cfg.name, cfg.n_layers))
+        r["serve_layers"] = scfg.n_layers
+        params = front_params(scfg)
+        qparams, r["quantize"] = front_quantize(scfg, params,
+                                                f"{key}_quantize", totals)
         del params
         ref_out = None
         for tier_name, tier in tiers:
-            row, out = front_serve(cfg, qparams, f"{key}_{tier_name}", tier,
+            row, out = front_serve(scfg, qparams, f"{key}_{tier_name}", tier,
                                    serve_run, smi, totals, ops)
             if ref_out is not None:
                 row["tokens_equal_to_bf16"] = float(
@@ -5246,9 +5758,9 @@ def phase_frontends(ops, ref, smi, cfgs=None):
             ref_out = out
             r["serve"][row["run"]] = row
         if cfg.family == "audio":
-            r["ragged_parity"] = front_ragged_parity(cfg, qparams, ops, ref,
+            r["ragged_parity"] = front_ragged_parity(scfg, qparams, ops, ref,
                                                      smi)
-            r["kv_tier_refusal"] = front_refusal(cfg)
+            r["kv_tier_refusal"] = front_refusal(scfg)
         del qparams
         for name, pol in policies:
             r["train"][name] = front_train(cfg, f"{key}_{name}", pol,
@@ -5291,6 +5803,12 @@ REC_NEW, REC_STAGGER = 32, 4
 # full-depth hymba step) gets the depth-2 step.
 REC_TRAIN = {"batch": 2, "seq": 128}
 REC_POLICIES = ("sub3", "sub3_fused")
+# The two steps at full width and a quarter of the depth (hymba 8 of 32
+# layers, xlstm 3 of 12 units): at full depth they took 47 s of a 182 s
+# recurrent phase on a host where the whole script took 1,093.4 s of its
+# 1,200 (an H100 80GB HBM3, 700 W); every check they make holds at any
+# depth.
+REC_TRAIN_LAYERS = {"hymba-1.5b": 8, "xlstm-350m": 6}
 # Depth 2, three ways: a prefill and 4 decode steps after it (each step
 # runs every GEMM three times in the plain version, ~0.1 s each); hymba's
 # prompt of 2560 tokens masks with its 2048 window (xlstm has no window:
@@ -5550,7 +6068,9 @@ def phase_recurrent(ops, ref, smi, cfgs=None):
         del params
         parts = {"serve": time.perf_counter() - t0}
         t = time.perf_counter()
-        r["train"] = rec_train(cfg, f"{key}_train", REC_POLICIES, smi,
+        tcfg = cfg if arch in cfgs else dataclasses.replace(
+            cfg, n_layers=REC_TRAIN_LAYERS[arch])
+        r["train"] = rec_train(tcfg, f"{key}_train", REC_POLICIES, smi,
                                totals)
         parts["train"] = time.perf_counter() - t
         t = time.perf_counter()
@@ -5591,6 +6111,9 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--multi-device-rank"]:
+        md_rank(int(sys.argv[2]), sys.argv[3], int(sys.argv[4]))
+        return 0
     t_start = time.perf_counter()
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import get_config
@@ -5662,6 +6185,8 @@ def main():
     train_depth2 = phase_train_depth2(cfg, ops, ref)
     gc.collect()
     torch.cuda.empty_cache()
+    md, md_totals = phase_multi_device(smi)
+    emit({"multi_device": md})
     t0 = time.perf_counter()
     state, state_launches, state_routes, state_dtypes = phase_train_state(
         ops, ref)
@@ -5696,7 +6221,8 @@ def main():
                    "train_state": state_launches[name],
                    "generic_smem": generic_launches[name],
                    "kernel_api": api_launches[name],
-                   "fault_tolerance": ft_launches[name]}
+                   "fault_tolerance": ft_launches[name],
+                   "multi_device": md_totals.launches[name]}
         check(sum(by_path.values()) > 0,
               f"{name}: no launch on any main path")
         entry = {
@@ -5714,7 +6240,8 @@ def main():
             entry["launches_by_gemm_path"] = {
                 k: engine_paths[k] + serve_totals.paths[k] + train_paths[k]
                 + ft_paths[k] + zoo_totals.paths[k] + front_totals.paths[k]
-                + rec_totals.paths[k] for k in ("stream", "tc")}
+                + rec_totals.paths[k] + md_totals.paths[k]
+                for k in ("stream", "tc")}
             entry["serve_tiers_gemm_paths"] = serve_totals.paths
             entry["recurrent_gemm_paths"] = rec_totals.paths
             entry["parity_max_err_over_tol"] = gemm_parity
@@ -5734,6 +6261,7 @@ def main():
                 + rec_totals.routes[name][r]
                 + train_routes[name][r] + state_routes[name][r]
                 + generic_routes[name][r] + ft_routes[name][r]
+                + md_totals.routes[name][r]
                 for r in ("tile", "generic")}
             entry["shapes"] = t["shapes"]
             entry["build"] = wgmma_build[

@@ -7,6 +7,7 @@ first access here, so either package can be imported first.
 """
 import importlib
 
+from .collectives import pmax_over, psum_over
 from .policy import (
     BF16_BASELINE,
     SUBTENSOR2_MOR,
@@ -16,6 +17,7 @@ from .policy import (
     MoRDotPolicy,
     MoRPolicy,
     paper_default,
+    with_mesh_axes,
 )
 
 _LAZY = {
@@ -28,7 +30,7 @@ _LAZY = {
 
 __all__ = [*_LAZY, "BF16_BASELINE", "SUBTENSOR2_MOR", "SUBTENSOR3_MOR",
            "SUBTENSOR4_MOR", "TENSOR_MOR", "MoRDotPolicy", "MoRPolicy",
-           "paper_default"]
+           "paper_default", "with_mesh_axes", "pmax_over", "psum_over"]
 
 
 def __getattr__(name):

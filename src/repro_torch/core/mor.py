@@ -15,6 +15,13 @@ packs.
 
 Stats layout v4 (14 f32 lanes) is the reference's; index it through the
 ``STAT_*`` constants.
+
+Under ``MoRPolicy.mesh_axes`` each rank quantizes its shard and every
+tensor-global aggregate (the group amax in ``kernels.ops``; here the
+counts, error sums, tag counts, fallback count and element count) is
+reduced over the mesh (``core.collectives``), at the reference's sites.
+The sums of one event go through one collective (:func:`_global_sums`);
+each lane is still reduced on its own, so the stats are the reference's.
 """
 from __future__ import annotations
 
@@ -26,6 +33,7 @@ from repro_torch.kernels import ops as kops
 from repro_torch.kernels import ref as _kref
 from repro_torch.kernels.ref import TAG_NVFP4, MixedOperand
 
+from .collectives import pmax_over, psum_over
 from .formats import E4M3, FormatSpec, cast_to_format, true_divide
 from .gam import GamScales, compute_scales
 from .partition import Partition, from_blocks, to_blocks
@@ -130,20 +138,37 @@ def _blocks_sum(t: torch.Tensor) -> torch.Tensor:
 
 
 def _size(x: torch.Tensor) -> float:
-    """Elements of one event's (M, K) operand."""
+    """Elements of one event's (M, K) operand (this rank's shard)."""
     return float(x.shape[-2] * x.shape[-1])
 
 
-def _guard_lanes(group_amax, block_err_sums=None):
-    """Guard lanes [12]/[13] from the group amax and the per-block error
-    sums the event already computed (a NaN/Inf element makes its
-    block's error sum nonfinite)."""
+def _global_sums(axes, *lanes):
+    """Each lane (a Python number, or a tensor of one event or of a
+    stack's events) summed over the mesh ``axes`` -- the reference's
+    ``psum_over`` of each, a number's as ``global_size`` -- in one
+    collective; with no axes the lanes as they are."""
+    if not axes:
+        return lanes
+    ts = [l for l in lanes if isinstance(l, torch.Tensor)]
+    shape = torch.broadcast_shapes(*(t.shape for t in ts))
+    v = psum_over(torch.stack([_f32(l, ts[0].device, shape)
+                               for l in lanes]), axes)
+    return tuple(v.unbind(0))
+
+
+def _fallback_count(block_err_sums) -> torch.Tensor:
+    """Blocks of the event whose error sum is nonfinite (a NaN/Inf
+    element makes its block's error sum nonfinite)."""
+    return _blocks_sum((~torch.isfinite(block_err_sums)).to(torch.float32))
+
+
+def _guard_lanes(group_amax, fallback=None):
+    """Guard lanes [12]/[13] from the (reduced) group amax and the
+    event's (reduced) count of nonfinite blocks."""
     amax_bad = ~torch.isfinite(group_amax.to(torch.float32))
     flags = torch.where(amax_bad, GUARD_NONFINITE_AMAX, GUARD_OK)
-    if block_err_sums is None:
+    if fallback is None:
         return flags, 0.0
-    fallback = _blocks_sum((~torch.isfinite(block_err_sums)).to(
-        torch.float32))
     flags = flags + torch.where(fallback > 0, GUARD_BLOCK_FALLBACK,
                                 GUARD_OK)
     return flags, fallback
@@ -152,17 +177,21 @@ def _guard_lanes(group_amax, block_err_sums=None):
 def _tensor_level(x2d: torch.Tensor, policy: MoRPolicy):
     """Tensor-level MoR [E4M3, BF16] (paper §3.1): block-scaled E4M3
     candidate, one global accept/reject of the mean relative error
-    against the Eq. 2 threshold. A nonfinite error rejects (NaN <
-    threshold is False), so a poisoned event stays BF16."""
+    against the Eq. 2 threshold (over the mesh: every rank takes the
+    same branch). A nonfinite error rejects (NaN < threshold is False),
+    so a poisoned event stays BF16."""
+    axes = policy.mesh_axes
     q = kops.quant_err(x2d, partition_of(policy), E4M3, policy.algo,
-                       backend=policy.backend)
-    cnt = _blocks_sum(q.counts)
-    err = _blocks_sum(q.err_sums) / torch.clamp_min(cnt, 1.0)
+                       backend=policy.backend, mesh_axes=axes)
+    cnt, esum, fb, size = _global_sums(
+        axes, _blocks_sum(q.counts), _blocks_sum(q.err_sums),
+        _fallback_count(q.err_sums), _size(x2d))
+    err = esum / torch.clamp_min(cnt, 1.0)
     ok = err < policy.threshold
     y = torch.where(ok[..., None, None], q.y, x2d)
     okf = ok.to(torch.float32)
-    nz = true_divide(cnt, _size(x2d))
-    gf, fb = _guard_lanes(q.group_amax, q.err_sums)
+    nz = true_divide(cnt, size)
+    gf, fb = _guard_lanes(q.group_amax, fb)
     stats = _stats(okf, err, q.group_amax, okf, 0.0, 1.0 - okf, nz,
                    q.group_mantissa, guard_flags=gf, fallback_count=fb,
                    device=x2d.device, shape=ok.shape)
@@ -175,12 +204,15 @@ def _tensor_level(x2d: torch.Tensor, policy: MoRPolicy):
 def _static_e4m3(x2d: torch.Tensor, policy: MoRPolicy):
     """Always-E4M3 static recipe: no BF16 arm, so the guard lanes only
     report poisoned blocks."""
+    axes = policy.mesh_axes
     q = kops.quant_err(x2d, partition_of(policy), E4M3, policy.algo,
-                       backend=policy.backend)
-    cnt = _blocks_sum(q.counts)
-    err = _blocks_sum(q.err_sums) / torch.clamp_min(cnt, 1.0)
-    nz = true_divide(cnt, _size(x2d))
-    gf, fb = _guard_lanes(q.group_amax, q.err_sums)
+                       backend=policy.backend, mesh_axes=axes)
+    cnt, esum, fb, size = _global_sums(
+        axes, _blocks_sum(q.counts), _blocks_sum(q.err_sums),
+        _fallback_count(q.err_sums), _size(x2d))
+    err = esum / torch.clamp_min(cnt, 1.0)
+    nz = true_divide(cnt, size)
+    gf, fb = _guard_lanes(q.group_amax, fb)
     stats = _stats(1.0, err, q.group_amax, 1.0, 0.0, 0.0, nz,
                    q.group_mantissa, guard_flags=gf, fallback_count=fb,
                    device=x2d.device, shape=err.shape)
@@ -190,21 +222,27 @@ def _static_e4m3(x2d: torch.Tensor, policy: MoRPolicy):
 
 
 def _sub_tensor_stats(r, policy: MoRPolicy, x_size: int) -> torch.Tensor:
-    """Aggregate one sub-tensor selection event into the stats vector."""
+    """Aggregate one sub-tensor selection event into the stats vector
+    (over the mesh: block, tag, nonzero and nonfinite-block counts, the
+    E4M3 error sums and the element count summed over it)."""
     dev = r.sel.device
-    nblocks = float(r.sel.shape[-2] * r.sel.shape[-1])
-    cnt = _blocks_sum(r.counts)
-    nz = true_divide(cnt, float(x_size))
+    tags = {"sub2": (0,), "sub3": (0, 1)}.get(policy.recipe,
+                                             (0, 1, TAG_NVFP4))
+    nblocks, cnt, e4, fb, size, *n_tag = _global_sums(
+        policy.mesh_axes, float(r.sel.shape[-2] * r.sel.shape[-1]),
+        _blocks_sum(r.counts), _blocks_sum(r.e4_sums),
+        _fallback_count(r.e4_sums), float(x_size),
+        *(_blocks_sum((r.sel == t).to(torch.float32)) for t in tags))
+    nz = true_divide(cnt, size)
     tot_n = torch.clamp_min(cnt, 1.0)
-    global_e4_err = _blocks_sum(r.e4_sums) / tot_n
+    global_e4_err = e4 / tot_n
     shape = cnt.shape
 
-    def frac(tag):
-        return true_divide(_blocks_sum((r.sel == tag).to(torch.float32)),
-                           nblocks)
+    def frac(i):
+        return true_divide(n_tag[i], nblocks)
 
     f4 = frac(0)
-    gf, fb = _guard_lanes(r.group_amax, r.e4_sums)
+    gf, fb = _guard_lanes(r.group_amax, fb)
     if policy.recipe == "sub2":
         return _stats(f4, global_e4_err, r.group_amax, f4, 0.0, 1.0 - f4,
                       nz, r.group_mantissa, guard_flags=gf,
@@ -214,19 +252,23 @@ def _sub_tensor_stats(r, policy: MoRPolicy, x_size: int) -> torch.Tensor:
         return _stats(f4, global_e4_err, r.group_amax, f4, f5,
                       1.0 - f4 - f5, nz, r.group_mantissa, guard_flags=gf,
                       fallback_count=fb, device=dev, shape=shape)
-    f_nv = frac(TAG_NVFP4)
+    f_nv = frac(2)
     return _stats(f_nv, global_e4_err, r.group_amax, f4, f5,
                   1.0 - f4 - f5 - f_nv, nz, r.group_mantissa, f_nv,
                   true_divide(f_nv, float(_kref.NVFP4_MICRO)), guard_flags=gf,
                   fallback_count=fb, device=dev, shape=shape)
 
 
-def _off_stats(x2d: torch.Tensor) -> torch.Tensor:
+def _off_stats(x2d: torch.Tensor, mesh_axes=()) -> torch.Tensor:
     """Stats of a disabled event: decision = -1.0 (the sentinel that
-    aggregation consumers filter on)."""
-    nz = true_divide(_blocks_sum((x2d != 0).to(torch.float32)),
-                     _size(x2d))
-    amax = torch.amax(x2d.to(torch.float32).abs(), dim=(-2, -1))
+    aggregation consumers filter on); nonzero fraction and amax over the
+    mesh."""
+    nnz, size = _global_sums(mesh_axes,
+                             _blocks_sum((x2d != 0).to(torch.float32)),
+                             _size(x2d))
+    nz = true_divide(nnz, size)
+    amax = pmax_over(torch.amax(x2d.to(torch.float32).abs(), dim=(-2, -1)),
+                     mesh_axes)
     gf, _ = _guard_lanes(amax)
     return _stats(-1.0, 0.0, amax, 0.0, 0.0, 1.0, nz, 1.0, guard_flags=gf,
                   device=x2d.device, shape=amax.shape)
@@ -236,7 +278,8 @@ def _sub_tensor(x2d: torch.Tensor, policy: MoRPolicy):
     """Sub-tensor MoR (§3.2 + sub4): one fused selection pass per block
     (``kops.mor_select``); only the stats aggregation lives here."""
     r = kops.mor_select(x2d, partition_of(policy), mode=policy.recipe,
-                        algo=policy.algo, backend=policy.backend)
+                        algo=policy.algo, backend=policy.backend,
+                        mesh_axes=policy.mesh_axes)
     return r.y, _sub_tensor_stats(r, policy, _size(x2d)), r.sel
 
 
@@ -257,7 +300,7 @@ def mor_quantize(x2d: torch.Tensor,
     """Fake-quantize one 2-D operand view (contraction last) under
     ``policy``: (y in x2d's dtype and shape, STATS_WIDTH stats)."""
     if not policy.enabled:
-        return x2d, _off_stats(x2d)
+        return x2d, _off_stats(x2d, policy.mesh_axes)
     y, stats, _ = _decide(x2d, policy)
     # Row-major whatever the view or the backend: the GEMM that consumes
     # y picks its summation order by layout, so kernel and plain paths
@@ -289,7 +332,8 @@ def _quantize_for_gemm(x: torch.Tensor, policy: MoRPolicy):
         block = Partition("block", policy.block_shape).resolve(
             tuple(x.shape[-2:]))
         return (kops._stacked_mixed([_kref.passthrough_mixed(x[e], block)
-                                     for e in range(E)]), _off_stats(x))
+                                     for e in range(E)]),
+                _off_stats(x, policy.mesh_axes))
     if policy.partition != "block":
         raise ValueError(
             "quantize_for_gemm requires partition='block' (got "
@@ -306,11 +350,13 @@ def _quantize_for_gemm(x: torch.Tensor, policy: MoRPolicy):
     if policy.recipe in ("sub2", "sub3", "sub4"):
         mo, r = kops.quantize_pack(x, part, mode=policy.recipe,
                                    algo=policy.algo,
-                                   backend=policy.backend)
+                                   backend=policy.backend,
+                                   mesh_axes=policy.mesh_axes)
         return mo, _sub_tensor_stats(r, policy, _size(x))
     _, stats, tags = _decide(x, policy)
-    # The decision path's group amax, so the pack's Alg. 1 scales can
-    # never disagree with the decisions in `tags`.
+    # The decision path's group amax (over the mesh under mesh_axes), so
+    # the pack's Alg. 1 scales can never disagree with the decisions in
+    # `tags`.
     return kops._stacked_mixed([
         _kref.pack_mixed(x[e], tags[e], block, policy.algo,
                          group_amax=stats[e, STAT_AMAX], with_nvfp4=False)

@@ -12,7 +12,7 @@ from typing import Tuple
 
 __all__ = ["MoRPolicy", "MoRDotPolicy", "TENSOR_MOR", "SUBTENSOR2_MOR",
            "SUBTENSOR3_MOR", "SUBTENSOR4_MOR", "BF16_BASELINE",
-           "paper_default", "BACKENDS"]
+           "paper_default", "with_mesh_axes", "BACKENDS"]
 
 BACKENDS = ("auto", "torch", "cuda")
 
@@ -25,6 +25,9 @@ class MoRPolicy:
     the reference for the semantics of each). ``threshold`` is the
     'tensor' recipe's Eq. 2 acceptance bound on the global mean
     relative error of the E4M3 candidate (th_E4M3, paper default 4.5%).
+    ``mesh_axes`` names the mesh axes (``core.collectives``) the event's
+    tensor-global statistics are reduced over when each rank holds a
+    shard of the operand.
     """
 
     recipe: str = "tensor"
@@ -42,11 +45,6 @@ class MoRPolicy:
         if self.backend not in BACKENDS:
             raise ValueError(
                 f"unknown backend {self.backend!r} (want one of {BACKENDS})"
-            )
-        if self.mesh_axes:
-            raise NotImplementedError(
-                "mesh_axes: multi-device quantization is not ported yet "
-                "(repro.core.collectives)"
             )
 
     @property
@@ -92,6 +90,21 @@ def paper_default(recipe: str = "tensor", partition: str = "block",
     p = MoRPolicy(recipe=recipe, partition=partition,
                   block_shape=block_shape, threshold=threshold, algo=algo)
     return MoRDotPolicy(act=p, weight=p, grad=p)
+
+
+def with_mesh_axes(policy: MoRDotPolicy,
+                   axes: Tuple[str, ...]) -> MoRDotPolicy:
+    """The same dot policy with every operand event reducing its global
+    statistics over ``axes`` (for code run by each rank of a mesh on its
+    shard). Safe to apply uniformly: a *replicated* operand's decisions
+    are unchanged because every decision-bearing aggregate is a ratio of
+    two sums or a max (docs/sharding.md, 'replication safety')."""
+    axes = tuple(axes)
+    return policy.replace(
+        act=policy.act.replace(mesh_axes=axes),
+        weight=policy.weight.replace(mesh_axes=axes),
+        grad=policy.grad.replace(mesh_axes=axes),
+    )
 
 
 TENSOR_MOR = paper_default("tensor")

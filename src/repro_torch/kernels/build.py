@@ -8,7 +8,8 @@ fast-math changes IEEE division and flushes denormals. Libraries are
 cached in ``build/kernels/`` at the repository root (listed in
 ``.gitignore``) under a SHA-256 digest of the sources and flags, so an
 edited source rebuilds. :func:`build_all` starts one ``nvcc`` per source
-at once.
+at once. The processes of a multi-process world only load what their
+parent built (:func:`_build`).
 """
 from __future__ import annotations
 
@@ -66,12 +67,19 @@ def _target(name: str) -> Path:
 
 def _build(names) -> Dict[str, str]:
     """Build the named libraries not yet cached, one nvcc per source, all
-    started together; returns each fresh build's compiler log."""
+    started together; returns each fresh build's compiler log. In a
+    process started with ``REPRO_TORCH_PREBUILT=1`` (a rank of a
+    multi-process world, ``launch.ranks.rank_env``) a missing
+    library raises instead: the parent builds, the ranks only load."""
     started = {}
     for name in names:
         so = _target(name)
         if so.exists():
             continue
+        if os.environ.get("REPRO_TORCH_PREBUILT") == "1":
+            raise RuntimeError(
+                f"kernel library {so.name} is not built: run "
+                f"kernels.build.build_all() before starting the ranks")
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *_COMMON, *SOURCES[name], "-I", str(CSRC), "-o",

@@ -32,6 +32,7 @@ from repro_torch.core.formats import (
     FormatSpec,
     true_divide,
 )
+from repro_torch.core.collectives import pmax_over
 from repro_torch.core.gam import split_mantissa_exponent
 from repro_torch.core.partition import Partition
 
@@ -110,17 +111,26 @@ def _group_mantissa(safe_g: torch.Tensor, fmt: FormatSpec, algo: str):
 SELECT_FORMATS = (E4M3, E5M2, NVFP4)
 
 
-def _kernel_inputs(x: torch.Tensor, block, fmts, algo: str):
+def _group_amax(x: torch.Tensor, mesh_axes=()) -> torch.Tensor:
+    """Each event's raw group amax (E,) of a stack (E, M, K), reduced over
+    ``mesh_axes`` (one collective for the stack) when each rank holds a
+    shard: the group amax, and the Alg. 1 mantissa derived from it, must
+    be the amax of the *whole* tensor, not of this rank's shard."""
+    return pmax_over(_amax_abs(x), mesh_axes)
+
+
+def _kernel_inputs(x: torch.Tensor, block, fmts, algo: str, mesh_axes=()):
     """The kernels' prologue of a stack of E events (E, M, K), each its
     own group: the stack padded to the block grid, each event's raw group
-    amax (E,), and the (E, len(fmts) + 1) kernel scalars (each format's
-    group mantissa, then the guarded group amax), all computed once for
-    the stack (the kernel wrappers then launch once an event)."""
+    amax (E,) (over the mesh: :func:`_group_amax`), and the (E, len(fmts)
+    + 1) kernel scalars (each format's group mantissa, then the guarded
+    group amax), all computed once for the stack (the kernel wrappers
+    then launch once an event)."""
     bm, bk = block
     _, M, K = x.shape
     pm, pk = (-M) % bm, (-K) % bk
     xp = (F.pad(x, (0, pk, 0, pm)) if pm or pk else x).contiguous()
-    g_amax = _amax_abs(x)
+    g_amax = _group_amax(x, mesh_axes)
     # Zero and nonfinite guard: an Inf amax would otherwise poison the
     # Alg. 1 mantissa of every block; the raw value goes to the stats'
     # guard lanes.
@@ -148,6 +158,13 @@ def _one(r):
     return type(r)(*(None if f is None else f[0] for f in r))
 
 
+def _plain_amax(x: torch.Tensor, mesh_axes):
+    """Per-event group amaxes for the plain versions of a stack: None off
+    a mesh (each derives its event's own), else the reduced ones."""
+    return [None] * x.shape[0] if not mesh_axes else list(
+        _group_amax(x, mesh_axes))
+
+
 def _stacked_mixed(mos) -> MixedOperand:
     """Per-event packs stacked into one MixedOperand with a leading axis
     on every lane."""
@@ -160,7 +177,8 @@ def _stacked_mixed(mos) -> MixedOperand:
 
 
 def quant_err(x: torch.Tensor, part: Partition, fmt: FormatSpec = E4M3,
-              algo: str = "gam", *, backend: str = "auto") -> QuantErr:
+              algo: str = "gam", *, backend: str = "auto",
+              mesh_axes=()) -> QuantErr:
     """Fused quantize + per-block error sums of a 2-D operand: the
     event of the 'tensor' and 'e4m3' recipes. The kernel path pads to
     the block grid (zeros quantize exactly and add nothing to the sums
@@ -169,21 +187,28 @@ def quant_err(x: torch.Tensor, part: Partition, fmt: FormatSpec = E4M3,
 
     A 3-D x is a stack of E events (the MoE experts' operands, each its
     own group): every field gains a leading axis; the prologue runs once
-    for the stack and the kernel launches once an event."""
+    for the stack and the kernel launches once an event.
+
+    ``mesh_axes``: the mesh axes x is sharded over (``MoRPolicy.
+    mesh_axes``); the group amax is then reduced over them, on both
+    backends."""
     if x.ndim == 2:
-        return _one(_quant_err(x[None], part, fmt, algo, backend))
-    return _quant_err(x, part, fmt, algo, backend)
+        return _one(_quant_err(x[None], part, fmt, algo, backend,
+                               mesh_axes))
+    return _quant_err(x, part, fmt, algo, backend, mesh_axes)
 
 
-def _quant_err(x, part, fmt, algo, backend) -> QuantErr:
+def _quant_err(x, part, fmt, algo, backend, mesh_axes) -> QuantErr:
     """:func:`quant_err` of a stack (E, M, K)."""
     be = _kernel_backend(backend, part, x)
     E, M, K = x.shape
     if be == "torch":
-        return QuantErr(*_stacked([_ref.quant_err_ref(x[e], part, fmt, algo)
+        ga = _plain_amax(x, mesh_axes)
+        return QuantErr(*_stacked([_ref.quant_err_ref(x[e], part, fmt, algo,
+                                                      group_amax=ga[e])
                                    for e in range(E)]))
     bm, bk = part.resolve((M, K))
-    xp, g_amax, mg = _kernel_inputs(x, (bm, bk), (fmt,), algo)
+    xp, g_amax, mg = _kernel_inputs(x, (bm, bk), (fmt,), algo, mesh_axes)
     xq, _, err_sums, counts = gam_quant_blocks(
         xp, mg, block=(bm, bk), q_amax=fmt.amax, fmt_dtype=fmt.dtype,
         algo=algo)
@@ -207,18 +232,21 @@ def gam_quant(x: torch.Tensor, *, block=(128, 128), fmt: FormatSpec = E4M3,
 
 
 def mor_select(x: torch.Tensor, part: Partition, mode: str = "sub3",
-               algo: str = "gam", *, backend: str = "auto") -> MorSelect:
+               algo: str = "gam", *, backend: str = "auto",
+               mesh_axes=()) -> MorSelect:
     """Fused sub-tensor MoR selection (sub2/sub3/sub4) of a 2-D operand
     with the fake-quant output ``y`` in x's dtype: one
     ``mor_select_select`` launch on a CUDA tensor, of the kernel's
     instance for x's dtype (bf16, or f32 as the gradient compression's
-    views are). A stack of events as in :func:`quant_err`."""
+    views are). A stack of events and ``mesh_axes`` as in
+    :func:`quant_err`."""
     if x.ndim == 2:
-        return _one(_mor_select(x[None], part, mode, algo, backend))
-    return _mor_select(x, part, mode, algo, backend)
+        return _one(_mor_select(x[None], part, mode, algo, backend,
+                                mesh_axes))
+    return _mor_select(x, part, mode, algo, backend, mesh_axes)
 
 
-def _mor_select(x, part, mode, algo, backend) -> MorSelect:
+def _mor_select(x, part, mode, algo, backend, mesh_axes) -> MorSelect:
     """:func:`mor_select` of a stack (E, M, K)."""
     be = _kernel_backend(backend, part, x)
     E, M, K = x.shape
@@ -229,10 +257,12 @@ def _mor_select(x, part, mode, algo, backend) -> MorSelect:
         # sends other callers to its XLA path.
         be = "torch"
     if be == "torch":
+        ga = _plain_amax(x, mesh_axes)
         return MorSelect(*_stacked([_ref.mor_select_ref(x[e], part, mode,
-                                                        algo)
+                                                        algo, ga[e])
                                     for e in range(E)]))
-    xp, g_amax, mg = _kernel_inputs(x, (bm, bk), SELECT_FORMATS, algo)
+    xp, g_amax, mg = _kernel_inputs(x, (bm, bk), SELECT_FORMATS, algo,
+                                    mesh_axes)
     f = mor_select_select(xp, mg, block=(bm, bk), mode=mode, algo=algo)
     return MorSelect(
         y=f["y"][:, :M, :K], sel=f["sel"], e4_sums=f["e4_sums"],
@@ -241,33 +271,37 @@ def _mor_select(x, part, mode, algo, backend) -> MorSelect:
 
 
 def quantize_pack(x: torch.Tensor, part: Partition, mode: str = "sub3",
-                  algo: str = "gam", *, backend: str = "auto"):
+                  algo: str = "gam", *, backend: str = "auto",
+                  mesh_axes=()):
     """One-pass sub-tensor selection *and* real packing of a 2-D
     operand: returns ``(MixedOperand, MorSelect)`` with ``y=None``.
 
     The kernel path pads the operand to the block grid, computes the
     group amax and the three Alg. 1 group mantissas outside the kernel
     (as the reference does), and launches ``mor_select_pack`` once. A
-    stack of events as in :func:`quant_err`: one MixedOperand with a
-    leading axis on every lane.
+    stack of events and ``mesh_axes`` as in :func:`quant_err`: one
+    MixedOperand with a leading axis on every lane.
     """
     if x.ndim == 2:
-        mo, r = _quantize_pack(x[None], part, mode, algo, backend)
+        mo, r = _quantize_pack(x[None], part, mode, algo, backend,
+                               mesh_axes)
         return mo.stack_index(0), _one(r)
-    return _quantize_pack(x, part, mode, algo, backend)
+    return _quantize_pack(x, part, mode, algo, backend, mesh_axes)
 
 
-def _quantize_pack(x, part, mode, algo, backend):
+def _quantize_pack(x, part, mode, algo, backend, mesh_axes):
     """:func:`quantize_pack` of a stack (E, M, K)."""
     be = _kernel_backend(backend, part, x)
     E, M, K = x.shape
     bm, bk = part.resolve((M, K))
     if be == "torch":
-        packs = [_ref.quantize_pack_ref(x[e], part, mode, algo)
+        ga = _plain_amax(x, mesh_axes)
+        packs = [_ref.quantize_pack_ref(x[e], part, mode, algo, ga[e])
                  for e in range(E)]
         return (_stacked_mixed([p[0] for p in packs]),
                 MorSelect(*_stacked([p[1] for p in packs])))
-    xp, g_amax, mg = _kernel_inputs(x, (bm, bk), SELECT_FORMATS, algo)
+    xp, g_amax, mg = _kernel_inputs(x, (bm, bk), SELECT_FORMATS, algo,
+                                    mesh_axes)
     return _pack_launch(xp, g_amax, mg, (bm, bk), (M, K), mode, algo)
 
 def _pack_launch(xp, g_amax, mg, block, shape, mode: str, algo: str):

@@ -499,9 +499,9 @@ def mor_select_ref(x: torch.Tensor, part: Partition, mode: str = "sub3",
     ``y``: each block's winning candidate as stored (in x's dtype), the
     NVFP4 snap included under sub4; BF16 blocks keep their input values.
     ``group_amax``: the raw group amax to scale by where x is a stripe of
-    block rows of a larger operand (the stripe's blocks then decide as
-    they do in the whole, as a shard's do under the reference's
-    ``mesh_axes``); by default x's own."""
+    block rows of a larger operand or one rank's shard of it (its blocks
+    then decide as they do in the whole; ``MoRPolicy.mesh_axes``); by
+    default x's own."""
     mor_select_ref.calls += 1
     return _select(x, part, mode, algo, want_y=True, group_amax=group_amax)
 
@@ -510,13 +510,15 @@ mor_select_ref.calls = 0
 
 
 def quant_err_ref(x: torch.Tensor, part: Partition, fmt: FormatSpec,
-                  algo: str = "gam") -> QuantErr:
+                  algo: str = "gam", group_amax=None) -> QuantErr:
     """Plain version of the one-format event behind the 'tensor' and
     'e4m3' recipes: fake-quantize under Alg. 1 scales, per-block error
-    sums on the stored values and nonzero counts."""
+    sums on the stored values and nonzero counts. ``group_amax`` as in
+    :func:`mor_select_ref`."""
     quant_err_ref.calls += 1
     xb = to_blocks(x, part)
-    xqb, scales, err_sums, counts = _blocked_quant_err(xb, fmt, algo)
+    xqb, scales, err_sums, counts = _blocked_quant_err(xb, fmt, algo,
+                                                       group_amax)
     return QuantErr(from_blocks(xqb, tuple(x.shape)), err_sums, counts,
                     scales.group_amax, scales.group_mantissa)
 
@@ -547,12 +549,12 @@ gam_quant_ref.calls = 0
 
 
 def quantize_pack_ref(x: torch.Tensor, part: Partition, mode: str = "sub3",
-                      algo: str = "gam"):
+                      algo: str = "gam", group_amax=None):
     """Plain version of the pack-emitting selection kernel: selection,
     then ``pack_mixed`` over its tags. Returns (MixedOperand, MorSelect
-    with y=None)."""
+    with y=None). ``group_amax`` as in :func:`mor_select_ref`."""
     quantize_pack_ref.calls += 1
-    r = _select(x, part, mode, algo, want_y=False)
+    r = _select(x, part, mode, algo, want_y=False, group_amax=group_amax)
     block = part.resolve(tuple(x.shape))
     mo = pack_mixed(x, r.sel, block, algo, group_amax=r.group_amax,
                     with_nvfp4=(mode == "sub4"))

@@ -5,9 +5,14 @@ of ``repro.train.train_step``).
 Gradient compression (``optim.compress``), packed Adam moments
 (``optim.moments``) and the skip-step guard (``robust.guard``) are
 ported, and so is the chaos harness's gradient hook (``grad_fault``).
-The shard_map statistics axes (``mor_mesh_axes``) are not: asking for
-them raises. The step updates the optimizer state in place
-(``optim.adamw``).
+The step updates the optimizer state in place (``optim.adamw``).
+
+``TrainConfig.mor_mesh_axes``: the step as each rank of a data-parallel
+mesh runs it on its own shard of the batch (the reference's step inside
+``shard_map``): every MoR statistic, the gradient compression's too, is
+reduced over those axes (``core.collectives``, bound by ``use_mesh``),
+while the loss, the gradients and the update stay the rank's own. Like
+the reference's step, it reduces no gradient.
 """
 from __future__ import annotations
 
@@ -23,7 +28,7 @@ from repro_torch.core.mor import (STAT_DECISION, STAT_FALLBACK_COUNT,
                                   STAT_FRAC_BF16, STAT_GUARD_FLAGS,
                                   STAT_PAYLOAD_BPE, STAT_REL_ERR,
                                   STATS_WIDTH)
-from repro_torch.core.policy import MoRDotPolicy, MoRPolicy
+from repro_torch.core.policy import MoRDotPolicy, MoRPolicy, with_mesh_axes
 from repro_torch.models.api import make_loss_fn, make_tokens
 from repro_torch.optim.adamw import (AdamWConfig, OptState, adamw_update,
                                      global_norm, tree_leaves, tree_map)
@@ -56,7 +61,8 @@ class TrainConfig:
     aux_coef: float = 0.01
     # ZeRO-2 gradient sharding for GSPMD: accepted and ignored (one card).
     zero2_grads: bool = True
-    # The batch-sharded mesh axes of a shard_map trainer: not ported.
+    # The batch-sharded mesh axes of a data-parallel trainer whose ranks
+    # each run the step on their shard (core.collectives.use_mesh).
     mor_mesh_axes: Tuple[str, ...] = ()
     # Numerics guard rails (robust.guard): with a GuardPolicy a nonfinite
     # global grad norm drops the update, and the step keeps the EF
@@ -64,10 +70,7 @@ class TrainConfig:
     guard: Optional[GuardPolicy] = None
 
     def __post_init__(self):
-        if self.mor_mesh_axes:
-            raise NotImplementedError(
-                "mor_mesh_axes: multi-device statistics are not ported "
-                "yet (repro.core.collectives)")
+        object.__setattr__(self, "mor_mesh_axes", tuple(self.mor_mesh_axes))
         if self.grad_accum < 1:
             raise ValueError(f"grad_accum must be >= 1, got "
                              f"{self.grad_accum}")
@@ -148,6 +151,12 @@ def make_train_step(cfg: ArchConfig, policy: MoRDotPolicy,
     (``robust.faults.make_grad_fault`` builds hooks gated on a
     ``batch['inject']`` flag, so one step function serves clean and
     injected steps). It must be the identity on clean batches."""
+    grad_policy = tcfg.grad_policy
+    if tcfg.mor_mesh_axes:
+        policy = with_mesh_axes(policy, tcfg.mor_mesh_axes)
+        # Gradient compression quantizes global gradients: its
+        # statistics are reduced like every other event's.
+        grad_policy = grad_policy.replace(mesh_axes=tcfg.mor_mesh_axes)
     loss_fn = make_loss_fn(cfg, policy, remat=tcfg.remat,
                            aux_coef=tcfg.aux_coef)
 
@@ -197,8 +206,7 @@ def make_train_step(cfg: ArchConfig, policy: MoRDotPolicy,
         grad_stats, new_ef = None, opt_state.ef
         if tcfg.compress_grads != "none":
             new_ef, grad_stats = _compress_leafwise(
-                g_params, opt_state.ef, tcfg.compress_grads,
-                tcfg.grad_policy)
+                g_params, opt_state.ef, tcfg.compress_grads, grad_policy)
         new_params, new_opt, opt_metrics = adamw_update(
             tcfg.optimizer, g_params, opt_state, moments=tcfg.moments,
             guard=tcfg.guard)

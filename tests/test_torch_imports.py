@@ -45,6 +45,8 @@ def test_port_tree_is_present():
                  "src/repro_torch/configs/hymba_1_5b.py",
                  "src/repro_torch/configs/xlstm_350m.py",
                  "src/repro_torch/models/recurrent.py",
+                 "src/repro_torch/core/collectives.py",
+                 "src/repro_torch/launch/ranks.py",
                  "chip_smoke.py"):
         assert must in names
 

@@ -517,17 +517,32 @@ def test_aux_coef_leaves_the_dense_loss_unchanged():
 
 
 @pytest.mark.parametrize("what,match", (
-    ("mor_mesh_axes", "repro.core.collectives"),))
+    pytest.param("mor_mesh_axes", "'data'",
+                 id="mor_mesh_axes-repro.core.collectives"),))
 def test_unported_parameters_raise_naming_their_item(what, match):
-    """Away from the reference's defaults, the parameters of unported
-    features raise NotImplementedError naming the reference module they
-    wait for; at the defaults they do nothing. (``ckpt_every``, ``keep``
-    and ``grad_fault`` are ported: tests/test_torch_checkpoint.py and
-    tests/test_torch_faults.py.)"""
-    from repro_torch.train import TrainConfig
-    with pytest.raises(NotImplementedError, match=match):
-        TrainConfig(mor_mesh_axes=("data",))
-    TrainConfig(mor_mesh_axes=())
+    """``mor_mesh_axes`` (ported with ``repro_torch.core.collectives``):
+    a step built with it and run outside a bound mesh raises a
+    ValueError naming the unbound axis, as the reference fails at trace
+    time outside ``shard_map``; at the default ``()`` it does nothing.
+    (``ckpt_every``, ``keep`` and ``grad_fault`` are ported:
+    tests/test_torch_checkpoint.py and tests/test_torch_faults.py.)"""
+    from repro_torch.core.policy import paper_default
+    from repro_torch.models.api import init_params
+    from repro_torch.optim import init_opt_state
+    from repro_torch.train import TrainConfig, make_train_step
+    cfg = _tiny_cfg()
+    params = init_params(cfg, seed=0, device="cpu")
+    rng = np.random.default_rng(0)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (2, 16)))
+             for k in ("tokens", "labels")}
+    step = make_train_step(cfg, paper_default("tensor"),
+                           TrainConfig(**{what: ("data",)}))
+    with pytest.raises(ValueError, match=match):
+        step(params, init_opt_state(params), batch)
+    assert TrainConfig(**{what: ()}).mor_mesh_axes == ()
+    _, _, m = make_train_step(cfg, paper_default("tensor"), TrainConfig(
+        **{what: ()}))(params, init_opt_state(params), batch)
+    assert np.isfinite(float(m["loss"]))
 
 
 def _head_inputs(device, tied, V=300, d=64):
