@@ -32,8 +32,10 @@
    chunk (M = 32), on a wi weight of every sub3 tag and at the f32 head
    (M = 4 x 128256), each with its bytes per second, bound and
    ``torch.matmul`` on the decoded weight.
-4. Serves 8 requests through the llama3-8b engine at full width with
-   sub3-quantized random weights, and checks that every GEMM of the run
+4. Serves 8 requests through the llama3-8b engine at full width and
+   depth 8 (``ENGINE_LAYERS``; it ran all 32 before tp_serve needed
+   the room) with sub3-quantized random weights, and checks that every
+   GEMM of the run
    went through ``mixed_gemm``'s stream path and every weight through
    ``mor_select_pack``'s tile route (launch counters), never the plain
    versions.
@@ -142,19 +144,19 @@
    reduced nemotron3-8b (d 64) on the card, every f32 select launching.
 
 11. The serving tiers (``phase_serve_tiers``), llama3-8b at full width
-   with sub3 QTensor weights, each tree quantized once: (a) at depth 8
+   with sub3 QTensor weights, each tree quantized once: (a) at depth 4
    (``SERVE_TIER_LAYERS``) the engine on bf16, kv_fp8, kv_mor and kv_mor
    + kv_mor_cold=64 + kv_guard pools (phase_engine's 8 requests and one
    of 300 + 32 tokens): every GEMM on the stream path, bytes per token
-   32,768 / 16,896 / 17,024 / 17,024, pages
+   16,384 / 8,448 / 8,512 / 8,512 (4,096 / 2,112 / 2,128 a layer), pages
    sealed and every sealed slab equal to the CPU's
    ``recompress_kv_nvfp4`` of its hot lanes, step and chunk ms, tokens/s,
    peak GB, the pool's census and the share of tokens equal to the bf16
    run's; (b) layer 0's fp8 and MoR lanes written on the card equal to
    ``quantize_kv`` / ``quantize_kv_mor`` on the CPU on the bf16 run's
-   rows, bit for bit (at depth 8 too); (c) at full depth,
-   ``make_prefill_fn`` on a 2048-token prompt with all 4L + 1 GEMMs on
-   the tc path, that prompt served through
+   rows, bit for bit (at depth 4 too); (c) at depth 4 as well (full
+   depth before tp_serve), ``make_prefill_fn`` on a 2048-token prompt
+   with all 4L + 1 GEMMs on the tc path, that prompt served through
    ``_full_prefill`` into a kv_mor pool beside the chunked engine, and a
    depth-2 512-token prefill three ways (step 5's rule); (d)
    the KV-page guard on a trashed page of a MoR and an fp8 pool (4
@@ -164,13 +166,13 @@
    the catching step.
 
 12. The model zoo (``phase_model_zoo``): the MoE family and gemma-2b.
-   (a) granite-moe-1b-a400m at full width (32 experts, top-8) and 8 of
+   (a) granite-moe-1b-a400m at full width (32 experts, top-8) and 4 of
    its 24 layers (``GRANITE_LAYERS``) served by the Engine with sub3
    QTensor attention
    weights (the expert stacks and routers stay dense, as in the
    reference) on bf16 and kv_mor pools, phase_engine's 8 requests: every
    attention GEMM on the stream path, every expert event on gam_quant,
-   no selection, no plain call, bytes per token 16,384 / 8,832 (49,152 /
+   no selection, no plain call, bytes per token 8,192 / 4,416 (49,152 /
    26,496 at full depth), step
    and chunk ms, tokens/s, peak GB, a profiled decode call with its ATen
    operators and launches, each layer's dropped share and aux_loss in a
@@ -180,10 +182,11 @@
    0.01 aux_loss, the router bf16 after the first step, every event and
    fused GEMM on the kernels. (b) moonshot-v1-16b-a3b at full width and
    depth 2 (``MOONSHOT_LAYERS``): 4 requests on a bf16 pool (16,384
-   bytes per token) and one sub3 step. (c) gemma-2b at full depth on
-   bf16 and kv_mor pools (18,432 / 9,396 bytes per token), every GEMM
-   but the tied head on the stream path. (d) ``moe_sublayer`` alone at
-   granite's width on 2 x 1024 and 4 x 1 inputs, forward and one
+   bytes per token) and one sub3 step. (c) gemma-2b at 6 of its 18
+   layers (``GEMMA_LAYERS``; full depth before tp_serve) on bf16 and
+   kv_mor pools (6,144 / 3,132 bytes per token; 18,432 / 9,396 at full
+   depth), every GEMM but the tied head on the stream path. (d)
+   ``moe_sublayer`` alone at granite's width on 2 x 1024 and 4 x 1 inputs, forward and one
    backward, under the tensor recipe, sub3 and fused sub3: kernel path
    against plain path bit for bit (the relative-error lanes within
    1e-6); fused, every expert GEMM (tc at 2 x 1024, stream at 4 x 1)
@@ -280,10 +283,47 @@
    NaN in one rank's shard: every rank's amax and guard lanes equal the
    one-rank run's, and ``pmax_over`` is NaN on every rank.
 
+16. Tensor-parallel serving (``phase_tp_serve``, after
+   ``multi_device``, on its rank machinery): llama3-8b at full width and
+   depth 8 (``TP_DEPTHS``: the first the per-rank memory reckoning
+   allows; every rank draws and quantizes the global params before it
+   cuts them), sub3 weights, a (data 1, model 4) mesh of TP_WORLD = 4
+   gloo ranks on cuda:0 (``--tp-serve-rank``); then short runs of
+   gemma-2b (the tied head of a vocab-sharded embedding) and
+   deepseek-coder-33b (a cut quantized head; mlp/wo left whole), at
+   ``TP_EXTRA``'s depths. Two one-rank Engines per run go first, in this
+   process, and are freed: the plain one, and one whose row-parallel
+   weights sum four K quarters in f32 in rank order (``tp_emulated``),
+   which computes what the ranks compute. (a) Layer 0's four GEMMs and
+   the head on the same replicated inputs (M = 4 and 512) against the
+   one-rank GEMM on the card: wqkv and mlp/wi (column-parallel) bit for
+   bit, which gates the planning of a shard's split of K by the whole
+   product (``mixed_gemm_blocks``' ``_plan``), and the head, which the
+   rules leave whole at 4 ranks (1002 row blocks), too; wo and mlp/wo
+   (row-parallel) within one bf16 ulp + 2^-20 sum |x||w|
+   (``tp_row_bound``). (b) Engine(mesh=), 4 slots, 8 requests of 32-300
+   prompt tokens and 16 new ones (the extra runs: 4 of 32-96 and 8):
+   every rank's logits bit for bit the other ranks' (digests of every
+   model call), every sampled row and token bit for bit the emulated
+   engine's; against the plain engine each row within TP_LOGIT_BOUND of
+   its max |logit| and the token equal where the top-2 margin exceeds
+   that bound (near-ties counted); one collective a cut weight of a
+   layer, plus the embedding's and a cut head's, a decode call. (c) A
+   512-token one-shot prefill through ``make_prefill_fn`` on the cut
+   weights (the tc path): every layer's K/V and the logits bit for bit
+   the emulated prefill's, the logits against the plain one by (b)'s
+   bound; a control with layer 1's wo reading layer 2's blocks must
+   keep layers 0-1's K/V, change every later layer's and fail the
+   bound. (d) A rank's weight bytes: a quarter of the one-rank QTensor
+   bytes beside the lanes every rank holds whole, exactly; no live bf16
+   tensor of a quantized weight's shape. The line gives each check, the
+   decode step's ms on 4 ranks and on one, the collectives a decode
+   call and their host seconds, and weight GB a rank.
+
 Prints JSON lines (the ``kernels``, ``engine``, ``serve_tiers``,
 ``model_zoo``, ``frontends``, ``recurrent``, ``train``, ``train_state``,
-``fault_tolerance``, ``generic_smem``, ``kernel_api`` and
-``multi_device`` lines among them) and ends with
+``fault_tolerance``, ``generic_smem``, ``kernel_api``,
+``multi_device`` and ``tp_serve`` lines among them) and ends with
 ``{"ok": true, "device":
 ...}``. Exits non-zero on any failure, without a card, or without the
 rest of the repository beside it.
@@ -306,13 +346,19 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 BF16_FLOPS = 989e12           # H100 SXM dense bf16 tensor-core peak
 N_LAYERS = 32                 # llama3-8b depth; cut only if time forces it
-# The serving tiers' engine runs (phase_serve_tiers (a), (b)) at depth 8:
-# they are host-paced (the card idle ~0.92 of a decode step), so their
-# time scales with depth, and every check they make (lanes, tokens,
-# census, sealing, bytes per token) holds at any depth; the script's
-# 1,200 s limit needs the room. The 2048-token prefill and the one-shot
-# against chunked prefill stay at full depth.
-SERVE_TIER_LAYERS = 8
+# The engine phase (item 4) at depth 8 (32 before):
+# host-paced (the card idle ~0.9 of a decode call), its time scales with
+# depth, and every check it makes (launch counts per layer, paths,
+# routes, tokens) holds at any depth; tp_serve needed the room.
+ENGINE_LAYERS = 8
+# The serving tiers' engine runs (phase_serve_tiers (a), (b)) at depth 4
+# (8 before tp_serve's checks grew, 32 before that): they are host-paced
+# (the card idle ~0.92 of a decode step), so their time scales with
+# depth, and every check they make (lanes, tokens, census, sealing, bytes
+# per token) holds at any depth; the script's 1,200 s limit needs the
+# room. The 2048-token prefill and the one-shot against chunked prefill
+# at the same depth (full depth before tp_serve), their checks too.
+SERVE_TIER_LAYERS = 4
 # Training: depth cut to 4 layers because the AdamW state (bf16 params,
 # f32 master and two f32 moments, bf16 grads, ~18 B/param) of all 32
 # layers (~135 GB) does not fit the 80 GB card; 4 layers and the
@@ -3316,6 +3362,745 @@ def phase_multi_device(smi):
     return res, totals
 
 
+# ------------------------------------------------------------- tp_serve --
+TP_WORLD = 4
+TP_ARCH = "llama3-8b"
+TP_DEV = "cuda"
+TP_DIR = ROOT / "build" / "tp_serve"
+TP_TIMEOUT = 900
+TP_DEPTHS = (8, 4, 2)          # the serving tiers' depth, unless memory says less
+# Short runs of the paths llama3-8b's cut leaves out at four ranks: a tied
+# head over a vocab-sharded embedding (gemma-2b) and a cut quantized head
+# beside a layer GEMM the rules leave whole (deepseek-coder-33b: 252 head
+# row blocks divide 4, mlp/wo's 150 K blocks do not). arch -> depth.
+TP_EXTRA = {"gemma-2b": 2, "deepseek-coder-33b": 1}
+# 4 slots, max_seq 512; prompts chunked by 64 (the stream path's largest M).
+TP_SCFG = {"slots": 4, "max_seq": 512, "prefill_chunk": 64}
+TP_PROMPTS = (32, 300, 96, 200, 64, 256, 128, 160)  # the recurrent phase's
+TP_NEW = 16
+TP_EXTRA_PROMPTS, TP_EXTRA_NEW = (32, 64, 96, 48), 8   # 5 chunks of 64
+TP_PREFILL = 512                # a one-shot prefill on the tc path
+TP_GEMM_M = (4, 512)            # check (a): a decode step's rows, the prefill's
+# Bound of the ranks' logits against the plain one-rank engine's, in units
+# of the one-rank row's max |logit| (checks (b) and (c)): twice the
+# largest reading, 0.0211 (llama3-8b depth 8, a decode row; its prefill
+# 0.0134, gemma-2b 0.0004, deepseek-coder-33b 0.0026; an H100 80GB HBM3,
+# 700 W), which is the row-parallel sums' other association alone (the
+# emulated engine reads the same). The control reads 0.394.
+TP_LOGIT_BOUND = 0.04
+
+
+def tp_depth(cfg):
+    """Depth of the tp_serve runs: the first of TP_DEPTHS at which the
+    per-rank reckoning leaves 10 GB of the card free with TP_WORLD ranks
+    and the parent. A rank holds, at its peak, the global bf16 params
+    (every rank draws them), their global QTensors (~1 B an element of a
+    quantized weight), its quarter of those, a quantization's transients
+    (~6 B an element of the largest weight), the prefill's f32 logits
+    three times over and the one-rank logits it reads, the paged pool,
+    its CUDA context and slack. Returns (depth, the reckoning)."""
+    total = torch.cuda.get_device_properties(0).total_memory
+    for depth in TP_DEPTHS:
+        c = dataclasses.replace(cfg, n_layers=depth)
+        n = c.param_count()
+        d, f, V = c.d_model, c.d_ff, c.vocab
+        per_layer_q = d * (c.n_heads + 2 * c.n_kv) * c.head_dim + d * d + \
+            2 * d * f + f * d
+        quantized = depth * per_layer_q + d * V
+        pool = 2 * depth * TP_SCFG["slots"] * TP_SCFG["max_seq"] * \
+            c.n_kv * c.head_dim * 2
+        logits = 4 * TP_PREFILL * V * 4
+        per_rank = (2 * n + 1.25 * quantized + 6 * 2 * d * f + logits
+                    + pool + MD_CONTEXT_BYTES + MD_SLACK_BYTES)
+        free = total - TP_WORLD * per_rank - MD_CONTEXT_BYTES
+        row = {"depth": depth, "params": n, "quantized_elements": quantized,
+               "per_rank_gb": per_rank / 1e9, "free_gb": free / 1e9,
+               "card_gb": total / 1e9}
+        if free >= 10e9:
+            return depth, row
+    return TP_DEPTHS[-1], row
+
+
+def tp_models(depth):
+    """(arch, depth, main) of every tp_serve run: llama3-8b at ``depth``
+    with checks (a)-(d), then TP_EXTRA with (b) and (d)."""
+    return [(TP_ARCH, depth, True)] + [(a, d, False)
+                                       for a, d in TP_EXTRA.items()]
+
+
+def tp_requests(vocab, main):
+    from repro_torch.serve import Request
+    rng = np.random.default_rng(0)
+    prompts = TP_PROMPTS if main else TP_EXTRA_PROMPTS
+    new = TP_NEW if main else TP_EXTRA_NEW
+    return [Request(i, rng.integers(0, vocab, L).astype(np.int32),
+                    max_tokens=new) for i, L in enumerate(prompts)]
+
+
+def tp_prompt(vocab):
+    return torch.from_numpy(np.random.default_rng(7).integers(
+        0, vocab, (1, TP_PREFILL))).to(TP_DEV)
+
+
+def tp_engine_run(eng, vocab, main):
+    """Serve tp_requests on ``eng``: every sampled logits row by (request,
+    token index), the tokens, each decode call's ms, collectives and
+    their host seconds, and a digest of every model call's logits."""
+    import hashlib
+    from repro_torch.core import collectives as col
+    rows, calls, digests = {}, [], []
+    sample, decode_batch, model = eng._sample, eng._decode_batch, \
+        eng._decode
+
+    def sampled(req, row):
+        rows[(req.rid, len(req.out))] = row.copy()
+        return sample(req, row)
+
+    def timed(dec):
+        torch.cuda.synchronize()
+        n0, s0 = col.COLLECTIVES["calls"], col.COLLECTIVES["host_s"]
+        t = time.perf_counter()
+        decode_batch(dec)
+        torch.cuda.synchronize()
+        calls.append(((time.perf_counter() - t) * 1e3,
+                      col.COLLECTIVES["calls"] - n0,
+                      col.COLLECTIVES["host_s"] - s0))
+
+    def digested(*a):
+        out = model(*a)
+        digests.append(hashlib.sha256(
+            out[0].float().cpu().numpy().tobytes()).hexdigest())
+        return out
+
+    eng._sample, eng._decode_batch, eng._decode = sampled, timed, digested
+    reqs = tp_requests(vocab, main)
+    for r in reqs:
+        eng.submit(r)
+    t0 = time.perf_counter()
+    eng.run_to_completion()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for r in reqs:
+        check(r.done and r.error is None and len(r.out) == r.max_tokens,
+              f"tp_serve request {r.rid}: {r.error} {r.out}")
+    eng._sample, eng._decode_batch, eng._decode = sample, decode_batch, \
+        model
+    keys = sorted(rows)
+    return {"keys": torch.tensor(keys),
+            "rows": torch.from_numpy(np.stack([rows[k] for k in keys])),
+            "tokens": [r.out for r in reqs], "calls": calls,
+            "digests": digests, "wall_s": wall}
+
+
+class TPCoord:
+    """The (data 1, model TP_WORLD) mesh seen from model coordinate ``r``,
+    without a process group: what ``sharding.rules`` reads to cut rank
+    r's blocks in one process."""
+
+    names, shape = ("data", "model"), (1, TP_WORLD)
+
+    def __init__(self, r):
+        self.r = r
+
+    @property
+    def axis_sizes(self):
+        return dict(zip(self.names, self.shape))
+
+    def axis_index(self, axis):
+        return self.r if axis == "model" else 0
+
+
+class TPSplitK:
+    """A row-parallel weight's product as the ranks compute it, on one
+    rank and in code of its own: each rank's quarter of K (its blocks,
+    cut by ``sharding.rules.local_shards``, against its slice of the
+    activation) through ``ops.mixed_gemm`` in f32, the quarters summed in
+    rank order, cast once."""
+
+    def __init__(self, cuts, shape):
+        self.cuts, self.shape = cuts, shape
+
+    @property
+    def is_stacked(self):
+        return self.cuts[0].is_stacked
+
+    def to(self, device):
+        return self
+
+    def layer(self, l):
+        return TPSplitK([c.layer(l) for c in self.cuts], self.shape)
+
+    def serve_dot(self, x2, *, out_dtype, backend="auto"):
+        from repro_torch.kernels import ops
+        from repro_torch.kernels.ref import (activation_row_block,
+                                             passthrough_mixed)
+        parts = []
+        for r, cut in enumerate(self.cuts):
+            mo = cut.mo
+            bk, kl = mo.block[1], mo.padded_shape[1]
+            a = passthrough_mixed(x2[:, r * kl:(r + 1) * kl],
+                                  (activation_row_block(x2.shape[0], bk), bk))
+            parts.append(ops.mixed_gemm(a, mo, out_dtype=torch.float32,
+                                        backend=backend))
+        return torch.stack(parts).sum(dim=0).to(out_dtype)
+
+
+class TPTiedEmbed:
+    """A tied (V, d) embedding on one rank as the ranks use it: rows
+    looked up whole (the owner's row), the head ``embed.T`` multiplied
+    by quarters of the vocabulary (``HeadMatmul`` each) and
+    concatenated."""
+
+    def __init__(self, table):
+        self.table = table
+
+    def to(self, device):
+        return self
+
+    def lookup(self, ids):
+        return self.table[ids]
+
+    def tied_head(self):
+        return self
+
+    @property
+    def shape(self):
+        return (self.table.shape[1], self.table.shape[0])
+
+    def serve_dot(self, x2, *, out_dtype=torch.float32, backend="auto"):
+        from repro_torch.models.transformer import HeadMatmul
+        q = self.table.shape[0] // TP_WORLD
+        return torch.cat([HeadMatmul.apply(x2, self.table[r * q:(r + 1) * q].T)
+                          for r in range(TP_WORLD)], dim=1).to(out_dtype)
+
+
+class TPSwapped:
+    """Check (c)'s control: a stacked serving weight whose layer 1 reads
+    layer 2's blocks (a wrong layer's shard past layer 0)."""
+
+    def __init__(self, w):
+        self.w, self.shape = w, w.shape
+
+    is_stacked = True
+
+    def layer(self, l):
+        return self.w.layer(2 if l == 1 else l)
+
+    def serve_dot(self, *a, **kw):
+        raise AssertionError("TPSwapped is a stacked weight")
+
+
+def tp_emulated(cfg, qparams):
+    """The one-rank params that compute what the ranks compute: every
+    weight the reference's rules cut along K (``quantized_param_specs``)
+    becomes a :class:`TPSplitK`, a tied embedding a :class:`TPTiedEmbed`;
+    column-parallel weights and the vocab-sharded embedding's lookup stay
+    the one-rank ones, which the ranks match bit for bit."""
+    from repro_torch.serve.quantized import QTensor
+    from repro_torch.sharding.rules import local_shards, quantized_param_specs
+    specs = quantized_param_specs(cfg, qparams, TPCoord(0))
+
+    def visit(tree, spec, prefix):
+        out = {}
+        for key, leaf in tree.items():
+            name = f"{prefix}/{key}" if prefix else str(key)
+            if isinstance(leaf, dict):
+                out[key] = visit(leaf, spec[key], name)
+            elif isinstance(leaf, QTensor) and spec[key].mo.tags[
+                    leaf.mo.tags.ndim - 1] is not None:
+                out[key] = TPSplitK([local_shards(leaf, spec[key], TPCoord(r),
+                                                  name)
+                                     for r in range(TP_WORLD)], leaf.shape)
+            elif key == "embed" and cfg.tie_embed:
+                out[key] = TPTiedEmbed(leaf)
+            else:
+                out[key] = leaf
+        return out
+    return visit(qparams, specs, "")
+
+
+def tp_prefill(cfg, params):
+    """The 512-token one-shot prefill of check (c): the last position's
+    f32 logits and every layer's K and V, on the CPU."""
+    from repro_torch.core.policy import MoRDotPolicy
+    from repro_torch.models import make_prefill_fn
+    with torch.no_grad():
+        logits, cache, _ = make_prefill_fn(cfg, MoRDotPolicy())(
+            params, {"tokens": tp_prompt(cfg.vocab)})
+    torch.cuda.synchronize()
+    return {"logits": logits[0, -1, :cfg.vocab].float().cpu(),
+            "k": cache["dense"]["k"].cpu(), "v": cache["dense"]["v"].cpu()}
+
+
+def tp_one_rank(cfg, main):
+    """The bars of one tp_serve run, on one rank (parent, before the ranks
+    start), from the ranks' seeded weights: the plain one-rank Engine
+    and the one-rank Engine on ``tp_emulated`` params, each serving
+    tp_requests (its sampled rows and tokens) and, for the main run,
+    prefilling check (c)'s prompt; both go to TP_DIR for the ranks.
+    Returns the plain engine's decode-step ms, weight bytes and wall,
+    and the emulated prefill's K/V against the plain one's by layer.
+    Its launches are the bars', not the path's."""
+    from repro_torch.core.policy import MoRDotPolicy, MoRPolicy
+    from repro_torch.models import init_params
+    from repro_torch.serve import Engine, ServeConfig
+    from repro_torch.serve.quantized import param_bytes, quantize_params
+    params = init_params(cfg, seed=0, device=TP_DEV)
+    qparams, _ = quantize_params(params, MoRPolicy(recipe="sub3"))
+    del params
+    bars, res = {}, {"weight_bytes": param_bytes(qparams)}
+    for kind, tree in (("plain", qparams),
+                       ("emulated", tp_emulated(cfg, qparams))):
+        eng = Engine(cfg, MoRDotPolicy(), tree, ServeConfig(**TP_SCFG),
+                     quantize=None, device=TP_DEV)
+        run = tp_engine_run(eng, cfg.vocab, main)
+        bars[kind] = {k: run[k] for k in ("keys", "rows", "tokens")}
+        if main:
+            bars[kind]["prefill"] = tp_prefill(cfg, eng.params)
+        if kind == "plain":
+            res.update(decode_step_ms=float(np.median(
+                [c[0] for c in run["calls"]])), wall_s=run["wall_s"])
+        del eng, tree
+    torch.save(bars, TP_DIR / f"{cfg.name}.pt")
+    if main:
+        # What the row-parallel sums' other association alone does to
+        # the one-rank prefill, layer by layer.
+        emu, plain = bars["emulated"]["prefill"], bars["plain"]["prefill"]
+        res["emulated_vs_plain_kv_max_abs"] = {
+            n: [float((emu[n][l].float() - plain[n][l].float()).abs().max())
+                for l in range(cfg.n_layers)] for n in ("k", "v")}
+        res["emulated_vs_plain_logits_max_abs"] = float(
+            (emu["logits"] - plain["logits"]).abs().max())
+    del qparams, bars
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def tp_row_bound(y_one, mag):
+    """A row-parallel GEMM's bound against the one-rank GEMM: one bf16
+    ulp of the one-rank output (each side rounds its f32 sum once) plus
+    2^-20 of sum |x||w| (the f32 partials summed in another
+    association)."""
+    return 2.0 ** -7 * y_one.float().abs() + 2.0 ** -20 * mag
+
+
+def tp_gemm_one_rank(qparams, cfg):
+    """Check (a)'s bar, before the weights are cut: layer 0's four
+    GEMMs and the head on seeded replicated inputs (M = 4 and 512), one
+    rank. Returns {(name, M): (x, y, sum |x||w| or None)}."""
+    from repro_torch.core.device import ieee_f32_matmul
+    gen = torch.Generator(device=TP_DEV)
+    gen.manual_seed(11)
+    blk = qparams["blocks"]["dense"]
+    weights = {"wqkv": blk["wqkv"], "wo": blk["wo"],
+               "mlp/wi": blk["mlp"]["wi"], "mlp/wo": blk["mlp"]["wo"]}
+    out = {}
+    for name, w in list(weights.items()) + [("lm_head", qparams["lm_head"])]:
+        w0 = w.layer(0) if w.is_stacked else w
+        f32 = name == "lm_head"
+        for m in TP_GEMM_M:
+            x = torch.randn((m, w0.shape[0]), generator=gen, device=TP_DEV,
+                            dtype=torch.float32).to(torch.bfloat16)
+            y = w0.serve_dot(x, out_dtype=torch.float32 if f32
+                             else torch.bfloat16)
+            mag = None
+            if name in ("wo", "mlp/wo"):
+                with ieee_f32_matmul():
+                    mag = x.float().abs() @ w0.dequant().float().abs()
+            out[(name, m)] = (x, y, mag)
+    return out
+
+
+def tp_gemm_check(eng, bar, mesh):
+    """Check (a) on the cut weights: column-parallel GEMMs (wqkv, mlp/wi,
+    the head) bit for bit with the one-rank GEMM, row-parallel ones (wo,
+    mlp/wo) within ``tp_row_bound`` (the worst entry's share printed).
+    Also reads, without gating, whether a column shard planned by its own
+    local shape (no ``_plan``) would sum K as the one-rank launch does."""
+    from repro_torch.core.collectives import use_mesh
+    from repro_torch.kernels.mixed_gemm import mixed_gemm_blocks
+    from repro_torch.kernels.ref import activation_row_block, passthrough_mixed
+    blk = eng.params["blocks"]["dense"]
+    weights = {"wqkv": blk["wqkv"], "wo": blk["wo"],
+               "mlp/wi": blk["mlp"]["wi"], "mlp/wo": blk["mlp"]["wo"],
+               "lm_head": eng.params["lm_head"]}
+    res = {}
+    with use_mesh(mesh):
+        for (name, m), (x, y_one, mag) in bar.items():
+            w = weights[name]
+            w0 = w.layer(0) if w.is_stacked else w
+            y = w0.serve_dot(x, out_dtype=y_one.dtype)
+            # A QTensor the rules left whole (its block grid does not
+            # divide the axis: llama3-8b's head, 1002 row blocks) runs
+            # the one-rank product on every rank.
+            row = {"parallel": getattr(w0, "parallel", "replicated"),
+                   "m": m}
+            if row["parallel"] != "row":
+                row["bitwise"] = bool(torch.equal(bits16(y), bits16(y_one)))
+                check(row["bitwise"], f"tp_serve (a) {name} M={m}: the "
+                      "column-parallel GEMM is not bit for bit the "
+                      "one-rank GEMM")
+                if m <= 64 and row["parallel"] == "col":
+                    mo = w0.local.mo
+                    bk = mo.block[1]
+                    a = passthrough_mixed(x, (activation_row_block(m, bk), bk))
+                    loc = mixed_gemm_blocks(a, mo, out_dtype=y_one.dtype)
+                    r = mesh.axis_index("model")
+                    n_l = loc.shape[1]
+                    want = y_one[:, r * n_l:(r + 1) * n_l]
+                    row["local_plan_bitwise"] = bool(torch.equal(
+                        bits16(loc[:, :want.shape[1]]), bits16(want)))
+            else:
+                bound = tp_row_bound(y_one, mag)
+                err = (y.float() - y_one.float()).abs()
+                row["max_abs_err"] = float(err.max())
+                row["worst_share_of_bound"] = float((err / bound).max())
+                check(row["worst_share_of_bound"] <= 1.0,
+                      f"tp_serve (a) {name} M={m}: {row}")
+            res[f"{name}@{m}"] = row
+    return res
+
+
+def tp_against_plain(row, ref, gate, what):
+    """One logits row against the plain one-rank engine's: the largest
+    difference gated by TP_LOGIT_BOUND max |ref|; the argmax compared
+    where the top-2 margin exceeds that bound, else a near-tie. Returns
+    (difference / max |ref|, compared)."""
+    scale = float(np.abs(ref).max())
+    err = float(np.abs(row - ref).max())
+    gate(err <= TP_LOGIT_BOUND * scale,
+         f"{what}: logits differ by {err} > {TP_LOGIT_BOUND} x {scale}")
+    top2 = np.partition(ref, -2)[-2:]
+    compared = bool(top2[1] - top2[0] > TP_LOGIT_BOUND * scale)
+    if compared:
+        gate(int(row.argmax()) == int(ref.argmax()),
+             f"{what}: argmax {int(row.argmax())} != {int(ref.argmax())} "
+             f"at margin {top2[1] - top2[0]}")
+    return err / scale, compared
+
+
+def tp_compare_rows(run, bar, vocab, gate):
+    """Check (b): every sampled row and token bit for bit the emulated
+    one-rank engine's; against the plain one-rank engine, while a request
+    has sampled the plain engine's tokens, each row by
+    ``tp_against_plain``."""
+    emu, plain = bar["emulated"], bar["plain"]
+    same_keys = torch.equal(run["keys"], emu["keys"])
+    differ = (int((bits16(run["rows"]) != bits16(emu["rows"])).any(1).sum())
+              if same_keys else None)
+    gate(same_keys and differ == 0 and run["tokens"] == emu["tokens"],
+         f"tp_serve (b): {differ} of {len(run['rows'])} logits rows (or "
+         "the tokens) differ from the emulated one-rank engine's")
+    index = {tuple(k): i for i, k in enumerate(plain["keys"].tolist())}
+    worst, compared, ties = 0.0, 0, 0
+    for i, (rid, j) in enumerate(run["keys"].tolist()):
+        if run["tokens"][rid][:j] != plain["tokens"][rid][:j]:
+            continue
+        rel, cmp = tp_against_plain(
+            run["rows"][i, :vocab].numpy(),
+            plain["rows"][index[(rid, j)], :vocab].numpy(), gate,
+            f"tp_serve (b) request {rid} token {j}")
+        worst, compared, ties = max(worst, rel), compared + cmp, \
+            ties + (not cmp)
+    return {"rows": len(run["rows"]), "rows_differing_from_emulated": differ,
+            "plain_worst_share_of_max_logit": worst,
+            "plain_tokens_compared": compared, "plain_near_ties": ties,
+            "plain_tokens_equal": run["tokens"] == plain["tokens"]}
+
+
+def tp_prefill_check(eng, cfg, mesh, totals, bar, gate):
+    """Check (c): a 512-token one-shot prefill through make_prefill_fn on
+    the cut weights (every GEMM on the tc path): the last position's
+    logits and every layer's K and V bit for bit the emulated one-rank
+    prefill's, and the logits against the plain one-rank prefill by
+    ``tp_against_plain``. The control runs the same prefill with layer
+    1's row-parallel wo reading layer 2's blocks: layers 0-1 keep their
+    K/V, layer 2 on differ, and the logits fail the plain bound."""
+    from repro_torch.core.collectives import use_mesh
+    reset_counters()
+    with use_mesh(mesh):
+        got = tp_prefill(cfg, eng.params)
+    _, paths = totals.add_current("tp_serve prefill")
+    check(paths["tc"] > 0 and paths["stream"] == 0,
+          f"tp_serve (c): the prefill's GEMMs took {paths}")
+    emu, plain = bar["emulated"]["prefill"], bar["plain"]["prefill"]
+
+    def equal_by_layer(p):
+        return [all(torch.equal(bits16(p[n][l]), bits16(emu[n][l]))
+                    for n in ("k", "v")) for l in range(cfg.n_layers)]
+
+    kv_equal = equal_by_layer(got)
+    logits_equal = torch.equal(bits16(got["logits"]), bits16(emu["logits"]))
+    gate(all(kv_equal) and logits_equal,
+         f"tp_serve (c): K/V equal by layer {kv_equal}, logits "
+         f"{logits_equal}, against the emulated one-rank prefill")
+    rel, compared = tp_against_plain(got["logits"].numpy(),
+                                     plain["logits"].numpy(), gate,
+                                     "tp_serve (c)")
+    blk = eng.params["blocks"]["dense"]
+    ctl = dict(eng.params, blocks={"dense": dict(blk, wo=TPSwapped(
+        blk["wo"]))})
+    with use_mesh(mesh):
+        bad = tp_prefill(cfg, ctl)
+    ctl_equal = equal_by_layer(bad)
+    scale = float(plain["logits"].abs().max())
+    ctl_rel = float((bad["logits"] - plain["logits"]).abs().max()) / scale
+    gate(ctl_equal[:2] == [True, True] and not any(ctl_equal[2:])
+         and ctl_rel > TP_LOGIT_BOUND,
+         f"tp_serve (c) control: K/V equal by layer {ctl_equal}, logits at "
+         f"{ctl_rel} of max |logit| (bound {TP_LOGIT_BOUND})")
+    return {"positions": TP_PREFILL, "kv_bitwise_by_layer": kv_equal,
+            "logits_bitwise": logits_equal,
+            "plain_share_of_max_logit": rel, "plain_argmax_compared": compared,
+            "control_kv_bitwise_by_layer": ctl_equal,
+            "control_plain_share_of_max_logit": ctl_rel,
+            "tc_gemms": paths["tc"]}
+
+
+def tp_no_dense_copy(eng, cfg):
+    """Check (d)'s second half: no live bf16 CUDA tensor has the shape of
+    a quantized weight, of a layer of one, or of its (N, K) view, whole
+    or cut (gc's view of the process), but the dense params the rules
+    keep dense (deepseek-coder-33b's embedding quarter is (N / 4, K) of
+    its head)."""
+    from repro_torch.serve.quantized import ShardedEmbed, ShardedQTensor
+    shapes, dense = set(), set()
+
+    def visit(tree):
+        for leaf in tree.values():
+            if isinstance(leaf, dict):
+                visit(leaf)
+            elif isinstance(leaf, ShardedQTensor):
+                K, N = leaf.shape
+                for k, n in ((K, N), (K, N // TP_WORLD), (K // TP_WORLD, N)):
+                    shapes.update({(k, n), (n, k), (cfg.n_units, k, n),
+                                   (cfg.n_units, n, k)})
+            elif isinstance(leaf, (ShardedEmbed, torch.Tensor)):
+                t = leaf.local if isinstance(leaf, ShardedEmbed) else leaf
+                dense.add(t.untyped_storage().data_ptr())
+    visit(eng.params)
+    found = [tuple(o.shape) for o in gc.get_objects()
+             if torch.is_tensor(o) and o.is_cuda and o.dtype == torch.bfloat16
+             and tuple(o.shape) in shapes
+             and o.untyped_storage().data_ptr() not in dense]
+    check(not found, f"tp_serve (d): bf16 copies of quantized weights "
+          f"alive: {found}")
+    return len(shapes)
+
+
+def tp_collectives_want(params, cfg):
+    """Collectives of a decode call: one for each cut GEMM weight of a
+    layer (a gather or a sum), the embedding's gather, and the head's
+    where it is cut (a quantized head, or the tied head of a cut
+    embedding)."""
+    from repro_torch.serve.quantized import ShardedEmbed, ShardedQTensor
+
+    def count(tree):
+        return sum(count(v) if isinstance(v, dict)
+                   else isinstance(v, ShardedQTensor) for v in tree.values())
+    embed = isinstance(params["embed"], ShardedEmbed)
+    head = embed if cfg.tie_embed else isinstance(params["lm_head"],
+                                                  ShardedQTensor)
+    return count(params["blocks"]) * cfg.n_units + embed + head
+
+
+def tp_rank_model(arch, depth, main, mesh, totals):
+    """One tp_serve run on this rank: quantize the global params, cut
+    them through Engine(mesh=), run checks (a)-(d) (the extra runs: (b)
+    and (d)). A gate of (b) or (c) that fails is listed under 'fails'
+    and the run goes on, so that every reading is taken."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import MoRDotPolicy, MoRPolicy
+    from repro_torch.models import init_params
+    from repro_torch.serve import Engine, ServeConfig
+    from repro_torch.serve.quantized import (param_bytes, quantize_params,
+                                             replicated_bytes)
+    cfg = dataclasses.replace(get_config(arch), n_layers=depth)
+    fails = []
+
+    def gate(cond, msg):
+        if not cond:
+            fails.append(msg)
+
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0, device=TP_DEV)
+    reset_counters()
+    qparams, _ = quantize_params(params, MoRPolicy(recipe="sub3"))
+    torch.cuda.synchronize()
+    launches, _ = totals.add_current(f"tp_serve {arch} quantize")
+    packs = 4 * cfg.n_units + (not cfg.tie_embed)
+    check(launches["mor_select_pack"] == packs,
+          f"tp_serve {arch}: {launches['mor_select_pack']} packs, not {packs}")
+    del params
+    bar = tp_gemm_one_rank(qparams, cfg) if main else None
+    eng = Engine(cfg, MoRDotPolicy(), qparams, ServeConfig(**TP_SCFG),
+                 quantize=None, mesh=mesh, device=TP_DEV)
+    one_bytes = param_bytes(qparams)
+    del qparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = {"depth": depth, "quantize_s": time.perf_counter() - t0}
+    if main:
+        res["a_gemms"] = tp_gemm_check(eng, bar, mesh)
+        del bar
+        gc.collect()
+        torch.cuda.empty_cache()
+    mine, rep = param_bytes(eng.params), replicated_bytes(eng.params)
+    check((mine - rep) * TP_WORLD == one_bytes - rep,
+          f"tp_serve (d) {arch}: {mine} bytes of which {rep} replicated, "
+          f"one rank {one_bytes}")
+    res["d_weights"] = {"rank_bytes": mine, "replicated_bytes": rep,
+                        "one_rank_bytes": one_bytes,
+                        "shapes_checked": tp_no_dense_copy(eng, cfg),
+                        "allocated_gb": torch.cuda.memory_allocated() / 1e9}
+    reset_counters()
+    run = tp_engine_run(eng, cfg.vocab, main)
+    launches, paths = totals.add_current(f"tp_serve {arch} engine")
+    check(paths["stream"] > 0 and paths["tc"] == 0,
+          f"tp_serve (b) {arch}: the engine's GEMMs took {paths}")
+    want = tp_collectives_want(eng.params, cfg)
+    for ms, n, s in run["calls"]:
+        check(n == want, f"tp_serve (b) {arch}: {n} collectives a decode "
+              f"call (want {want})")
+    bars = torch.load(TP_DIR / f"{cfg.name}.pt")
+    res["b_engine"] = tp_compare_rows(run, bars, cfg.vocab, gate)
+    res["b_engine"].update(
+        decode_step_ms=float(np.median([c[0] for c in run["calls"]])),
+        collectives_per_decode_call=run["calls"][0][1],
+        collective_host_s_per_decode_call=float(np.median(
+            [c[2] for c in run["calls"]])),
+        decode_calls=len(run["calls"]), wall_s=run["wall_s"])
+    res["digests"] = run["digests"]
+    res["tokens"] = run["tokens"]
+    if main:
+        res["c_prefill"] = tp_prefill_check(eng, cfg, mesh, totals, bars,
+                                            gate)
+    res["s"] = time.perf_counter() - t0
+    res["fails"] = fails
+    del eng, bars
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def tp_rank(rank, store, depth):
+    """One rank of the tp_serve phase (``chip_smoke.py --tp-serve-rank
+    RANK STORE DEPTH``): joins the gloo world and runs every
+    ``tp_models`` run; its result is the last line of its output. A
+    failed check raises; a failed gate of (b) or (c) is listed in the
+    result, which ``phase_tp_serve`` prints before it fails."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core import collectives as col
+    from repro_torch.launch.ranks import init_world
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    init_world(rank, TP_WORLD, store)
+    mesh = col.make_mesh((1, TP_WORLD), ("data", "model"), device=TP_DEV)
+    totals = Totals()
+    t0 = time.perf_counter()
+    res = {"rank": rank, "models": {}}
+    for arch, d, main in tp_models(depth):
+        res["models"][arch] = tp_rank_model(arch, d, main, mesh, totals)
+    res.update(launches=totals.launches, routes=totals.routes,
+               paths=totals.paths, s=time.perf_counter() - t0,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+               collectives=col.COLLECTIVES)
+    print(json.dumps(res), flush=True)
+
+
+def phase_tp_serve(smi):
+    """Tensor-parallel serving (module docstring, item 16): the one-rank
+    bars in this process, then TP_WORLD ranks of this script on cuda:0
+    (``tp_rank``), which only load the kernels this process built.
+    Returns (the tp_serve line, Totals of the ranks' main-path runs)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.ranks import rank_env, run_ranks
+    t0 = time.perf_counter()
+    depth, reckoning = tp_depth(get_config(TP_ARCH))
+    models = tp_models(depth)
+    shutil.rmtree(TP_DIR, ignore_errors=True)
+    TP_DIR.mkdir(parents=True)
+    try:
+        one = {a: tp_one_rank(dataclasses.replace(get_config(a), n_layers=d),
+                              main) for a, d, main in models}
+        t_bars = time.perf_counter() - t0
+        env = rank_env(threads=2)
+        env["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
+        outs = run_ranks(
+            lambda r: [sys.executable, str(ROOT / "chip_smoke.py"),
+                       "--tp-serve-rank", str(r), str(TP_DIR / "store"),
+                       str(depth)],
+            TP_WORLD, TP_TIMEOUT, env=env, cwd=str(ROOT))
+    finally:
+        shutil.rmtree(TP_DIR, ignore_errors=True)
+    ranks = [json.loads(o.strip().splitlines()[-1]) for o in outs]
+    check([r["rank"] for r in ranks] == list(range(TP_WORLD)),
+          "tp_serve: a rank's result is missing")
+    for r in ranks[1:]:
+        for a in r["models"]:
+            check(r["models"][a]["digests"] == ranks[0]["models"][a]["digests"],
+                  f"tp_serve (b) {a}: rank {r['rank']}'s logits differ from "
+                  "rank 0's")
+            check(r["models"][a]["tokens"] == ranks[0]["models"][a]["tokens"],
+                  f"tp_serve (b) {a}: tokens differ")
+    totals = Totals()
+    totals.launches = {k: sum(r["launches"][k] for r in ranks)
+                       for k in ranks[0]["launches"]}
+    totals.routes = {k: {rt: sum(r["routes"][k][rt] for r in ranks)
+                         for rt in ("tile", "generic")} for k in TILE_KERNELS}
+    totals.paths = {k: sum(r["paths"][k] for r in ranks)
+                    for k in ("stream", "tc")}
+    for kern in ("mor_select_pack", "mixed_gemm"):
+        check(totals.launches[kern] > 0,
+              f"tp_serve: {kern} launched no time on its path")
+    check_tile_route(totals.routes, totals.launches, "tp_serve")
+    per_model = {}
+    for a, d, main in models:
+        rs = [r["models"][a] for r in ranks]
+        m = {"depth": d, "checks": {
+                 "b_engine": {r["rank"]: r["models"][a]["b_engine"]
+                              for r in ranks},
+                 "b_logits_equal_across_ranks": True,
+                 "d_weights": rs[0]["d_weights"]},
+             "decode_step_ms_ranks": [x["b_engine"]["decode_step_ms"]
+                                      for x in rs],
+             "decode_step_ms_one_rank": one[a]["decode_step_ms"],
+             "collectives_per_decode_call":
+                 rs[0]["b_engine"]["collectives_per_decode_call"],
+             "collective_host_s_per_decode_call": [
+                 x["b_engine"]["collective_host_s_per_decode_call"]
+                 for x in rs],
+             "weight_gb_rank": rs[0]["d_weights"]["rank_bytes"] / 1e9,
+             "weight_gb_one_rank": one[a]["weight_bytes"] / 1e9,
+             "engine_wall_s_ranks": [x["b_engine"]["wall_s"] for x in rs],
+             "engine_wall_s_one_rank": one[a]["wall_s"],
+             "rank_s": [x["s"] for x in rs]}
+        if main:
+            m["checks"]["a_gemms"] = {r["rank"]: r["models"][a]["a_gemms"]
+                                      for r in ranks}
+            m["checks"]["c_prefill"] = {r["rank"]: r["models"][a]["c_prefill"]
+                                        for r in ranks}
+            for k in ("emulated_vs_plain_kv_max_abs",
+                      "emulated_vs_plain_logits_max_abs"):
+                m[k] = one[a][k]
+        per_model[a] = m
+    res = {"world": TP_WORLD, "device": "cuda:0", "backend": "gloo",
+           "mesh": {"data": 1, "model": TP_WORLD}, "reckoning": reckoning,
+           "logit_bound_share_of_max_logit": TP_LOGIT_BOUND,
+           "models": per_model, "bars_s": t_bars,
+           "peak_gb_ranks": [r["peak_gb"] for r in ranks],
+           "launches": totals.launches, "paths": totals.paths,
+           "card": smi, "phase_s": time.perf_counter() - t0}
+    fails = sorted({f for r in ranks for m in r["models"].values()
+                    for f in m["fails"]})
+    res["fails"] = fails
+    if fails:
+        emit({"tp_serve": res})
+    check(not fails, "; ".join(fails))
+    return res, totals
+
+
 # The kernel API's full-width flash calls (bf16, causal, llama3-8b heads):
 # name -> (B, S, T, per-slot query offsets or None).
 FLASH_API_CASES = {
@@ -4174,9 +4959,8 @@ def serve_tier_run(cfg, qparams, name, tier, smi, totals, ref_out=None):
     want_bpt = 2 * L * {"bf16": hkv * dh * 2, "kv_fp8": hkv * dh + 4 * hkv}.get(
         name, hkv * dh + hkv + 4 * hkv)
     check(bpt == want_bpt, f"{name}: bytes_per_token {bpt} != {want_bpt}")
-    if L == SERVE_TIER_LAYERS:
-        check(bpt == {"bf16": 32768, "kv_fp8": 16896}.get(name, 17024),
-              f"{name}: bytes_per_token {bpt}")
+    check(bpt == L * {"bf16": 4096, "kv_fp8": 2112}.get(name, 2128),
+          f"{name}: bytes_per_token {bpt}")
     tokens = sum(len(r.out) for r in reqs)
     row = {"tier": name, **{k: v for k, v in tier.items()},
            "requests": len(reqs), "steps": steps,
@@ -4306,7 +5090,7 @@ def lanes_vs_cpu(cfg, qparams, smi, totals):
 
 
 def prefill_full(cfg, qparams, smi, totals):
-    """(c) make_prefill_fn on one 2048-token prompt at full depth: all
+    """(c) make_prefill_fn on one 2048-token prompt at ``cfg``'s depth: all
     4L + 1 GEMMs on the tc path, the emitted cache (L, 1, 2048, 8, 128)
     bf16; its ms and tokens/s. Then that prompt served by a kv_mor engine
     through _full_prefill (splice) and by a chunked one (max_seq 4096),
@@ -4505,7 +5289,7 @@ def guard_trash(qparams_fn, smi, totals):
     return res
 
 
-def phase_serve_tiers(cfg, ops, ref, smi, n_layers=N_LAYERS):
+def phase_serve_tiers(cfg, ops, ref, smi, n_layers=SERVE_TIER_LAYERS):
     """The serving tiers on llama3-8b at full width with sub3 QTensor
     weights, each tree quantized once (the engines take it with
     ``quantize=None``): at ``SERVE_TIER_LAYERS`` (a) four engine runs
@@ -4559,10 +5343,13 @@ def phase_serve_tiers(cfg, ops, ref, smi, n_layers=N_LAYERS):
             ref_out = out
     res["runs"] = runs
     res["lanes"] = lanes_vs_cpu(c8, qparams, smi, totals)
-    del qparams
-    gc.collect()
-    torch.cuda.empty_cache()
-    qparams, res["quantize_s"], res["weight_bytes"] = quantized(cfg)
+    if cfg.n_units == c8.n_units:
+        res["quantize_s"], res["weight_bytes"] = dt, nbytes
+    else:
+        del qparams
+        gc.collect()
+        torch.cuda.empty_cache()
+        qparams, res["quantize_s"], res["weight_bytes"] = quantized(cfg)
     pre = prefill_full(cfg, qparams, smi, totals)
     res["prefill"] = {k: v for k, v in pre.items() if k != "card"}
     del qparams
@@ -4590,13 +5377,18 @@ ZOO_ARCHS = ("granite-moe-1b-a400m", "gemma-2b", "moonshot-v1-16b-a3b")
 # 6,144 expert mor_dots. Depth 2 keeps every shape (4 until the script's
 # time limit needed the room for the recurrent families).
 MOONSHOT_LAYERS = 2
-# granite-moe-1b-a400m's engine runs and training steps at 8 of its 24
-# layers (its parity, expert-loop and depth-2 checks take one or two
-# layers): host-paced (the card idle ~0.88 of a decode call), their time
-# scales with depth, and every check they make holds at any depth. At
-# 24 layers they took 116 s of a 264 s model_zoo phase on a host where
-# the whole script took 1,093.4 s of its 1,200 (an H100 80GB HBM3, 700 W).
-GRANITE_LAYERS = 8
+# granite-moe-1b-a400m's engine runs and training steps at 4 of its 24
+# layers (8 before tp_serve's checks grew; its parity, expert-loop and
+# depth-2 checks take one or two layers): host-paced (the card idle
+# ~0.88 of a decode call), their time scales with depth, and every check
+# they make holds at any depth. At 24 layers they took 116 s of a 264 s
+# model_zoo phase on a host where the whole script took 1,093.4 s of its
+# 1,200 (an H100 80GB HBM3, 700 W); at 8, 46.0 s, at 4, 25.1 s.
+GRANITE_LAYERS = 4
+# gemma-2b's engine runs at 6 of its 18 layers (full depth before;
+# host-paced, every check of zoo_serve holds at any depth): tp_serve
+# needed the room.
+GEMMA_LAYERS = 6
 ZOO_TRAIN_STEPS = 3
 ZOO_DEV = "cuda"
 
@@ -5275,6 +6067,8 @@ def phase_model_zoo(ops, ref, smi, cfgs=None):
                                 for a in ZOO_ARCHS)
     if "moonshot-v1-16b-a3b" not in cfgs:
         moonshot = dataclasses.replace(moonshot, n_layers=MOONSHOT_LAYERS)
+    if "gemma-2b" not in cfgs:
+        gemma = dataclasses.replace(gemma, n_layers=GEMMA_LAYERS)
     totals = Totals()
     res = {"card": smi}
     res["moe_sublayer_parity"] = zoo_moe_parity(granite, ops, ref, smi)
@@ -6114,6 +6908,9 @@ def main():
     if sys.argv[1:2] == ["--multi-device-rank"]:
         md_rank(int(sys.argv[2]), sys.argv[3], int(sys.argv[4]))
         return 0
+    if sys.argv[1:2] == ["--tp-serve-rank"]:
+        tp_rank(int(sys.argv[2]), sys.argv[3], int(sys.argv[4]))
+        return 0
     t_start = time.perf_counter()
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import get_config
@@ -6159,8 +6956,8 @@ def main():
     timing = phase_timing(ops, ref, Partition, cfg)
     timing.update(phase_train_timing(ops, ref, Partition, cfg))
     timing.update(api)
-    engine, launches, engine_paths, engine_routes = phase_engine(cfg,
-                                                                 N_LAYERS)
+    engine, launches, engine_paths, engine_routes = phase_engine(
+        cfg, ENGINE_LAYERS)
     gc.collect()
     torch.cuda.empty_cache()
     serve_tiers, serve_totals = phase_serve_tiers(cfg, ops, ref, smi)
@@ -6187,6 +6984,10 @@ def main():
     torch.cuda.empty_cache()
     md, md_totals = phase_multi_device(smi)
     emit({"multi_device": md})
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp, tp_totals = phase_tp_serve(smi)
+    emit({"tp_serve": tp})
     t0 = time.perf_counter()
     state, state_launches, state_routes, state_dtypes = phase_train_state(
         ops, ref)
@@ -6222,7 +7023,8 @@ def main():
                    "generic_smem": generic_launches[name],
                    "kernel_api": api_launches[name],
                    "fault_tolerance": ft_launches[name],
-                   "multi_device": md_totals.launches[name]}
+                   "multi_device": md_totals.launches[name],
+                   "tp_serve": tp_totals.launches[name]}
         check(sum(by_path.values()) > 0,
               f"{name}: no launch on any main path")
         entry = {
@@ -6241,6 +7043,7 @@ def main():
                 k: engine_paths[k] + serve_totals.paths[k] + train_paths[k]
                 + ft_paths[k] + zoo_totals.paths[k] + front_totals.paths[k]
                 + rec_totals.paths[k] + md_totals.paths[k]
+                + tp_totals.paths[k]
                 for k in ("stream", "tc")}
             entry["serve_tiers_gemm_paths"] = serve_totals.paths
             entry["recurrent_gemm_paths"] = rec_totals.paths
@@ -6261,7 +7064,7 @@ def main():
                 + rec_totals.routes[name][r]
                 + train_routes[name][r] + state_routes[name][r]
                 + generic_routes[name][r] + ft_routes[name][r]
-                + md_totals.routes[name][r]
+                + md_totals.routes[name][r] + tp_totals.routes[name][r]
                 for r in ("tile", "generic")}
             entry["shapes"] = t["shapes"]
             entry["build"] = wgmma_build[

@@ -46,7 +46,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-__all__ = ["Mesh", "make_mesh", "use_mesh", "psum_over",
+__all__ = ["Mesh", "make_mesh", "use_mesh", "bound_mesh", "psum_over",
            "pmax_over", "all_gather_over", "global_size", "COLLECTIVES"]
 
 # Meshes bound by use_mesh, innermost last. Process-wide on purpose: a
@@ -80,6 +80,16 @@ class Mesh:
         ``axes``."""
         return self._groups[tuple(sorted({self.names.index(a)
                                           for a in axes}))]
+
+    @property
+    def axis_sizes(self) -> Dict[str, int]:
+        """{axis name: size}, as ``jax.sharding.Mesh.shape`` reads."""
+        return dict(zip(self.names, self.shape))
+
+    def axis_index(self, axis: str) -> int:
+        """This rank's coordinate along ``axis``."""
+        return int(np.unravel_index(self.rank, self.shape)[
+            self.names.index(axis)])
 
     def __repr__(self):
         return (f"Mesh({dict(zip(self.names, self.shape))}, rank "
@@ -132,20 +142,21 @@ def use_mesh(mesh: Mesh):
         _BOUND.pop()
 
 
-def _bound_mesh() -> Optional[Mesh]:
-    """The innermost mesh bound by :func:`use_mesh`, or None."""
-    return _BOUND[-1] if _BOUND else None
-
-
-def _group_of(axes: Sequence[str]):
-    mesh = _bound_mesh()
+def bound_mesh(axes: Sequence[str] = ()) -> Optional[Mesh]:
+    """The innermost mesh bound by :func:`use_mesh`, or None; a named
+    axis in ``axes`` that it lacks raises a ``ValueError`` naming it."""
+    mesh = _BOUND[-1] if _BOUND else None
     for a in axes:
         if mesh is None or a not in mesh.names:
             raise ValueError(
                 f"unbound mesh axis name {a!r}: no mesh bound by "
                 f"use_mesh has it (bound: "
                 f"{None if mesh is None else mesh.names})")
-    return mesh.group(axes)
+    return mesh
+
+
+def _group_of(axes: Sequence[str]):
+    return bound_mesh(axes).group(axes)
 
 
 def _gather(x: torch.Tensor, axes: Sequence[str]) -> torch.Tensor:
@@ -196,9 +207,7 @@ def global_size(local_size: int, axes: Sequence[str]) -> torch.Tensor:
     product -- harmless for MoR because every consumer is a ratio of two
     sums (docs/sharding.md, 'replication safety'). On the bound mesh's
     device, or the CPU where no mesh is bound."""
-    if axes:
-        _group_of(axes)  # an unbound name raises here
-    mesh = _bound_mesh()
+    mesh = bound_mesh(axes)  # an unbound name raises here
     n = torch.full((), float(local_size), dtype=torch.float32,
                    device=None if mesh is None else mesh.device)
     return psum_over(n, axes)

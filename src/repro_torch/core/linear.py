@@ -28,10 +28,11 @@ GEMM lowerings (``MoRDotPolicy.fuse_gemm``):
     and all three GEMMs run through the mixed-representation kernel
     (``kernels.ops.mixed_gemm``).
 
-A weight that is already real-quantized (``serve.quantized.QTensor``;
-anything exposing ``as_mixed_operand()``) is consumed directly by the
-mixed kernel against a BF16-passthrough activation pack (serving): a
-backward through it raises, as the reference's ``_bwd`` does.
+A weight that is already real-quantized (``serve.quantized.QTensor``,
+or a rank's ``ShardedQTensor``: anything with a ``serve_dot``) runs its
+own serving product, the mixed kernel against a BF16-passthrough
+activation pack: a backward through it raises, as the reference's
+``_bwd`` does.
 """
 from __future__ import annotations
 
@@ -65,7 +66,9 @@ def _flat2d(x: torch.Tensor):
 
 
 def _is_mixed_weight(w) -> bool:
-    return hasattr(w, "as_mixed_operand")
+    """A real-quantized serving weight: one with its own product
+    (``serve.quantized.QTensor`` / ``ShardedQTensor.serve_dot``)."""
+    return hasattr(w, "serve_dot")
 
 
 def _dot(a: torch.Tensor, b_t: torch.Tensor, out_dtype) -> torch.Tensor:
@@ -220,8 +223,8 @@ class _ServeDot(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, w, policy):
         x2, lead = _flat2d(x)
-        y = kops.mixed_dot(x2, w.as_mixed_operand(), out_dtype=x.dtype,
-                           backend=policy.weight.backend)
+        y = w.serve_dot(x2, out_dtype=x.dtype,
+                        backend=policy.weight.backend)
         fwd_stats = _zero_stats(N_FWD_EVENTS, x.device)
         ctx.mark_non_differentiable(fwd_stats)
         return y.reshape(*lead, w.shape[1]), fwd_stats

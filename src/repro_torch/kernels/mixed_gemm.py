@@ -18,7 +18,7 @@ tensor there and a CUDA tensor here.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -28,7 +28,7 @@ from . import build
 from .ref import MixedOperand, compact_lane_shapes, nvfp4_block_capable
 
 __all__ = ["mixed_gemm_blocks", "gemm_path", "stream_plan", "stream_rows",
-           "STREAM_MAX_M"]
+           "stream_workspace_floats", "STREAM_MAX_M"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -79,8 +79,15 @@ def stream_plan(m: int, n: int, kp: int, sms: int) -> Tuple[int, int]:
     chunks = -(-kp // STREAM_KC)
     splits = max(1, min(-(-8 * sms // strips), chunks // 4, kp // (32 * m)))
     splits = max(splits, -(-chunks // 64))
-    act = stream_rows(m) * chunks * STREAM_KC // 2
-    return splits, act + (splits * m * n if splits > 1 else 0)
+    return splits, stream_workspace_floats(m, n, kp, splits)
+
+
+def stream_workspace_floats(m: int, n: int, kp: int, splits: int) -> int:
+    """f32 words of a stream-path launch's workspace: the activation
+    decoded to bf16 (:func:`stream_rows` x Kp rounded up to 64) and, when
+    K is split, splits x M x N f32 partials."""
+    act = stream_rows(m) * (-(-kp // STREAM_KC)) * STREAM_KC // 2
+    return act + (splits * m * n if splits > 1 else 0)
 
 
 def _tc_workspace_floats(m: int, n: int, kp: int) -> int:
@@ -166,9 +173,19 @@ def _operand_args(mo: MixedOperand, name: str, device):
 
 
 def mixed_gemm_blocks(a: MixedOperand, b: MixedOperand, *,
-                      out_dtype=torch.bfloat16) -> torch.Tensor:
+                      out_dtype=torch.bfloat16,
+                      _plan: Optional[Tuple[int, int]] = None
+                      ) -> torch.Tensor:
     """Launch C = A @ B^T on two single-matrix MixedOperands on the card;
-    returns the unpadded (M, N) product in ``out_dtype`` (bf16 or f32)."""
+    returns the unpadded (M, N) product in ``out_dtype`` (bf16 or f32).
+
+    ``_plan`` (internal: ``kernels.ops.sharded_mixed_gemm``): the (M, N)
+    of the whole product of which this launch computes a block of rows
+    or columns over all of K. The path and the stream path's split of K
+    are then that product's, so each output sums its K chunks in the
+    grouping of the one-rank launch, bit for bit. The tc path's order of
+    K (128-deep promotions in chunk order per output tile) does not
+    depend on M or N; only its choice by M does."""
     if out_dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"out_dtype must be bf16 or f32, got {out_dtype}")
     if a.block[1] != b.block[1] or a.padded_shape[1] != b.padded_shape[1]:
@@ -183,15 +200,17 @@ def mixed_gemm_blocks(a: MixedOperand, b: MixedOperand, *,
     args_b = _operand_args(b, "b", dev)
     M, N = a.shape[0], b.shape[0]
     Kp, bk = a.padded_shape[1], a.block[1]
-    path = gemm_path(M)
+    plan_m, plan_n = (M, N) if _plan is None else _plan
+    path = gemm_path(plan_m)
     out = torch.empty((M, N), dtype=out_dtype, device=dev)
     f32 = int(out_dtype == torch.float32)
     launch = getattr(_lib(), _ENTRY[path])
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if path == "stream":
-            splits, floats = stream_plan(M, N, Kp, _sm_count(dev))
-            ws = torch.empty(floats, dtype=torch.float32, device=dev)
+            splits, _ = stream_plan(plan_m, plan_n, Kp, _sm_count(dev))
+            ws = torch.empty(stream_workspace_floats(M, N, Kp, splits),
+                             dtype=torch.float32, device=dev)
             tickets = _tickets(dev, stream, -(-N // STREAM_ROWS))
             tail = (ws.data_ptr(), ws.numel(), tickets.data_ptr(), splits,
                     f32, Kp, bk)

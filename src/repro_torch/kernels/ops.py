@@ -21,6 +21,8 @@ checked but not emulated.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 import torch.nn.functional as F
 
@@ -45,7 +47,8 @@ from .mor_select import mor_select_pack, mor_select_select
 from .ref import MixedOperand, MorSelect, QuantErr
 
 __all__ = ["resolve_backend", "quant_err", "mor_select", "gam_quant",
-           "quantize_pack", "mixed_gemm", "mixed_dot", "fp8_gemm",
+           "quantize_pack", "mixed_gemm", "mixed_dot", "sharded_mixed_gemm",
+           "fp8_gemm",
            "flash_attention", "MixedOperand", "MorSelect", "QuantErr"]
 
 
@@ -335,15 +338,18 @@ def _pack_launch(xp, g_amax, mg, block, shape, mode: str, algo: str):
 
 
 def mixed_gemm(a: MixedOperand, b: MixedOperand, *,
-               out_dtype=torch.bfloat16, backend: str = "auto", tile=None):
+               out_dtype=torch.bfloat16, backend: str = "auto", tile=None,
+               _plan=None):
     """C = A @ B^T over two mixed operands, unpadded (M, N): every block
     decoded per its tag to its stored value, f32 accumulation.
     ``tile`` (the reference's TPU VMEM tiling, a ``GemmTile``) is
-    accepted and ignored: the CUDA kernels plan their own tiles."""
+    accepted and ignored: the CUDA kernels plan their own tiles.
+    ``_plan`` (internal, :func:`sharded_mixed_gemm`) plans the launch by
+    another (M, N) than the operands' (``mixed_gemm_blocks``)."""
     be = resolve_backend(backend, b.tags)
     if be == "torch":
         return _ref.mixed_gemm_ref(a, b, out_dtype)
-    return mixed_gemm_blocks(a, b, out_dtype=out_dtype)
+    return mixed_gemm_blocks(a, b, out_dtype=out_dtype, _plan=_plan)
 
 
 def mixed_dot(x2: torch.Tensor, mo: MixedOperand, *,
@@ -357,6 +363,71 @@ def mixed_dot(x2: torch.Tensor, mo: MixedOperand, *,
         x2, (_ref.activation_row_block(x2.shape[0], bk), bk)
     )
     return mixed_gemm(a, mo, out_dtype=out_dtype, backend=backend)
+
+
+def _local_mixed(mo: MixedOperand, rows_cut: bool,
+                 cols_cut: bool) -> MixedOperand:
+    """A shard-local operand whose logical extent along a cut dimension is
+    its padded one: per-shard padding blocks decode to zeros, so they add
+    nothing to the product, and the caller trims the assembled output to
+    the logical (M, N) once (the reference's ``_local_mixed``)."""
+    Rp, Kp = mo.padded_shape
+    shape = (Rp if rows_cut else mo.shape[0], Kp if cols_cut else mo.shape[1])
+    return mo if shape == tuple(mo.shape) else dataclasses.replace(
+        mo, shape=shape)
+
+
+def sharded_mixed_gemm(a: MixedOperand, b: MixedOperand, *, mesh,
+                       row_axis=None, col_axis=None, contract_axis=None,
+                       out_dtype=torch.bfloat16, backend: str = "auto"
+                       ) -> torch.Tensor:
+    """Mesh-sharded mixed-representation GEMM, C = A @ B^T: the body of
+    the reference's ``shard_map`` and its ``psum``, on this rank.
+
+    ``a`` and ``b`` are this rank's local operands, as
+    ``sharding.rules.local_mixed`` / ``local_shards`` cut them (whole
+    blocks with their tags and scales). Returns this rank's block of C:
+    the rows of its ``row_axis`` shard and the columns of its
+    ``col_axis`` shard, padded to whole blocks along a sharded dimension
+    (the last shard holds the padding; the caller trims the assembled
+    output once), logical along an unsharded one.
+
+      row_axis       shards A's rows      -> C rows sharded, no traffic.
+      col_axis       shards B's rows      -> C cols sharded, no traffic.
+      contract_axis  shards K of both     -> per-shard f32 partials are
+                     summed over the axis (``psum_over``, in rank order,
+                     so every rank holds the same sum), then cast once.
+
+    Without ``contract_axis`` each output sums all of K on one rank, in
+    the order of the one-rank GEMM: on the card the launch is planned by
+    the whole product's (M, N) (``mixed_gemm_blocks``' ``_plan``), since
+    the stream path's split of K depends on N and its choice of path on
+    M. The divisibility of the block grid by the mesh axes is checked
+    where the global grid is known, in ``local_shards``.
+    """
+    from repro_torch.core.collectives import psum_over, use_mesh
+
+    if a.block[1] != b.block[1] or a.padded_shape[1] != b.padded_shape[1]:
+        raise ValueError(
+            f"contraction blocks differ: {a.block}/{a.padded_shape} vs "
+            f"{b.block}/{b.padded_shape}")
+    sizes = mesh.axis_sizes
+    for ax in (row_axis, col_axis, contract_axis):
+        if ax is not None and ax not in sizes:
+            raise ValueError(f"mesh axis {ax!r} is not one of "
+                             f"{tuple(sizes)}")
+    a = _local_mixed(a, row_axis is not None, contract_axis is not None)
+    b = _local_mixed(b, col_axis is not None, contract_axis is not None)
+    plan = None
+    if contract_axis is None:
+        plan = (a.shape[0] * (sizes[row_axis] if row_axis else 1),
+                b.shape[0] * (sizes[col_axis] if col_axis else 1))
+    inner = torch.float32 if contract_axis else out_dtype
+    out = mixed_gemm(a, b, out_dtype=inner, backend=backend, _plan=plan)
+    if contract_axis is None:
+        return out
+    with use_mesh(mesh):
+        return psum_over(out, (contract_axis,)).to(out_dtype)
 
 
 def fp8_gemm(a_q: torch.Tensor, b_q: torch.Tensor, a_scale: torch.Tensor,

@@ -45,7 +45,6 @@ from repro_torch.core.device import ieee_f32_matmul, resolve_device
 from repro_torch.core.linear import N_BWD_EVENTS, mor_dot
 from repro_torch.core.mor import STATS_WIDTH
 from repro_torch.core.policy import MoRDotPolicy
-from repro_torch.kernels import ops as kops
 
 from . import blocks as B
 from . import recurrent as R
@@ -314,8 +313,9 @@ def init_cache(cfg: ArchConfig, batch: int, seq: int, kv_fp8: bool = False,
 
 
 def _is_quantized(w) -> bool:
-    """A real-quantized weight (``serve.quantized.QTensor``)."""
-    return hasattr(w, "as_mixed_operand")
+    """A serving weight with its own product (``serve.quantized.QTensor``,
+    ``ShardedQTensor``, a vocab-sharded embedding's tied head)."""
+    return hasattr(w, "serve_dot")
 
 
 def _layer(tree, l: int):
@@ -556,7 +556,10 @@ def forward(cfg: ArchConfig, policy: MoRDotPolicy, params, batch, *,
                 _refuse_kv_tier(cfg, "kv_mor" if "k_tags" in cache[t]
                                 else "kv_fp8")
     ids = batch["token"] if mode == "decode" else batch["tokens"]
-    x = params["embed"][ids]
+    embed = params["embed"]
+    # A rank's vocab-sharded embedding (serve.quantized.ShardedEmbed)
+    # looks its rows up across the ranks.
+    x = embed.lookup(ids) if hasattr(embed, "lookup") else embed[ids]
     if cfg.family in ("dense", "vlm") and cfg.tie_embed:
         x = x * torch.tensor(cfg.d_model**0.5, dtype=x.dtype)  # gemma
 
@@ -607,12 +610,15 @@ def forward(cfg: ArchConfig, policy: MoRDotPolicy, params, batch, *,
     stats["blocks"] = {t: _stack_tree(rows[t]) for t in types}
 
     x = B.norm(params["final_norm"], x, cfg)
-    head = params["embed"].T if cfg.tie_embed else params["lm_head"]
+    if not cfg.tie_embed:
+        head = params["lm_head"]
+    else:
+        head = embed.tied_head() if hasattr(embed, "lookup") else embed.T
     bsz, seq = x.shape[0], x.shape[1]
     if _is_quantized(head):
-        logits = kops.mixed_dot(
-            x.reshape(-1, x.shape[-1]), head.as_mixed_operand(),
-            out_dtype=torch.float32, backend=policy.weight.backend,
+        logits = head.serve_dot(
+            x.reshape(-1, x.shape[-1]), out_dtype=torch.float32,
+            backend=policy.weight.backend,
         ).reshape(bsz, seq, head.shape[1])
     else:
         logits = HeadMatmul.apply(x, head)

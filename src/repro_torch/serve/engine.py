@@ -31,11 +31,21 @@ routers stay dense, as in the reference: the expert GEMMs run through
 decode batch (idle ones on token 0 at position 0) feeds the same expert
 buffers.
 
-Not ported yet (it raises): tensor-parallel ``mesh`` serving.
+Tensor-parallel serving (``mesh``, a ``core.collectives.Mesh`` with a
+'model' axis; one process a rank): every rank quantizes the global
+params as above, keeps its blocks under the reference's rules
+(``serve.quantized.shard_params``: ``sharding.rules.
+quantized_param_specs``, then ``local_shards``) and runs every model
+call with the mesh bound. Activations and the paged pool stay whole on
+every rank, as the reference's engine shards only the params; the
+ranks of a ``data`` axis hold the same blocks and compute the same. The
+dense family only: the MoE and recurrent families' rules shard dense
+expert stacks and mixer leaves (ROADMAP Queue 1, item 1d), and raise.
 """
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 from typing import Deque, Dict, List, Optional
 
@@ -43,13 +53,14 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core.collectives import Mesh, use_mesh
 from repro_torch.core.policy import MoRDotPolicy, MoRPolicy
 from repro_torch.models import make_decode_fn, make_prefill_fn
 from repro_torch.models.attention import quantize_kv, quantize_kv_mor
 from repro_torch.models.transformer import resolve_device
 
 from .paged import PagedKVPool, leaf_paths
-from .quantized import quantize_params
+from .quantized import quantize_params, shard_params
 
 __all__ = ["Request", "ServeConfig", "Engine", "PromptTooLongError"]
 
@@ -87,6 +98,21 @@ class ServeConfig:
     kv_guard: bool = False
 
 
+def _check_mesh(cfg: ArchConfig, mesh) -> None:
+    """A tensor-parallel mesh the engine serves: a ``Mesh`` with a 'model'
+    axis, for the dense family."""
+    if not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a repro_torch.core.collectives.Mesh, "
+                        f"got {type(mesh).__name__}")
+    if "model" not in mesh.names:
+        raise ValueError(f"mesh axes {mesh.names} have no 'model' axis")
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"tensor-parallel serving of the {cfg.family!r} family is not "
+            "ported yet (ROADMAP Queue 1, item 1d: expert-parallel dense "
+            "stacks and the recurrent mixers' rules)")
+
+
 def _to_device(tree, dev):
     """Tensors and QTensors alike (``QTensor.to``)."""
     if isinstance(tree, dict):
@@ -102,15 +128,16 @@ class Engine:
                  device="cuda"):
         """``quantize``: ahead-of-time MoR storage decision -- weight
         leaves become QTensors and every matmul against them runs
-        through the mixed GEMM. ``device``: CUDA unless the caller asks
-        for the CPU (then every kernel runs its plain version)."""
+        through the mixed GEMM. ``mesh``: tensor-parallel serving on
+        this rank (module docstring); every rank passes the same global
+        params. ``device``: CUDA unless the caller asks for the CPU
+        (then every kernel runs its plain version)."""
         if cfg.family in ("audio", "vlm"):
             raise NotImplementedError(
                 f"family {cfg.family!r} needs a modality frontend the "
                 "engine does not drive (frames/patches inputs)")
         if mesh is not None:
-            raise NotImplementedError(
-                "tensor-parallel serving (mesh) is not ported yet")
+            _check_mesh(cfg, mesh)
         if scfg.max_seq % scfg.prefill_chunk:
             raise ValueError(
                 f"prefill_chunk {scfg.prefill_chunk} must divide "
@@ -127,6 +154,10 @@ class Engine:
         if quantize is not None:
             params, self.qstats = quantize_params(
                 params, quantize, min_size=quantize_min_size)
+        self.mesh = mesh
+        if mesh is not None:
+            # This rank's blocks; the global quantized tree is dropped.
+            params = shard_params(cfg, params, mesh)
         self.params = params
         self.pool = PagedKVPool(cfg, scfg.slots, scfg.max_seq,
                                 page_size=scfg.page_size, kv_fp8=scfg.kv_fp8,
@@ -153,6 +184,12 @@ class Engine:
         self.decode_steps = 0
         self.prefill_chunks = 0
 
+    def _bound(self):
+        """The mesh bound for a model call (``use_mesh``), or nothing."""
+        if self.mesh is None:
+            return contextlib.nullcontext()
+        return use_mesh(self.mesh)
+
     # ------------------------------------------------------------- step --
     def _step_fn(self, bt: torch.Tensor, toks: np.ndarray,
                  cur: np.ndarray) -> torch.Tensor:
@@ -163,7 +200,9 @@ class Engine:
         cache = self.pool.gather(bt)
         toks_t = torch.as_tensor(toks, dtype=torch.int64, device=self.device)
         cur_t = torch.as_tensor(cur, dtype=torch.int64, device=self.device)
-        logits, cache, _ = self._decode(self.params, cache, toks_t, cur_t)
+        with self._bound():
+            logits, cache, _ = self._decode(self.params, cache, toks_t,
+                                            cur_t)
         S = toks_t.shape[1]
         positions = cur_t[:, None] - (S - 1) + torch.arange(
             S, device=self.device)[None]
@@ -236,7 +275,9 @@ class Engine:
         pages, its recurrent state into the slot's row."""
         prompt = torch.as_tensor(np.asarray(req.prompt)[None],
                                  dtype=torch.int64, device=self.device)
-        logits, pcache, _ = self._prefill(self.params, {"tokens": prompt})
+        with self._bound():
+            logits, pcache, _ = self._prefill(self.params,
+                                              {"tokens": prompt})
         by_key: Dict[str, torch.Tensor] = dict(leaf_paths(pcache))
         for key in list(by_key):
             if key.rsplit("/", 1)[-1] not in ("k", "v"):

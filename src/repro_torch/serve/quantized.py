@@ -8,6 +8,25 @@ compacted away, so a weight whose blocks all went fp8 stores ~1 byte per
 element. Every matmul against it runs through the mixed GEMM.
 Layer-stacked (L, K, N) weights quantize per layer and keep the layer
 axis on every lane; :meth:`QTensor.layer` gives one layer's 2-D view.
+
+Tensor-parallel serving (``Engine(mesh=)``, :func:`shard_params`): each
+rank keeps its blocks of every quantized weight, as the reference's
+rules cut them (``sharding.rules.quantized_param_specs``), in a
+:class:`ShardedQTensor`, and its vocabulary rows of a dense embedding in
+a :class:`ShardedEmbed`; a weight whose block grid the axis does not
+divide stays whole on every rank (llama3-8b's head on four ranks).
+Activations stay *replicated* between GEMMs. A column-parallel weight
+(view rows sharded: ``wqkv``, ``mlp/wi``, the head) multiplies the whole activation by its rows and the output
+columns are gathered in rank order; a row-parallel one (contraction
+blocks sharded: ``wo``, ``mlp/wo``) multiplies the activation's slice of
+its K blocks and the f32 partials are summed over the ranks. The
+reference's rules cut the fused ``wqkv`` and the fused swiglu ``wi`` in
+contiguous quarters of their columns (at llama3-8b on four ranks, rank 2
+holds q heads 24-31 and k heads 0-3, ranks 0-1 only gate columns), so a
+head- or gate-local layout that skipped the gathers would be a layout
+the reference lacks: the gather after each column-parallel GEMM is the
+price of the reference's layout. No rank builds a dequantized copy of a
+weight.
 """
 from __future__ import annotations
 
@@ -28,10 +47,13 @@ from repro_torch.core.mor import (
 )
 from repro_torch.core.policy import MoRPolicy
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels.ref import TAG_BF16, MixedOperand
+from repro_torch.kernels.ref import (TAG_BF16, MixedOperand,
+                                    activation_row_block, compact_lane_shapes,
+                                    passthrough_mixed)
 
 __all__ = ["QTensor", "quantize_weight", "quantize_weight_stacked", "qdot",
-           "quantize_params"]
+           "quantize_params", "ShardedQTensor", "ShardedEmbed",
+           "shard_params", "replicated_bytes"]
 
 _LANES = ("payload_q", "payload_bf16", "payload_nib", "micro_scales",
           "tags", "scales")
@@ -48,8 +70,16 @@ class QTensor:
     shape: Tuple[int, ...]
 
     def as_mixed_operand(self) -> MixedOperand:
-        """The hook ``core.linear.mor_dot`` dispatches on."""
+        """The (N, K) view (the reference's hook of the same name)."""
         return self.mo
+
+    def serve_dot(self, x2: torch.Tensor, *, out_dtype,
+                  backend: str = "auto") -> torch.Tensor:
+        """x2 (M, K) @ W -> (M, N) through the mixed GEMM: the serving
+        product that ``core.linear.mor_dot`` and the quantized head
+        dispatch on (a :class:`ShardedQTensor` has its own)."""
+        return kops.mixed_dot(x2, self.mo, out_dtype=out_dtype,
+                              backend=backend)
 
     @property
     def is_stacked(self) -> bool:
@@ -234,14 +264,39 @@ def quantize_params(params, policy: MoRPolicy, min_size: int = 1 << 16):
 
 def param_bytes(params) -> int:
     """Stored bytes of a params tree (QTensor leaves at their packed
-    size)."""
+    size; a sharded leaf at this rank's bytes)."""
     total = 0
     for leaf in params.values():
         if isinstance(leaf, dict):
             total += param_bytes(leaf)
-        elif isinstance(leaf, QTensor):
+        elif isinstance(leaf, (QTensor, ShardedQTensor, ShardedEmbed)):
             total += leaf.nbytes
         else:
+            total += leaf.numel() * leaf.element_size()
+    return total
+
+
+def replicated_bytes(params) -> int:
+    """Bytes of a rank's serving params (:func:`shard_params`) that every
+    rank holds whole: the leaves the rules replicate, and of a
+    :class:`ShardedQTensor` its stats and its compact (one-block) payload
+    lanes. The rest is cut: a rank holds 1/n of it."""
+    total = 0
+    for leaf in params.values():
+        if isinstance(leaf, dict):
+            total += replicated_bytes(leaf)
+        elif isinstance(leaf, ShardedQTensor):
+            mo = leaf.local.mo
+            cq, cnib, cms = compact_lane_shapes(mo.block)
+            lanes = [leaf.local.stats] + [
+                t for t, c in ((mo.payload_q, cq), (mo.payload_bf16, cq),
+                               (mo.payload_nib, cnib),
+                               (mo.micro_scales, cms))
+                if tuple(t.shape[-2:]) == tuple(c)]
+            total += sum(t.numel() * t.element_size() for t in lanes)
+        elif isinstance(leaf, QTensor):
+            total += leaf.nbytes
+        elif not isinstance(leaf, ShardedEmbed):
             total += leaf.numel() * leaf.element_size()
     return total
 
@@ -257,3 +312,165 @@ def tag_counts(params) -> np.ndarray:
             counts += np.bincount(leaf.tags.reshape(-1).cpu().numpy(),
                                   minlength=4)[:4]
     return counts
+
+
+# ------------------------------------------------ tensor-parallel --
+
+
+@dataclasses.dataclass
+class ShardedQTensor:
+    """This rank's blocks of a QTensor serving weight under the
+    reference's rules: ``local`` (``sharding.rules.local_shards``), the
+    mesh ``axis`` its view rows (``parallel='col'``) or contraction
+    blocks (``'row'``) shard over, and the global (K, N) ``shape``. Its
+    product runs on the mesh bound by ``use_mesh`` (the engine binds it
+    around every model call)."""
+
+    local: QTensor
+    axis: str
+    parallel: str
+    shape: Tuple[int, int]
+
+    @property
+    def is_stacked(self) -> bool:
+        return self.local.is_stacked
+
+    @property
+    def nbytes(self) -> int:
+        """This rank's storage bytes."""
+        return self.local.nbytes
+
+    def layer(self, l: int) -> "ShardedQTensor":
+        return dataclasses.replace(self, local=self.local.layer(l))
+
+    def serve_dot(self, x2: torch.Tensor, *, out_dtype,
+                  backend: str = "auto") -> torch.Tensor:
+        """x2 (M, K), replicated, @ W -> (M, N), replicated: the rank's
+        ``sharded_mixed_gemm``, then the columns gathered in rank order
+        (column-parallel) or the f32 partials summed (row-parallel)."""
+        from repro_torch.core.collectives import all_gather_over, bound_mesh
+
+        mesh = bound_mesh((self.axis,))
+        mo = self.local.mo
+        bk = mo.block[1]
+        M, (K, N) = x2.shape[0], self.shape
+        if self.parallel == "col":
+            a = passthrough_mixed(x2, (activation_row_block(M, bk), bk))
+            y = kops.sharded_mixed_gemm(a, mo, mesh=mesh, col_axis=self.axis,
+                                        out_dtype=out_dtype, backend=backend)
+            parts = all_gather_over(y, self.axis)  # (n, M, N / n)
+            return parts.permute(1, 0, 2).reshape(M, -1)[:, :N]
+        kl = mo.padded_shape[1]
+        k0 = mesh.axis_index(self.axis) * kl
+        a = passthrough_mixed(x2[:, k0:k0 + kl],
+                              (activation_row_block(M, bk), bk))
+        return kops.sharded_mixed_gemm(a, mo, mesh=mesh,
+                                       contract_axis=self.axis,
+                                       out_dtype=out_dtype, backend=backend)
+
+
+@dataclasses.dataclass
+class ShardedEmbed:
+    """This rank's vocabulary rows of a dense (V, d) embedding sharded
+    over ``axis`` (the reference's ``P('model', None)``): ``local`` holds
+    rows ``[r V / n, (r + 1) V / n)`` of rank coordinate r; ``shape`` is
+    the global (V, d). Its lookup runs on the mesh bound by
+    ``use_mesh``."""
+
+    local: torch.Tensor
+    axis: str
+    shape: Tuple[int, int]
+
+    @property
+    def nbytes(self) -> int:
+        return self.local.numel() * self.local.element_size()
+
+    def lookup(self, ids: torch.Tensor) -> torch.Tensor:
+        """``embed[ids]``: each rank looks the ids up in its own range
+        (clamped into it), the ranks' rows are gathered and the owner's
+        row of each id is selected. The partials are not summed: a sum
+        would turn an embedding's -0.0 into +0.0."""
+        from repro_torch.core.collectives import all_gather_over, bound_mesh
+
+        rows = self.local.shape[0]
+        lo = bound_mesh((self.axis,)).axis_index(self.axis) * rows
+        mine = self.local[(ids - lo).clamp(0, rows - 1)]
+        parts = all_gather_over(mine, self.axis)  # (n, *ids, d)
+        owner = torch.div(ids, rows, rounding_mode="floor")
+        idx = owner[None, ..., None].expand(1, *mine.shape)
+        return torch.take_along_dim(parts, idx, dim=0)[0]
+
+    def tied_head(self) -> "_TiedHead":
+        """The tied head ``embed.T`` (d, V), column-parallel."""
+        return _TiedHead(self)
+
+
+@dataclasses.dataclass
+class _TiedHead:
+    """``embed.T`` of a :class:`ShardedEmbed`: each rank multiplies by its
+    vocabulary columns (``models.transformer.HeadMatmul``, the
+    one-rank head's product), the f32 logits gathered in rank order."""
+
+    embed: ShardedEmbed
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        return (self.embed.shape[1], self.embed.shape[0])
+
+    def serve_dot(self, x2: torch.Tensor, *, out_dtype=torch.float32,
+                  backend: str = "auto") -> torch.Tensor:
+        from repro_torch.core.collectives import all_gather_over
+        from repro_torch.models.transformer import HeadMatmul
+
+        y = HeadMatmul.apply(x2, self.embed.local.T)
+        parts = all_gather_over(y, self.embed.axis)  # (n, M, V / n)
+        return parts.permute(1, 0, 2).reshape(
+            x2.shape[0], -1).to(out_dtype)
+
+
+def shard_params(cfg, params, mesh):
+    """This rank's serving params under the reference's rules
+    (``sharding.rules.quantized_param_specs`` with block-grid demotion,
+    then ``local_shards``): a QTensor cut along an axis becomes a
+    :class:`ShardedQTensor`, the vocab-sharded dense ``embed`` a
+    :class:`ShardedEmbed`, replicated leaves stay as they are. A dense
+    GEMM weight that the rules shard raises a ValueError naming it:
+    tensor-parallel serving shards quantized weights (quantize it, or
+    lower ``quantize_min_size``)."""
+    from repro_torch.sharding.rules import local_shards, quantized_param_specs
+
+    specs = quantized_param_specs(cfg, params, mesh)
+
+    def visit(tree, spec, prefix):
+        out = {}
+        for key, leaf in tree.items():
+            name = f"{prefix}/{key}" if prefix else str(key)
+            sp = spec[key]
+            if isinstance(leaf, dict):
+                out[key] = visit(leaf, sp, name)
+                continue
+            if isinstance(leaf, QTensor):
+                lead = leaf.mo.tags.ndim - 2
+                rows, cols = sp.mo.tags[lead], sp.mo.tags[lead + 1]
+                if rows is None and cols is None:
+                    out[key] = leaf
+                    continue
+                out[key] = ShardedQTensor(
+                    local_shards(leaf, sp, mesh, name),
+                    rows if rows is not None else cols,
+                    "col" if rows is not None else "row",
+                    tuple(leaf.shape))
+                continue
+            if all(e is None for e in sp):
+                out[key] = leaf
+            elif key == "embed" and tuple(sp) == ("model", None):
+                out[key] = ShardedEmbed(local_shards(leaf, sp, mesh, name),
+                                        "model", tuple(leaf.shape))
+            else:
+                raise ValueError(
+                    f"{name}: a dense leaf the rules shard ({sp}); "
+                    "tensor-parallel serving shards quantized weights "
+                    "(quantize it, or lower quantize_min_size)")
+        return out
+
+    return visit(params, specs, "")

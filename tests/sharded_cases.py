@@ -28,6 +28,24 @@ SINGLE_POLICY = "sub3"
 # a rank's rows are whole 128 x 128 blocks.
 TRAIN_OVER = {"d_model": 128, "n_layers": 1}
 TRAIN_SEQ = 128
+# sharded_mixed_gemm (tests/test_sharded_mor.py's 256 x 256 case, 64 x 64
+# blocks: a 4 x 4 grid): each lane on the 4-rank 'data' mesh, and rows
+# over 'data' with columns over 'model' on the 2 x 2 ('data', 'model')
+# mesh.
+GEMM_CASES = [("row", {"row_axis": "data"}), ("col", {"col_axis": "data"}),
+              ("contract", {"contract_axis": "data"})]
+GEMM_2X2 = {"row_axis": "data", "col_axis": "model"}
+# Tensor-parallel Engine(mesh=): reduced llama3-8b at the widths where
+# every block grid divides 4 (sub3, quantize_min_size 4096).
+ENGINE_OVER = {"d_model": 512, "n_heads": 8, "n_kv": 4, "head_dim": 64,
+               "d_ff": 1024, "vocab": 512, "n_layers": 2}
+# variant -> (data, model) mesh: the tied variant ties the embedding; on
+# the 2 x 2 mesh the two data replicas hold the same blocks.
+ENGINE_VARIANTS = {"untied": (1, 4), "tied": (1, 4), "untied_data2": (2, 2)}
+ENGINE_MIN_SIZE = 4096
+ENGINE_SLOTS = 2
+ENGINE_PROMPTS = (5, 40, 17)
+ENGINE_NEW = 4
 # Stats lanes bit for bit under sharding: all but 1 (rel_err, an f32 sum
 # in another association).
 EXACT_LANES = [0] + list(range(2, 14))
@@ -51,6 +69,30 @@ def expert_inputs():
     return (bf16_round(r.randn(2, 256, 128)),
             bf16_round(r.randn(2, 128, 64)),
             bf16_round(r.randn(2, 256, 64)))
+
+
+def gemm_inputs():
+    """(w, x): the (N, K) weight view, of high dynamic range, and the
+    activation, both 256 x 256 bf16 values."""
+    r = np.random.RandomState(2)
+    w = bf16_round(r.randn(256, 256) * np.exp(r.randn(256, 256)))
+    return w, bf16_round(r.randn(256, 256))
+
+
+def embed_table():
+    """(64, 8) bf16 values with a -0.0 in every row."""
+    t = bf16_round(np.random.RandomState(4).randn(64, 8))
+    t[:, 3] = -0.0
+    return t
+
+
+def embed_ids():
+    return np.random.RandomState(5).randint(0, 64, (2, 9))
+
+
+def engine_prompts(vocab: int):
+    rng = np.random.default_rng(11)
+    return [rng.integers(0, vocab, n) for n in ENGINE_PROMPTS]
 
 
 def nan_input(at: int):

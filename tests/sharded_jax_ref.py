@@ -10,7 +10,9 @@ bar), the reference's train step inside ``compat_shard_map`` on the
 'data' axis (per-shard metrics, stats, gradients and master out as
 P('data')) and each shard's step on one device (its gradients), its
 ``all_gather_over`` / ``global_size`` / ``psum_over`` inside
-``shard_map``, and its ``pmax_over`` of a NaN on each shard in turn. The
+``shard_map``, its ``pmax_over`` of a NaN on each shard in turn, its
+single-device and sharded ``mixed_gemm`` of the 256 x 256 case, and the
+error its ``Engine(mesh=)`` raises at its first step. The
 XLA lowering throughout (``REPRO_KERNEL_INTERPRET=0``), compiled with
 XLA's excess precision off. The cases compile and run on a pool of
 threads (XLA compiles with the interpreter lock released).
@@ -219,6 +221,50 @@ def collective_case(out, mesh, pod_mesh):
             out[f"nan/{rec}/{at}"] = f32(fn(x))
 
 
+def gemm_case(out, mesh, mesh22):
+    """The single-device mixed_gemm and the reference's sharded_mixed_gemm
+    of each lane (inside its shard_map) and of the 2 x 2 mesh."""
+    from repro.kernels import ops as kops
+    from repro.kernels.ref import passthrough_mixed
+
+    w, x = (jnp.asarray(a, jnp.bfloat16) for a in C.gemm_inputs())
+    mo, _ = quantize_for_gemm(w, MoRPolicy(recipe="sub3", partition="block",
+                                           block_shape=C.BLOCK))
+    a = passthrough_mixed(x, C.BLOCK)
+    out["gemm/single"] = f32(jit_ref(kops.mixed_gemm)(a, mo))
+    for name, kw, m in [(n, k, mesh) for n, k in C.GEMM_CASES] + [
+            ("2x2", C.GEMM_2X2, mesh22)]:
+        out[f"gemm/{name}"] = f32(jit_ref(
+            lambda p, q, m=m, kw=kw: kops.sharded_mixed_gemm(
+                p, q, mesh=m, **kw))(a, mo))
+
+
+def engine_case(out, mesh):
+    """The reference's Engine(mesh=) on a (data 1, model 4) mesh at the
+    port's engine shape: its first step fails at the vocab-sharded embed
+    gather (a ShardingTypeError under this JAX), before any GEMM, so the
+    params stay dense here (quantized ones fail at the same gather)."""
+    import dataclasses
+
+    from repro.configs import get_config, reduced
+    from repro.core.policy import BF16_BASELINE
+    from repro.models import init_params
+    from repro.serve.engine import Engine, Request, ServeConfig
+
+    cfg = dataclasses.replace(reduced(get_config("llama3-8b")),
+                              **C.ENGINE_OVER)
+    params = jit_ref(lambda k: init_params(cfg, k))(jax.random.PRNGKey(0))
+    eng = Engine(cfg, BF16_BASELINE, params,
+                 ServeConfig(slots=C.ENGINE_SLOTS, max_seq=128), mesh=mesh)
+    eng.submit(Request(rid=0, prompt=C.engine_prompts(cfg.vocab)[0],
+                       max_tokens=C.ENGINE_NEW))
+    try:
+        eng.step()
+        out["engine_error"] = np.array("no error")
+    except Exception as e:  # the reference's failure, recorded by name
+        out["engine_error"] = np.array(f"{type(e).__name__}: {e}"[:400])
+
+
 def main():
     out_dir = sys.argv[1]
     assert len(jax.devices()) == C.WORLD, jax.devices()
@@ -234,8 +280,12 @@ def main():
     tasks += [(dot_case, out, "experts", r, f) for r, f in C.EXPERT_CASES]
     tasks += [(quant_case, out, f"quant/{i}", c)
               for i, c in enumerate(C.QUANT_CASES)]
+    tp_mesh = jax.make_mesh((1, C.WORLD), ("data", "model"))
     tasks += [(quant_case, out, "pod/0", C.POD_CASE),
-              (collective_case, out, mesh, pod_mesh)]
+              (collective_case, out, mesh, pod_mesh),
+              (gemm_case, out, mesh, jax.make_mesh((2, 2),
+                                                   ("data", "model"))),
+              (engine_case, out, tp_mesh)]
     with concurrent.futures.ThreadPoolExecutor(6) as pool:
         for f in [pool.submit(*t) for t in tasks]:
             f.result()

@@ -5,8 +5,10 @@
 
 Joins a gloo world through the ``file://`` store, runs every case of
 ``sharded_cases`` on its shard under ``core.collectives.use_mesh`` and
-writes ``OUT_DIR/rank{RANK}.npz``. Imports torch and the port only; the
-train-step parameters come from ``OUT_DIR/params.npz``.
+writes ``OUT_DIR/rank{RANK}.npz``: also its blocks of the sharded mixed
+GEMM and its tensor-parallel engine runs beside the one-rank engine's.
+Imports torch and the port only; the train-step parameters come from
+``OUT_DIR/params.npz``.
 """
 import os
 import sys
@@ -169,6 +171,108 @@ def collective_cases(out, rank, mesh, pod_mesh):
             out["unbound"] = np.array(str(e))
 
 
+def gemm_cases(out, rank, mesh, mesh22):
+    """sharded_mixed_gemm on this rank's operands (local_mixed of the
+    whole packs): its block of C for each lane, and on the 2 x 2 mesh."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.ref import passthrough_mixed
+    from repro_torch.sharding.rules import local_mixed, mixed_operand_pspec
+
+    w, x = C.gemm_inputs()
+    mo, _ = quantize_for_gemm(bf16(w), MoRPolicy(recipe="sub3",
+                                                 block_shape=C.BLOCK))
+    a = passthrough_mixed(bf16(x), C.BLOCK)
+    for name, kw, m in [(n, k, mesh) for n, k in C.GEMM_CASES] + [
+            ("2x2", C.GEMM_2X2, mesh22)]:
+        al = local_mixed(a, mixed_operand_pspec(
+            a, kw.get("row_axis"), kw.get("contract_axis")), m, "a")
+        bl = local_mixed(mo, mixed_operand_pspec(
+            mo, kw.get("col_axis"), kw.get("contract_axis")), m, "b")
+        out[f"gemm/{name}"] = f32(ops.sharded_mixed_gemm(al, bl, mesh=m,
+                                                         **kw))
+
+
+def embed_case(out, rank, mesh):
+    """ShardedEmbed.lookup of a (64, 8) table with -0.0 entries on the
+    (data 1, model 4) mesh, and the sum of the ranks' masked lookups
+    (what the owner-select replaces), as bf16 bits."""
+    from repro_torch.serve.quantized import ShardedEmbed
+
+    table = bf16(C.embed_table())
+    ids = torch.from_numpy(C.embed_ids())
+    rows = table.shape[0] // C.WORLD
+    shard = ShardedEmbed(table[rank * rows:(rank + 1) * rows].clone(),
+                         "model", tuple(table.shape))
+    with col.use_mesh(mesh):
+        out["embed/lookup"] = shard.lookup(ids).view(torch.int16).numpy()
+        mine = (ids >= rank * rows) & (ids < (rank + 1) * rows)
+        part = torch.where(mine[..., None],
+                           shard.local[(ids - rank * rows).clamp(0, rows - 1)],
+                           torch.zeros((), dtype=torch.bfloat16))
+        summed = col.psum_over(part, ("model",))
+    out["embed/summed"] = summed.view(torch.int16).numpy()
+
+
+def _recorded(eng, calls):
+    """Record every model call's logits (f32) and collectives."""
+    decode = eng._decode
+
+    def run(*args):
+        before = col.COLLECTIVES["calls"]
+        logits, cache, st = decode(*args)
+        calls.append((f32(logits).reshape(-1),
+                      col.COLLECTIVES["calls"] - before,
+                      int(args[2].shape[1])))
+        return logits, cache, st
+
+    eng._decode = run
+
+
+def engine_cases(out, rank, meshes):
+    """Engine(mesh=) on each variant's mesh (``meshes``: {(data, model):
+    Mesh}) against the one-rank Engine in this process: tokens, logits
+    of every model call, weight bytes, collectives of a decode call."""
+    import dataclasses
+
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.policy import BF16_BASELINE
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve.engine import Engine, Request, ServeConfig
+    from repro_torch.serve.quantized import param_bytes, replicated_bytes
+
+    for variant, shape in C.ENGINE_VARIANTS.items():
+        mesh = meshes[shape]
+        cfg = dataclasses.replace(reduced(get_config("llama3-8b")),
+                                  tie_embed=variant == "tied",
+                                  **C.ENGINE_OVER)
+        params = init_params(cfg, seed=3, device="cpu")
+        res = {}
+        for kind, m in (("one", None), ("tp", mesh)):
+            eng = Engine(cfg, BF16_BASELINE, params,
+                         ServeConfig(slots=C.ENGINE_SLOTS, max_seq=128),
+                         quantize=MoRPolicy(recipe="sub3"),
+                         quantize_min_size=C.ENGINE_MIN_SIZE, mesh=m,
+                         device="cpu")
+            calls = []
+            _recorded(eng, calls)
+            reqs = [Request(rid=i, prompt=p, max_tokens=C.ENGINE_NEW)
+                    for i, p in enumerate(C.engine_prompts(cfg.vocab))]
+            for r in reqs:
+                eng.submit(r)
+            eng.run_to_completion()
+            res[kind] = (reqs, calls, param_bytes(eng.params))
+        key = f"engine/{variant}/"
+        for kind, (reqs, calls, nbytes) in res.items():
+            out[key + f"tokens_{kind}"] = np.array([r.out for r in reqs])
+            out[key + f"logits_{kind}"] = np.concatenate(
+                [c[0] for c in calls])
+            out[key + f"bytes_{kind}"] = np.array(nbytes)
+        out[key + "decode_collectives"] = np.array(
+            [c[1] for c in res["tp"][1] if c[2] == 1])
+        out[key + "bytes_replicated"] = np.array(replicated_bytes(
+            eng.params))
+
+
 def main():
     rank, store, out_dir = int(sys.argv[1]), sys.argv[2], sys.argv[3]
     torch.set_num_threads(1)
@@ -183,6 +287,11 @@ def main():
     with col.use_mesh(pod_mesh):
         quant_cases(out, rank, ("data", "pod"), "pod/", [C.POD_CASE])
     collective_cases(out, rank, mesh, pod_mesh)
+    mesh22 = col.make_mesh((2, 2), ("data", "model"), device="cpu")
+    tp_mesh = col.make_mesh((1, C.WORLD), ("data", "model"), device="cpu")
+    gemm_cases(out, rank, mesh, mesh22)
+    embed_case(out, rank, tp_mesh)
+    engine_cases(out, rank, {(1, C.WORLD): tp_mesh, (2, 2): mesh22})
     out["collectives"] = np.array(col.COLLECTIVES["calls"])
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
 

@@ -32,6 +32,7 @@ def test_port_tree_is_present():
     names = {p.relative_to(ROOT).as_posix() for p in _port_files()}
     for must in ("src/repro_torch/kernels/ops.py",
                  "src/repro_torch/serve/engine.py",
+                 "src/repro_torch/sharding/rules.py",
                  "src/repro_torch/train/train_step.py",
                  "src/repro_torch/kernels/gam_quant.py",
                  "src/repro_torch/checkpoint/ckpt.py",

@@ -249,9 +249,20 @@ def test_prompt_limits_and_rejection_match(model):
 
 
 def test_unported_options_raise(model):
+    """A mesh that is not a ``Mesh`` raises a TypeError; tensor-parallel
+    serving of the MoE and recurrent families raises, naming its ROADMAP
+    item."""
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core.collectives import Mesh
+
     _, cfg, _, tparams = model
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="Mesh"):
         Engine(cfg, BF16_BASELINE, tparams, mesh=object(), device="cpu")
+    mesh = Mesh((1, 1), ("data", "model"), "cpu", 0, {})
+    for arch in ("granite-moe-1b-a400m", "hymba-1.5b", "xlstm-350m"):
+        with pytest.raises(NotImplementedError, match="item 1d"):
+            Engine(reduced(get_config(arch)), BF16_BASELINE, tparams,
+                   mesh=mesh, device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             Engine(cfg, BF16_BASELINE, tparams)  # the default is the card
