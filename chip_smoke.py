@@ -212,11 +212,10 @@
    6 of its 18 layers (``FRONT_SERVE_LAYERS``): 4 requests of a 128-token
    prompt (4 x 384 prefill rows on the tc path), 32 decode steps (M = 4,
    stream path) on a bf16 and a kv_mor cache (6,144 / 3,132 bytes per
-   token; 18,432 / 9,396 at full depth); trained at full depth (18
-   layers) on 2 x (256 + 1024) positions. (b) whisper-tiny at full
-   width and depth (4 encoder and 4 decoder layers, 1500 stub frames): 8
-   requests of a
-   32-token prompt, 64 decode steps on the bf16 cache (6,144 bytes per
+   token; 18,432 / 9,396 at full depth); trained at 6 of its 18 layers
+   (``FRONT_TRAIN_LAYERS``) on 2 x (256 + 1024) positions. (b)
+   whisper-tiny at full width and depth (4 encoder and 4 decoder layers,
+   1500 stub frames): 8 requests of a 32-token prompt, 64 decode steps on the bf16 cache (6,144 bytes per
    token); every GEMM of a full prefill held against the plain version
    at M = 12000 (the encoder's and the cross K/V's, 93.75 blocks of 128)
    on the tc path; the quantized KV tiers refused by name; training on 8
@@ -281,7 +280,22 @@
    then kernel path against
    plain path on the four ranks (``train_depth2`` on the mesh). (c) A
    NaN in one rank's shard: every rank's amax and guard lanes equal the
-   one-rank run's, and ``pmax_over`` is NaN on every rank.
+   one-rank run's, and ``pmax_over`` is NaN on every rank. (d) The
+   cross-pod compressed sum (``md_pod_psum``) at (b)'s width and depth on
+   a (pod 2, data 2) mesh: each pod's sub3 gradients of its half of the
+   batch, a rank's rows of every leaf that splits into whole 128-row
+   blocks (the others whole), ``make_pod_compressed_psum('pod', sub3,
+   inner_axes=('data',))`` over every leaf: the shipped lanes bit for
+   bit the one-rank pack of the pod's whole leaf, the sum bit for bit
+   the one-rank decodes' sum, the kernel path bit for bit the plain
+   path; the flat path on the largest leaf; wire bytes per gradient
+   element, collectives, seconds. (e) Elastic restore (``md_elastic``):
+   rank 0 saves (b)'s params with ``Checkpointer``; every rank restores
+   them with ``shardings=`` on ``make_elastic_mesh`` over ranks [0, 1,
+   2, 3] (2 x 2) and [0, 1, 2] (1 x 2), and through ``elastic_restore``
+   on [0, 1, 2] (1 x 3), each leaf bit for bit its block of the redrawn
+   params; restore seconds and host peak memory. The card's memory is
+   checked against ``launch.mesh.HW.HBM_BYTES``.
 
 16. Tensor-parallel serving (``phase_tp_serve``, after
    ``multi_device``, on its rank machinery): llama3-8b at full width and
@@ -343,8 +357,14 @@ import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
-BF16_FLOPS = 989e12           # H100 SXM dense bf16 tensor-core peak
+sys.path.insert(0, str(ROOT / "src"))
+# The card's roofline constants, defined once (the port's launch.mesh.HW;
+# without the rest of the repository beside it the script stops here).
+from repro_torch.launch.mesh import HW  # noqa: E402
+
+HBM_BYTES_PER_S = HW.HBM_BW
+BF16_FLOPS = HW.PEAK_FLOPS_BF16
+FP8_FLOPS = HW.PEAK_FLOPS_FP8
 N_LAYERS = 32                 # llama3-8b depth; cut only if time forces it
 # The engine phase (item 4) at depth 8 (32 before):
 # host-paced (the card idle ~0.9 of a decode call), its time scales with
@@ -373,7 +393,6 @@ ALGOS = ("gam", "e8m0", "fp32_amax")
 # Block of the parity operands whose ideal GAM scale overflows (values
 # ~1e-37); the NaN and Inf sit in other blocks.
 TINY_AT = (0, 1)
-FP8_FLOPS = 1979e12           # H100 SXM dense fp8 tensor-core peak
 
 
 def emit(obj):
@@ -3261,12 +3280,282 @@ def md_nan(rank, mesh, totals):
     return res
 
 
+def md_leaf_rows(g, data):
+    """(this rank's rows of the gradient leaf ``g`` on a data axis of 2,
+    whether they are cut): its half of the leaf2d rows where they split
+    into whole 128-row blocks, else the whole leaf."""
+    from repro_torch.optim.compress import leaf2d
+    if leaf2d(g).shape[0] % (2 * 128):
+        return g, False
+    return leaf2d(g).chunk(2)[data], True
+
+
+MD_STRIPE_ROWS = 8192  # rows of a one-rank pack decoded at a time
+
+
+def md_decoded_sum_check(mine, out, what):
+    """The pods' one-rank decodes summed in f32 in pod order, bit for bit
+    ``out``: this rank's rows of its pod's one-rank pack (``mine``)
+    decoded a stripe of MD_STRIPE_ROWS rows at a time, each stripe
+    gathered over 'pod' (the other pod's rank at this data index sends
+    its stripe)."""
+    from repro_torch.core import collectives as col
+    out2d = out.reshape(mine.shape)
+    lanes = ("payload_q", "payload_bf16", "payload_nib", "micro_scales")
+    br = mine.block[0]
+    for r0 in range(0, mine.shape[0], MD_STRIPE_ROWS):
+        r1 = min(r0 + MD_STRIPE_ROWS, mine.shape[0])
+        n_blk = -(-r1 // br)  # block rows through r1, padding included
+        part = {}
+        for lane in lanes:  # dense lanes by rows, compact ones whole
+            t, f = getattr(mine, lane), 2 if lane == "payload_nib" else 1
+            dense = t.shape[0] == mine.padded_shape[0] // f
+            part[lane] = t[r0 // f:n_blk * br // f] if dense else t
+        sub = dataclasses.replace(
+            mine, shape=(r1 - r0, mine.shape[1]),
+            tags=mine.tags[r0 // br:n_blk],
+            scales=mine.scales[r0 // br:n_blk], **part)
+        pods = col.all_gather_over(sub.dequant().to(torch.float32), "pod")
+        check(same_bits([out2d[r0:r1]], [(pods[0] + pods[1]).to(
+            out.dtype)]), f"{what}: the sum differs from the one-rank "
+            f"decodes' sum in rows {r0}-{r1}")
+
+
+def md_pod_psum(rank, depth, totals):
+    """(d): the cross-pod compressed sum at full width. MD_ARCH at
+    ``depth`` on a (pod 2, data 2) mesh: both ranks of a pod compute the
+    sub3 step's gradients on the pod's half of the batch (2 x MD_SEQ
+    tokens), each keeps its rows of every leaf whose leaf2d rows split
+    into whole 128-row blocks (``md_leaf_rows``) and the other leaves
+    whole, and runs make_pod_compressed_psum('pod', sub3, inner_axes=
+    ('data',)) over every leaf (counted). Gates, per leaf: the pack
+    lanes the collective shipped for this pod bit for bit the one-rank
+    pack of the pod's whole leaf (its shards gathered over 'data'), at
+    this rank's rows; the sum bit for bit the pods' one-rank decodes
+    summed in f32 in pod order; the kernel path bit for bit the plain
+    path (``backend='torch'``). The flat path on the largest leaf within
+    2^-3 of the pods' amaxes summed of the exact sum (E4M3's rounding).
+    Reports the pack launches by route, the bytes a rank sends and
+    receives per gradient element (beside a bf16 all-reduce's 2 B), the
+    collectives and their host seconds, and the wall time."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import collectives as col
+    from repro_torch.core.mor import quantize_for_gemm
+    from repro_torch.core.policy import MoRPolicy
+    from repro_torch.models import init_params
+    from repro_torch.optim import compress
+    from repro_torch.optim.compress import POD_LANES, leaf2d
+    mesh = col.make_mesh((2, 2), ("pod", "data"), device=MD_DEV)
+    pod, data = mesh.axis_index("pod"), mesh.axis_index("data")
+    cfg = dataclasses.replace(get_config(MD_ARCH), n_layers=depth)
+    batch = train_batch(cfg, 0, batch=MD_WORLD, seq=MD_SEQ, device=MD_DEV)
+    mine = {k: v[2 * pod:2 * pod + 2] for k, v in batch.items()}
+    params = init_params(cfg, seed=1, device=MD_DEV)
+    names = list(flat_tree(params))
+    _, _, grads, _ = step_grads(cfg, train_policies()["sub3"], params, mine)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    pol = MoRPolicy(recipe="sub3")
+    psum = compress.make_pod_compressed_psum("pod", pol, inner_axes=("data",))
+    plain = compress.make_pod_compressed_psum(
+        "pod", pol.replace(backend="torch"), inner_axes=("data",))
+    one_pol = pol.replace(mesh_axes=())
+    shipped = []
+    gather = compress.all_gather_over
+
+    def spy(x, axis):
+        out = gather(x, axis)
+        shipped.append(out)
+        return out
+
+    routes = {"tile": 0, "generic": 0}
+    wire = {"calls": 0, "host_s": 0.0, "bytes_out": 0, "bytes_in": 0}
+    elts = cut_leaves = 0
+    what = f"multi_device rank {rank} pod_psum"
+    t_wall = 0.0
+    with col.use_mesh(mesh):
+        for name, g in zip(names, grads):
+            local, cut = md_leaf_rows(g, data)
+            cut_leaves += cut
+            elts += local.numel()
+            reset_counters()
+            before = dict(col.COLLECTIVES)
+            shipped.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with patched(compress, "all_gather_over", spy):
+                out = psum(local)
+            torch.cuda.synchronize()
+            t_wall += time.perf_counter() - t0
+            totals.add_current(f"{what} {name}")
+            for k in wire:
+                wire[k] += col.COLLECTIVES[k] - before[k]
+            for r, n in tile_routes()["mor_select_pack"].items():
+                routes[r] += n
+            lanes = {k: v[pod] for k, v in zip(POD_LANES, shipped)}
+            shipped.clear()
+            # The bar: the pod's whole leaf on one rank, packed without a
+            # mesh; this rank's rows of it.
+            whole = col.all_gather_over(local, "data").reshape(
+                -1, local.shape[-1]) if cut else local
+            one, _ = quantize_for_gemm(leaf2d(whole).to(torch.bfloat16),
+                                       one_pol)
+            del whole
+            mine = {}
+            for lane in POD_LANES:
+                got, want = lanes[lane], getattr(one, lane)
+                if want.shape != got.shape:  # a cut lane: this rank's rows
+                    want = want.chunk(2)[data]
+                check(same_bits([got], [want]),
+                      f"{what} {name}: {lane} differs from the one-rank "
+                      f"pack's")
+                mine[lane] = want.clone()
+            mine = dataclasses.replace(one, shape=tuple(leaf2d(local).shape),
+                                       **mine)
+            del one, lanes
+            md_decoded_sum_check(mine, out, f"{what} {name}")
+            del mine
+            check(same_bits([plain(local)], [out]),
+                  f"{what} {name}: kernel path differs from plain path")
+            del out
+            gc.collect()
+            torch.cuda.empty_cache()
+        res = {"arch": cfg.name, "depth": depth, "leaves": len(names),
+               "cut_leaves": cut_leaves, "grad_elements_rank": elts,
+               "pack_launches_by_route": routes,
+               "bytes_sent_per_elt": wire["bytes_out"] / elts,
+               "bytes_received_per_elt": wire["bytes_in"] / elts,
+               "bf16_allreduce_bytes_per_elt": 2.0,
+               "collectives": wire["calls"],
+               "collective_host_s": wire["host_s"], "wall_s": t_wall,
+               "lanes_sum_plain": "bit for bit"}
+        # The flat path on the largest leaf (this rank's rows of it).
+        big = max(range(len(grads)), key=lambda i: grads[i].numel())
+        local = md_leaf_rows(grads[big], data)[0]
+        flat = compress.make_pod_compressed_psum("pod")
+        before = dict(col.COLLECTIVES)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = flat(local)
+        torch.cuda.synchronize()
+        flat_s = time.perf_counter() - t0
+        sent = col.COLLECTIVES["bytes_out"] - before["bytes_out"]
+        pods = col.all_gather_over(local, "pod").float()
+        exact = pods.sum(0)
+        err = (out.float() - exact).abs()
+        # Each pod's E4M3 round trip is off by at most 2^-4 of its
+        # element (2^-10 / scale below E4M3's normal range), the bf16
+        # sum by 2^-9 of itself: within 2^-3 of the pods' amaxes summed.
+        amax = float(pods.abs().amax(dim=tuple(range(1, pods.ndim))).sum())
+        nz = exact != 0
+        rel = float((err[nz] / exact[nz].abs()).median()) if bool(
+            nz.any()) else 0.0
+        check(bool(torch.isfinite(out.float()).all()) and out.shape ==
+              local.shape and float(err.max()) <= 2.0 ** -3 * amax,
+              f"{what} flat: max error {float(err.max())} of pods' amax "
+              f"{amax}")
+        res["flat"] = {"leaf": names[big], "elements": local.numel(),
+                       "bytes_sent_per_elt": sent / local.numel(),
+                       "max_err_over_amax": float(err.max()) / amax,
+                       "median_rel_err_nonzero": rel, "wall_s": flat_s}
+        del pods, exact, err, out
+    del grads
+    return res
+
+
+def md_elastic(rank, depth):
+    """(e): elastic restore. Rank 0 saves MD_ARCH's params at ``depth``
+    (init_params, seed 1) with Checkpointer; every rank restores them
+    with ``shardings=`` onto make_elastic_mesh(ranks=[0, 1, 2, 3],
+    prefer_model=2) (2 x 2) and onto ranks=[0, 1, 2] (1 x 2: rank 2
+    outside, rank 3 the lost one), and through elastic_restore on ranks
+    [0, 1, 2] (1 x 3: every 'model' dimension of gemma-2b demotes to
+    replicated). Gates: each rank's leaves bit for bit its block of the
+    params init_params redraws; a rank outside gets None. Reports each
+    restore's seconds and the host's peak memory (the process's maximum
+    resident set)."""
+    import resource
+
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.models import init_params
+    from repro_torch.sharding import (NamedSharding, elastic_restore,
+                                      make_elastic_mesh, rules)
+    from repro_torch.sharding.elastic import demoted_spec
+    cfg = dataclasses.replace(get_config(MD_ARCH), n_layers=depth)
+    ck = Checkpointer(str(MD_DIR / "ckpt"), async_save=False)
+    res = {"arch": cfg.name, "depth": depth}
+    target = init_params(cfg, seed=1, device=MD_DEV)
+    if rank == 0:
+        t0 = time.perf_counter()
+        ck.save(1, target)
+        res["save_s"] = time.perf_counter() - t0
+        res["checkpoint_gb"] = dir_gb(MD_DIR / "ckpt")
+    dist.barrier()
+    specs = rules.param_specs(cfg, target)
+    what = f"multi_device rank {rank} elastic"
+
+    def held(tree, mesh, name):
+        """Gate ``tree`` against this rank's blocks of ``target``; the
+        leaves demoted and the GB this rank holds."""
+        demoted, nbytes = 0, 0
+        for (k, got), want, spec in zip(flat_tree(tree).items(),
+                                        flat_tree(target).values(),
+                                        flat_tree(specs).values()):
+            fixed = demoted_spec(spec, tuple(want.shape), mesh)
+            demoted += any(e is not None for e in spec) and \
+                all(e is None for e in fixed)
+            check(got.device.type == mesh.device.type and same_bits(
+                [got], [NamedSharding(mesh, fixed).shard(want)]),
+                f"{what} {name}: {k} differs from its block")
+            nbytes += got.numel() * got.element_size()
+        return {"mesh": dict(mesh.axis_sizes), "demoted_leaves": demoted,
+                "gb": nbytes / 1e9}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {"restore_s": time.perf_counter() - t0,
+                     "host_peak_gb": resource.getrusage(
+                         resource.RUSAGE_SELF).ru_maxrss * 1024 / 1e9,
+                     "host_peak_before_gb": rss * 1024 / 1e9}
+
+    for name, ranks in (("2x2", [0, 1, 2, 3]), ("1x2", [0, 1, 2])):
+        mesh = make_elastic_mesh(ranks, prefer_model=2, device=MD_DEV)
+        if mesh is None:
+            res[name] = "outside"
+        else:
+            shardings = rules._map2(lambda sp, t: NamedSharding(
+                mesh, demoted_spec(sp, tuple(t.shape), mesh)), specs, target)
+            tree, row = timed(lambda: ck.restore(1, target, shardings))
+            row.update(held(tree, mesh, name))
+            res[name] = row
+            del tree
+        dist.barrier()
+    (tree, mesh), row = timed(lambda: elastic_restore(
+        ck, 1, target, cfg, ranks=[0, 1, 2], device=MD_DEV))
+    if mesh is None:
+        check(tree is None, f"{what} 1x3: a tree outside the mesh")
+        res["1x3_elastic_restore"] = "outside"
+    else:
+        row.update(held(tree, mesh, "1x3"))
+        res["1x3_elastic_restore"] = row
+    del tree, target
+    dist.barrier()
+    return res
+
+
 def md_rank(rank, store, depth):
     """One rank of the multi_device phase (``chip_smoke.py
     --multi-device-rank RANK STORE DEPTH``): joins the gloo world, runs
-    (a)-(c) on cuda:0 and prints its result as the last line; a failed
+    (a)-(e) on cuda:0 and prints its result as the last line; a failed
     check raises (exit non-zero)."""
-    sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core import collectives as col
     from repro_torch.kernels import ops, ref
     from repro_torch.launch.ranks import init_world
@@ -3281,6 +3570,12 @@ def md_rank(rank, store, depth):
     gc.collect()
     torch.cuda.empty_cache()
     res["train"] = md_train(rank, mesh, depth, ops, ref, totals)
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["pod_psum"] = md_pod_psum(rank, depth, totals)
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["elastic"] = md_elastic(rank, depth)
     res.update(launches=totals.launches, routes=totals.routes,
                paths=totals.paths, s=time.perf_counter() - t0,
                collectives=col.COLLECTIVES)
@@ -3328,9 +3623,31 @@ def phase_multi_device(smi):
                  "mixed_gemm"):
         check(totals.launches[kern] > 0,
               f"multi_device: {kern} launched no time on its path")
-    check_tile_route(totals.routes, totals.launches, "multi_device")
+    for r in ranks:
+        p = r["pod_psum"]
+        by = p["pack_launches_by_route"]
+        check(by == {"tile": p["cut_leaves"],
+                     "generic": p["leaves"] - p["cut_leaves"]},
+              f"multi_device rank {r['rank']}: pod_psum packs {by}")
+    # (d)'s leaves that do not split into 128-row blocks are the norm
+    # scales, (1, d) views, which take the generic route; every other
+    # pack of the phase the tile route.
+    pod_generic = sum(r["pod_psum"]["pack_launches_by_route"]["generic"]
+                      for r in ranks)
+    routes = {k: dict(v) for k, v in totals.routes.items()}
+    routes["mor_select_pack"]["generic"] -= pod_generic
+    check_tile_route(routes, {**totals.launches, "mor_select_pack": (
+        totals.launches["mor_select_pack"] - pod_generic)}, "multi_device")
     train = [r["train"] for r in ranks]
+    pods = [r["pod_psum"] for r in ranks]
+    total = torch.cuda.get_device_properties(0).total_memory
+    check(0.9 * HW.HBM_BYTES <= total <= HW.HBM_BYTES,
+          f"multi_device: the card's {total} B against HW.HBM_BYTES "
+          f"{HW.HBM_BYTES}")
     res = {"world": MD_WORLD, "device": "cuda:0", "backend": "gloo",
+           "hw": {"hbm_bytes": HW.HBM_BYTES, "card_total_memory": total,
+                  "hbm_bw": HW.HBM_BW, "bf16_flops": HW.PEAK_FLOPS_BF16,
+                  "fp8_flops": HW.PEAK_FLOPS_FP8},
            "reckoning": reckoning, "checks": {
                "a_mor_dot_wi": {r["rank"]: r["mor_dot"] for r in ranks},
                "b_train": {"arch": train[0]["arch"], "depth": depth,
@@ -3345,7 +3662,12 @@ def phase_multi_device(smi):
                            "kernel_vs_plain": {
                                r["rank"]: r["train"]["kernel_vs_plain"]
                                for r in ranks}},
-               "c_nan": {r["rank"]: r["nan"] for r in ranks}},
+               "c_nan": {r["rank"]: r["nan"] for r in ranks},
+               "d_pod_psum": {r["rank"]: r["pod_psum"] for r in ranks},
+               "e_elastic": {r["rank"]: r["elastic"] for r in ranks}},
+           "pod_psum_bytes_sent_per_elt": [p["bytes_sent_per_elt"]
+                                           for p in pods],
+           "pod_psum_s_ranks": [p["wall_s"] for p in pods],
            "step_s_one_rank": train[0]["one_rank"]["step_s"],
            "tokens_one_rank": train[0]["one_rank"]["tokens"],
            "step_s_ranks": [t["ranks"]["step_s"] for t in train],
@@ -3990,7 +4312,6 @@ def tp_rank(rank, store, depth):
     ``tp_models`` run; its result is the last line of its output. A
     failed check raises; a failed gate of (b) or (c) is listed in the
     result, which ``phase_tp_serve`` prints before it fails."""
-    sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core import collectives as col
     from repro_torch.launch.ranks import init_world
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -6127,8 +6448,13 @@ FRONT_TRAIN_STEPS = 3
 # Depth of the engine-free serving runs (quantize, prefill, decode; for
 # whisper the ragged-GEMM parity too), by arch: paligemma-3b's at 6 of
 # its 18 layers (every check holds at any depth, and the runs' time is
-# per layer); training stays at full depth.
+# per layer).
 FRONT_SERVE_LAYERS = {"paligemma-3b": 6}
+# Depth of the training runs (sub3 and fused sub3), by arch:
+# paligemma-3b's at 6 of its 18 layers, since multi_device's checks (d)
+# and (e) needed the room (every check of a run holds at any depth, and
+# its time is per layer; the depth-2 checks are unchanged).
+FRONT_TRAIN_LAYERS = {"paligemma-3b": 6}
 # paligemma-3b: 4 requests, each 256 stub patches and a 128-token prompt,
 # then 32 decode steps; training on 2 x (256 + 1024) positions.
 PALI_SERVE = {"batch": 4, "prompt": 128, "steps": 32}
@@ -6556,8 +6882,11 @@ def phase_frontends(ops, ref, smi, cfgs=None):
                                                      smi)
             r["kv_tier_refusal"] = front_refusal(scfg)
         del qparams
+        tcfg = dataclasses.replace(cfg, n_layers=FRONT_TRAIN_LAYERS.get(
+            cfg.name, cfg.n_layers))
+        r["train_layers"] = tcfg.n_layers
         for name, pol in policies:
-            r["train"][name] = front_train(cfg, f"{key}_{name}", pol,
+            r["train"][name] = front_train(tcfg, f"{key}_{name}", pol,
                                            train_run, smi, totals)
         r["depth2"] = front_depth2(cfg, serve_run, ops, ref, smi)
         r["train_depth2"] = front_train_depth2(cfg, train_run, ops,
@@ -6912,7 +7241,6 @@ def main():
         tp_rank(int(sys.argv[2]), sys.argv[3], int(sys.argv[4]))
         return 0
     t_start = time.perf_counter()
-    sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import get_config
     from repro_torch.core.partition import Partition
     from repro_torch.kernels import build, ops, ref

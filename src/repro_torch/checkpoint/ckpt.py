@@ -19,7 +19,10 @@ joins it (re-raising what the write raised). ``restore`` takes each
 array's shape from the file (a packed moment's compact lanes change
 shape with its tags), recomputes each MixedOperand's ``has_nvfp4`` from
 its restored tags, and places each leaf on the target leaf's device in
-its dtype, reading one array at a time.
+its dtype, reading one array at a time. With ``shardings`` (a tree of
+``sharding.NamedSharding``, the elastic re-mesh) each array is cut to
+this rank's block as soon as it is read and placed on its mesh's
+device; the whole array is dropped before the next one is read.
 """
 from __future__ import annotations
 
@@ -177,19 +180,22 @@ class Checkpointer:
     def restore(self, step: int, target: Any, shardings: Any = None):
         """Restore into the structure of ``target``: each leaf from the
         file (its shape too), on the target leaf's device in its dtype;
-        a target leaf that is no tensor gets a CPU tensor. ``shardings``
-        (the reference's elastic re-mesh) must be None."""
-        if shardings is not None:
-            raise NotImplementedError(
-                "shardings: restoring onto a mesh is not ported yet "
-                "(repro.sharding)")
+        a target leaf that is no tensor gets a CPU tensor. ``shardings``:
+        a tree of ``sharding.NamedSharding`` at the target's leaves (the
+        elastic re-mesh); each such leaf becomes this rank's block, on
+        the mesh's device in the target leaf's dtype."""
         d = os.path.join(self.dir, f"step_{step}")
         dtypes = self.manifest(step).get("dtypes", {})
+        cuts = dict(flatten_with_path(shardings))
         with np.load(os.path.join(d, "arrays.npz")) as zf:
             def load(key, leaf):
                 t = _to_tensor(zf[key], dtypes.get(key))
-                if isinstance(leaf, torch.Tensor):
-                    t = t.to(dtype=leaf.dtype).to(device=leaf.device)
+                dtype = leaf.dtype if isinstance(leaf, torch.Tensor) \
+                    else None
+                if key in cuts:
+                    return cuts[key].shard(t, key, dtype)
+                if dtype is not None:
+                    t = t.to(dtype=dtype).to(device=leaf.device)
                 return t
 
             out = map_with_path(load, target)

@@ -33,7 +33,9 @@ named_shardings(mesh, specs))`` and runs the sharded GEMM inside
 ``compat_shard_map``; neither has a counterpart here. One process runs
 per shard (``core.collectives``), so :func:`local_shards` takes the
 place of that ``device_put``: it cuts from a whole tree the pieces this
-rank holds, its slice along each named axis by its mesh coordinate. A
+rank holds, its slice along each named axis by its mesh coordinate
+(:class:`NamedSharding` pairs one leaf's spec with its mesh, as the
+reference's ``jax.sharding.NamedSharding`` does). A
 ``QTensor`` keeps whole blocks of every lane; a compact lane is
 replicated. An axis that does not divide a dense dimension raises a
 ``ValueError`` that names the leaf, as does a quantized leaf whose block
@@ -56,7 +58,7 @@ __all__ = [
     "cache_specs_tree", "zero1_spec",
     "mixed_operand_pspec", "qtensor_pspec_from_dense",
     "quantized_param_specs", "packed_moment_pspec", "opt_state_specs",
-    "local_shards", "local_mixed",
+    "local_shards", "local_mixed", "NamedSharding",
 ]
 
 
@@ -492,3 +494,21 @@ def local_shards(tree, specs, mesh, prefix: str = ""):
         return _cut(tree, specs, mesh, prefix)
     raise TypeError(f"{prefix}: local_shards takes tensors and QTensors, "
                     f"got {type(tree).__name__}")
+
+
+@dataclasses.dataclass(frozen=True)
+class NamedSharding:
+    """A spec over a mesh (``jax.sharding.NamedSharding``'s counterpart):
+    :meth:`shard` cuts this rank's block of a whole tensor and places it
+    on the mesh's device. A leaf of a tree, not a node of one."""
+
+    mesh: Any
+    spec: PartitionSpec
+
+    def shard(self, t: torch.Tensor, name: str = "leaf",
+              dtype=None) -> torch.Tensor:
+        """This rank's block of ``t`` (an axis that does not divide its
+        dimension raises, naming ``name``), on the mesh's device in
+        ``dtype`` (t's own by default)."""
+        out = _cut(t, self.spec, self.mesh, name)
+        return out.to(dtype=dtype or out.dtype, device=self.mesh.device)

@@ -49,6 +49,33 @@ ENGINE_NEW = 4
 # Stats lanes bit for bit under sharding: all but 1 (rel_err, an f32 sum
 # in another association).
 EXACT_LANES = [0] + list(range(2, 14))
+# make_pod_compressed_psum on the (pod 2, data 2) mesh, inner_axes
+# ('data',): name -> (recipe, whether 'data' splits the leaf's rows; a
+# leaf it does not split is replicated within the pod). The pods' partial
+# gradients come from pod_grads; the flat path's case is "flat".
+POD_PSUM_CASES = {"sub3": ("sub3", True), "sub4": ("sub4", True),
+                  "sub4_nvfp4_pod0": ("sub4", True),
+                  "norm_replicated": ("sub3", False)}
+# The lanes a pack ships, in make_pod_compressed_psum's gather order.
+POD_LANES = ("payload_q", "payload_bf16", "payload_nib", "micro_scales",
+             "tags", "scales")
+# Elastic re-mesh of a reduced llama3-8b checkpoint written by the
+# reference at step ELASTIC_STEP: d_ff 99, so mlp/wo's 99 rows demote to
+# replicated on a 'model' axis of 2 and wi's 198 columns on one of 4.
+ELASTIC_OVER = {"d_ff": 99}
+ELASTIC_STEP = 3
+# Checkpointer.restore(shardings=) / reshard_tree on make_elastic_mesh(
+# ranks, prefer_model=2): 2 x 2 over four ranks, 1 x 2 over three (ranks
+# 2 and 3 outside it).
+ELASTIC_MESHES = {"2x2": (0, 1, 2, 3), "1x2": (0, 1, 2)}
+# elastic_restore (prefer_model 16): 1 x 4, and 1 x 3 with rank 3 lost.
+ELASTIC_RESTORES = {"1x4": (0, 1, 2, 3), "1x3": (0, 1, 2)}
+# A leaf each mesh demotes to replicated: (leaf, its 'model' dimension,
+# that dimension's whole extent).
+ELASTIC_DEMOTED = {"2x2": ("blocks/dense/mlp/wo", 1, 99),
+                   "1x2": ("blocks/dense/mlp/wo", 1, 99),
+                   "1x4": ("blocks/dense/mlp/wi", 2, 198),
+                   "1x3": ("embed", 0, 512)}
 
 
 def quant_input():
@@ -106,6 +133,68 @@ def train_batch(vocab: int):
     rng = np.random.default_rng(5)
     return {k: rng.integers(0, vocab, (WORLD, TRAIN_SEQ))
             for k in ("tokens", "labels")}
+
+
+def pod_grads(name):
+    """(2, R, C) f32: each pod's partial gradient of case ``name``."""
+    if name == "flat":  # tests/test_distributed.py's pod psum input
+        return np.random.RandomState(0).randn(2, 64, 64).astype(np.float32)
+    if name == "norm_replicated":  # a (1, 2048) norm scale's gradient
+        r = np.random.default_rng(1)
+        g = r.standard_normal((2, 1, 2048)) * np.exp2(
+            r.integers(-6, 6, (2, 1, 2048)))
+        return g.astype(np.float32)
+    if name == "sub4_nvfp4_pod0":
+        # Pod 0's first 128 rows on the E2M1 grid under per-16 scales
+        # (NVFP4 blocks), the rest normal; pod 1 of a range no NVFP4
+        # block keeps (all BF16).
+        r = np.random.default_rng(5)
+        grid = np.array([0.5, 1.0, 1.5, 2.0, 3.0, 4.0, 6.0])
+        g0 = r.standard_normal((256, 128))
+        g0[:128] = grid[r.integers(0, 7, (128, 128))] * np.exp2(
+            r.integers(-9, 9, (128, 8))).repeat(16, axis=1) * np.where(
+            r.standard_normal((128, 128)) > 0, 1, -1)
+        g1 = r.standard_normal((256, 128)) * np.exp2(
+            r.integers(-12, 12, (256, 128)))
+        return np.stack([g0, g1]).astype(np.float32)
+    # tests/test_compress_psum.py's pod partial sums
+    r = np.random.default_rng(0)
+    g = r.standard_normal((2, 256, 128)) * np.exp2(
+        r.integers(-12, 12, (2, 256, 128)))
+    return g.astype(np.float32)
+
+
+def pod_local(name, rank: int):
+    """Rank ``rank``'s leaf of case ``name`` on the (pod 2, data 2) mesh:
+    its pod's gradient, its half of the rows where 'data' splits them."""
+    g = pod_grads(name)[rank // 2]
+    if name in POD_PSUM_CASES and POD_PSUM_CASES[name][1]:
+        g = np.split(g, 2)[rank % 2]
+    return g
+
+
+def wire_bits(rank: int):
+    """{dtype name: the integer bits rank ``rank`` gathers}: NaNs with
+    payloads, +-0, subnormals and every fp8 byte, per rank."""
+    b8 = (np.arange(256, dtype=np.int64) * 7 + rank * 31) % 256
+    b16 = np.array([0x7FC1, 0xFFC0, 0x8000, 0x0000, 0x0001, 0x7F80,
+                    0x3F80 + rank], np.int64)
+    b32 = np.array([0x7FA00001, 0xFFC00000, 0x80000000, 0x00000000,
+                    0x00000001, 0x7F800000, 0x3F800000 + rank], np.int64)
+    return {"float8_e4m3fn": b8.astype(np.uint8),
+            "float8_e5m2": b8[::-1].astype(np.uint8),
+            "uint8": b8.astype(np.uint8),
+            "bfloat16": b16.astype(np.uint16),
+            "float32": b32.astype(np.uint32),
+            "scalar": b32[:1].reshape(()).astype(np.uint32)}
+
+
+def bits(a):
+    """An unsigned-integer view of ``a`` of its width (bit-for-bit
+    comparison, NaN payloads included)."""
+    a = np.asarray(a)
+    return a.view({1: np.uint8, 2: np.uint16, 4: np.uint32,
+                   8: np.uint64}[a.dtype.itemsize])
 
 
 def rows(a, rank: int, axis: int = 0):

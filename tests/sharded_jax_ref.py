@@ -11,8 +11,17 @@ bar), the reference's train step inside ``compat_shard_map`` on the
 P('data')) and each shard's step on one device (its gradients), its
 ``all_gather_over`` / ``global_size`` / ``psum_over`` inside
 ``shard_map``, its ``pmax_over`` of a NaN on each shard in turn, its
-single-device and sharded ``mixed_gemm`` of the 256 x 256 case, and the
-error its ``Engine(mesh=)`` raises at its first step. The
+single-device and sharded ``mixed_gemm`` of the 256 x 256 case, the
+error its ``Engine(mesh=)`` raises at its first step, its
+``make_pod_compressed_psum`` inside ``compat_shard_map`` on the (pod 2,
+data 2) mesh (each device's pack lanes and sum, and the sum of the
+single-device packs of each pod's whole gradient), and each device's
+shards of a reduced llama3-8b checkpoint after ``reshard_tree`` and
+``elastic_restore``. The checkpoint
+(``OUT_DIR/ckpt``, the reference's ``Checkpointer``) is written before
+``params.npz``, so both are there when the port's ranks start. Every
+output is read whole with ``np.asarray`` before it is indexed (eager
+indexing of a sharded array raises under JAX 0.9). The
 XLA lowering throughout (``REPRO_KERNEL_INTERPRET=0``), compiled with
 XLA's excess precision off. The cases compile and run on a pool of
 threads (XLA compiles with the interpreter lock released).
@@ -265,6 +274,103 @@ def engine_case(out, mesh):
         out["engine_error"] = np.array(f"{type(e).__name__}: {e}"[:400])
 
 
+def pod_psum_case(out, pod_mesh, name):
+    """make_pod_compressed_psum('pod', policy, inner_axes=('data',)) of
+    case ``name`` inside compat_shard_map (tests/test_compress_psum.py's
+    body): every device's sum and its local pack's lanes, as bits, a
+    device a row; the single-device bar, the f32 sum of each pod's whole
+    gradient's pack, decoded. The flat path (policy None, each device its
+    pod's whole gradient, tests/test_distributed.py): every device's
+    sum."""
+    from repro.optim.compress import leaf2d, make_pod_compressed_psum
+
+    g = jnp.asarray(C.pod_grads(name))
+    dev = P(("pod", "data"))
+    key = f"podsum/{name}/"
+    if name == "flat":
+        psum = make_pod_compressed_psum("pod")
+        res = jit_ref(compat_shard_map(lambda a: psum(a[0])[None], pod_mesh,
+                                       P("pod"), dev))(g)
+        out[key + "sum"] = C.bits(np.asarray(res))
+        return
+    recipe, split = C.POD_PSUM_CASES[name]
+    pol = MoRPolicy(recipe=recipe, backend="xla")
+    psum = make_pod_compressed_psum("pod", policy=pol, inner_axes=("data",))
+    pol_sh = pol.replace(mesh_axes=("data",))
+
+    def body(a):
+        mo, _ = quantize_for_gemm(leaf2d(a[0]).astype(jnp.bfloat16), pol_sh)
+        return psum(a[0])[None], tuple(getattr(mo, l)[None]
+                                       for l in C.POD_LANES)
+
+    spec = P("pod", "data" if split else None, None)
+    total, lanes = jit_ref(compat_shard_map(body, pod_mesh, spec,
+                                            (dev, (dev,) * 6)))(g)
+    out[key + "sum"] = C.bits(np.asarray(total))
+    for lane, a in zip(C.POD_LANES, lanes):
+        out[key + lane] = C.bits(np.asarray(a))
+    pack = jit_ref(lambda a: quantize_for_gemm(
+        leaf2d(a).astype(jnp.bfloat16), pol)[0].dequant().astype(
+            jnp.float32))
+    out[key + "single_sum"] = C.bits(np.asarray(pack(g[0]) + pack(g[1])))
+
+
+def elastic_cfg():
+    import dataclasses
+
+    from repro.configs import get_config, reduced
+
+    return dataclasses.replace(reduced(get_config("llama3-8b")),
+                               **C.ELASTIC_OVER)
+
+
+def elastic_save(out_dir):
+    """The reduced llama3-8b params of ELASTIC_OVER, saved by the
+    reference's Checkpointer under ``OUT_DIR/ckpt`` at ELASTIC_STEP."""
+    from repro.checkpoint import Checkpointer
+    from repro.models import init_params
+
+    cfg = elastic_cfg()
+    params = jit_ref(lambda k: init_params(cfg, k))(jax.random.PRNGKey(2))
+    Checkpointer(os.path.join(out_dir, "ckpt"), async_save=False).save(
+        C.ELASTIC_STEP, params)
+    return params
+
+
+def _device_shards(out, key, tree):
+    """Every device's shard of every leaf of ``tree``, as bits, under
+    ``key/leaf/device id``."""
+    for k, a in C.flatten(tree).items():
+        for sh in a.addressable_shards:
+            out[f"{key}/{k}/{sh.device.id}"] = C.bits(np.asarray(sh.data))
+
+
+def elastic_case(out, out_dir, params):
+    """reshard_tree of the restored checkpoint on make_elastic_mesh(
+    devices, prefer_model=2) for each of ELASTIC_MESHES, and
+    elastic_restore for each of ELASTIC_RESTORES: each device's
+    shards."""
+    from repro.checkpoint import Checkpointer
+    from repro.sharding import rules
+    from repro.sharding.elastic import (elastic_restore, make_elastic_mesh,
+                                        reshard_tree)
+
+    cfg = elastic_cfg()
+    ck = Checkpointer(os.path.join(out_dir, "ckpt"), async_save=False)
+    devices = jax.devices()
+    for name, ranks in C.ELASTIC_MESHES.items():
+        mesh = make_elastic_mesh([devices[r] for r in ranks], prefer_model=2)
+        out[f"elastic/{name}/shape"] = np.array(mesh.devices.shape)
+        host = ck.restore(C.ELASTIC_STEP, params)
+        _device_shards(out, f"elastic/{name}", reshard_tree(
+            host, rules.param_specs(cfg, host), mesh))
+    for name, ranks in C.ELASTIC_RESTORES.items():
+        tree, mesh = elastic_restore(ck, C.ELASTIC_STEP, params, cfg,
+                                     [devices[r] for r in ranks])
+        out[f"elastic/{name}/shape"] = np.array(mesh.devices.shape)
+        _device_shards(out, f"elastic/{name}", tree)
+
+
 def main():
     out_dir = sys.argv[1]
     assert len(jax.devices()) == C.WORLD, jax.devices()
@@ -272,6 +378,7 @@ def main():
     pod_mesh = jax.make_mesh((2, 2), ("pod", "data"))
     out = {}
     _patch_summarize()
+    elastic_params = elastic_save(out_dir)
     cfg, params = train_params(out_dir)
     tasks = [(train_case, out, cfg, params, mesh, n)
              for n in C.TRAIN_POLICIES]
@@ -285,7 +392,10 @@ def main():
               (collective_case, out, mesh, pod_mesh),
               (gemm_case, out, mesh, jax.make_mesh((2, 2),
                                                    ("data", "model"))),
-              (engine_case, out, tp_mesh)]
+              (engine_case, out, tp_mesh),
+              (elastic_case, out, out_dir, elastic_params)]
+    tasks += [(pod_psum_case, out, pod_mesh, n)
+              for n in list(C.POD_PSUM_CASES) + ["flat"]]
     with concurrent.futures.ThreadPoolExecutor(6) as pool:
         for f in [pool.submit(*t) for t in tasks]:
             f.result()

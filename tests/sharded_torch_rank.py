@@ -6,9 +6,12 @@
 Joins a gloo world through the ``file://`` store, runs every case of
 ``sharded_cases`` on its shard under ``core.collectives.use_mesh`` and
 writes ``OUT_DIR/rank{RANK}.npz``: also its blocks of the sharded mixed
-GEMM and its tensor-parallel engine runs beside the one-rank engine's.
-Imports torch and the port only; the train-step parameters come from
-``OUT_DIR/params.npz``.
+GEMM, its tensor-parallel engine runs beside the one-rank engine's, the
+bits every dtype's gather brings, its ``make_pod_compressed_psum`` sums
+and the lanes that the collective gathered, and its blocks of the
+reference's checkpoint restored onto elastic meshes. Imports torch and
+the port only; the train-step parameters come from
+``OUT_DIR/params.npz``, the checkpoint from ``OUT_DIR/ckpt``.
 """
 import os
 import sys
@@ -273,6 +276,124 @@ def engine_cases(out, rank, meshes):
             eng.params))
 
 
+def raw(t):
+    """A tensor's bits as numpy (``C.bits``)."""
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)
+    elif t.dtype in (torch.float8_e4m3fn, torch.float8_e5m2):
+        t = t.view(torch.uint8)
+    return C.bits(t.numpy())
+
+
+def wire_cases(out, rank, pod_mesh):
+    """all_gather_over of every dtype the pod sum ships, over each axis of
+    the 2 x 2 mesh: the bits that arrive."""
+    dtypes = {"float8_e4m3fn": torch.float8_e4m3fn,
+              "float8_e5m2": torch.float8_e5m2, "uint8": torch.uint8,
+              "bfloat16": torch.bfloat16, "float32": torch.float32,
+              "scalar": torch.float32}
+    ints = {1: np.uint8, 2: np.int16, 4: np.int32}
+    with col.use_mesh(pod_mesh):
+        for name, b in C.wire_bits(rank).items():
+            dt = dtypes[name]
+            t = torch.from_numpy(b.view(ints[b.itemsize]).copy()).view(dt)
+            for ax in ("pod", "data"):
+                g = col.all_gather_over(t, ax)
+                assert g.dtype == dt, (name, g.dtype)
+                out[f"wire/{name}/{ax}"] = raw(g)
+
+
+def pod_psum_cases(out, rank, pod_mesh):
+    """make_pod_compressed_psum('pod', ...) on this rank's leaf of each
+    case: the sum, and the lanes the collective gathered (every pod's,
+    ``POD_LANES`` order); the flat path's sum."""
+    from repro_torch.optim import compress
+
+    gathered = []
+    gather = compress.all_gather_over
+
+    def spy(x, axis):
+        g = gather(x, axis)
+        gathered.append(g)
+        return g
+
+    compress.all_gather_over = spy
+    try:
+        with col.use_mesh(pod_mesh):
+            for name in list(C.POD_PSUM_CASES) + ["flat"]:
+                pol = None if name == "flat" else MoRPolicy(
+                    recipe=C.POD_PSUM_CASES[name][0])
+                psum = compress.make_pod_compressed_psum(
+                    "pod", policy=pol,
+                    inner_axes=() if pol is None else ("data",))
+                gathered.clear()
+                got = psum(torch.from_numpy(C.pod_local(name, rank)))
+                key = f"podsum/{name}/"
+                out[key + "sum"] = raw(got)
+                if pol is None:
+                    continue
+                assert len(gathered) == len(C.POD_LANES), len(gathered)
+                for lane, g in zip(C.POD_LANES, gathered):
+                    out[key + "gathered/" + lane] = raw(g)
+    finally:
+        compress.all_gather_over = gather
+
+
+def elastic_cases(out, rank, ckpt_dir):
+    """The reference's checkpoint restored onto elastic meshes: through
+    Checkpointer.restore(shardings=) (demoted specs) and reshard_tree on
+    make_elastic_mesh(ranks, prefer_model=2), through elastic_restore;
+    this rank's blocks as bits, or 'outside'. make_production_mesh on
+    this world: its error."""
+    import dataclasses
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models.transformer import init_params
+    from repro_torch.sharding import (NamedSharding, elastic_restore,
+                                      make_elastic_mesh, reshard_tree, rules)
+    from repro_torch.sharding.elastic import demoted_spec
+
+    cfg = dataclasses.replace(reduced(get_config("llama3-8b")),
+                              **C.ELASTIC_OVER)
+    target = init_params(cfg, seed=0, device="cpu")
+    specs = rules.param_specs(cfg, target)
+    ck = Checkpointer(ckpt_dir, async_save=False)
+    for name, ranks in C.ELASTIC_MESHES.items():
+        mesh = make_elastic_mesh(ranks, prefer_model=2, device="cpu")
+        key = f"elastic/{name}"
+        if mesh is None:
+            out[f"{key}/outside"] = np.array(1)
+            continue
+        out[f"{key}/shape"] = np.array(mesh.shape)
+        shardings = rules._map2(lambda s, t: NamedSharding(
+            mesh, demoted_spec(s, tuple(t.shape), mesh)), specs, target)
+        got = ck.restore(C.ELASTIC_STEP, target, shardings=shardings)
+        again = reshard_tree(ck.restore(C.ELASTIC_STEP, target), specs,
+                             mesh)
+        for k, v in C.flatten(got).items():
+            out[f"{key}/{k}"] = raw(v)
+        for k, v in C.flatten(again).items():
+            out[f"{key}/reshard/{k}"] = raw(v)
+    for name, ranks in C.ELASTIC_RESTORES.items():
+        tree, mesh = elastic_restore(ck, C.ELASTIC_STEP, target, cfg,
+                                     ranks=ranks, device="cpu")
+        key = f"elastic/{name}"
+        if mesh is None:
+            assert tree is None
+            out[f"{key}/outside"] = np.array(1)
+            continue
+        out[f"{key}/shape"] = np.array(mesh.shape)
+        for k, v in C.flatten(tree).items():
+            out[f"{key}/{k}"] = raw(v)
+    try:
+        make_production_mesh(device="cpu")
+        out["production_mesh"] = np.array("no error")
+    except ValueError as e:
+        out["production_mesh"] = np.array(str(e))
+
+
 def main():
     rank, store, out_dir = int(sys.argv[1]), sys.argv[2], sys.argv[3]
     torch.set_num_threads(1)
@@ -292,6 +413,9 @@ def main():
     gemm_cases(out, rank, mesh, mesh22)
     embed_case(out, rank, tp_mesh)
     engine_cases(out, rank, {(1, C.WORLD): tp_mesh, (2, 2): mesh22})
+    wire_cases(out, rank, pod_mesh)
+    pod_psum_cases(out, rank, pod_mesh)
+    elastic_cases(out, rank, os.path.join(out_dir, "ckpt"))
     out["collectives"] = np.array(col.COLLECTIVES["calls"])
     np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
 

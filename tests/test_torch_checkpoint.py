@@ -377,10 +377,36 @@ def test_write_error_is_raised_by_wait(tmp_path):
 
 
 def test_restore_refuses_shardings(tmp_path):
+    """restore(shardings=) onto a mesh (the elastic re-mesh): each sharded
+    leaf is this rank's block of the reference's file, in the target's
+    dtype, a leaf without a sharding whole, and a sharding whose axis
+    does not divide its dimension is refused with a ValueError naming
+    the leaf. The rank is rank 1 of a ('data' 1, 'model' 2) mesh, stood
+    in by a Mesh without a process group (the cut reads only its
+    coordinates); the four-rank worlds are tests/test_torch_sharded.py's.
+    shardings=None restores every leaf whole, as before."""
+    from repro_torch.core.collectives import Mesh
+    from repro_torch.sharding import NamedSharding, P
+
+    w = np.arange(6 * 8, dtype=np.float32).reshape(6, 8)
+    v = np.arange(5, dtype=np.float32) - 2.5
+    JCheckpointer(str(tmp_path), async_save=False).save(
+        1, {"w": jnp.asarray(w, jnp.bfloat16), "v": jnp.asarray(v)})
     ck = Checkpointer(str(tmp_path), async_save=False)
-    ck.save(1, {"x": torch.zeros(2)})
-    with pytest.raises(NotImplementedError, match="repro.sharding"):
-        ck.restore(1, {"x": torch.zeros(2)}, shardings={"x": None})
+    target = {"w": torch.zeros(1, dtype=torch.float32),
+              "v": torch.zeros(1, dtype=torch.bfloat16)}
+    mesh = Mesh((1, 2), ("data", "model"), "cpu", 1, {})
+    got = ck.restore(1, target, shardings={
+        "w": NamedSharding(mesh, P(None, "model"))})
+    assert got["w"].dtype == torch.float32 and got["v"].dtype == \
+        torch.bfloat16
+    np.testing.assert_array_equal(got["w"].numpy(), w[:, 4:])
+    np.testing.assert_array_equal(got["v"].float().numpy(), v)
+    whole = ck.restore(1, target)
+    np.testing.assert_array_equal(whole["w"].numpy(), w)
+    with pytest.raises(ValueError, match=r"\['v'\]"):
+        ck.restore(1, target, shardings={"v": NamedSharding(mesh,
+                                                            P("model"))})
 
 
 def test_bf16_and_fp8_without_ml_dtypes(tmp_path):

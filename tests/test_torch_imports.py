@@ -48,6 +48,8 @@ def test_port_tree_is_present():
                  "src/repro_torch/models/recurrent.py",
                  "src/repro_torch/core/collectives.py",
                  "src/repro_torch/launch/ranks.py",
+                 "src/repro_torch/launch/mesh.py",
+                 "src/repro_torch/sharding/elastic.py",
                  "chip_smoke.py"):
         assert must in names
 
@@ -68,6 +70,7 @@ def test_import_leaves_jax_unloaded():
         "import repro_torch.optim, repro_torch.core.stats\n"
         "import repro_torch.checkpoint, repro_torch.robust.faults\n"
         "import repro_torch.models.blocks, repro_torch.configs\n"
+        "import repro_torch.launch.mesh, repro_torch.sharding.elastic\n"
         "repro_torch.configs.list_archs()\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"

@@ -407,3 +407,123 @@ def test_reference_engine_mesh_fails_at_embed_gather(worlds):
     _, ref = worlds
     assert str(ref["engine_error"]).startswith("ShardingTypeError"), \
         ref["engine_error"]
+
+
+
+def _pod_group(rank, axis):
+    """The ranks of ``rank``'s group along ``axis`` of the (pod 2, data 2)
+    mesh (rank r at (r // 2, r % 2)), in the axis' order."""
+    pod, data = divmod(rank, 2)
+    return [data, 2 + data] if axis == "pod" else [2 * pod, 2 * pod + 1]
+
+
+@pytest.mark.parametrize("name", list(C.wire_bits(0)))
+def test_gather_ships_every_dtype_bit_for_bit(worlds, name):
+    """all_gather_over of fp8 (crossing gloo as its bytes), uint8, bf16,
+    f32 and an f32 scalar over each axis of the 2 x 2 mesh: every bit
+    arrives, NaN payloads, -0.0 and subnormals included."""
+    ranks, _ = worlds
+    for r, rk in enumerate(ranks):
+        for ax in ("pod", "data"):
+            want = np.stack([C.wire_bits(m)[name]
+                             for m in _pod_group(r, ax)])
+            got = rk[f"wire/{name}/{ax}"]
+            assert got.dtype == want.dtype, (name, got.dtype)
+            np.testing.assert_array_equal(got, want, err_msg=f"{name} {ax}")
+
+
+@pytest.mark.parametrize("name", list(C.POD_PSUM_CASES))
+def test_pod_psum_matches_reference_shard_map(worlds, name):
+    """make_pod_compressed_psum('pod', policy, inner_axes=('data',)) on
+    four ranks as the (pod 2, data 2) mesh against the reference's inside
+    compat_shard_map (tests/test_compress_psum.py's 4-device case): every
+    lane the collective gathered (each pod's payload_q, payload_bf16,
+    payload_nib, micro_scales, tags and scales) bit for bit the matching
+    device's pack, every rank's decoded sum bit for bit the reference
+    device's, and each pod's sum, assembled over 'data', bit for bit the
+    sum of the single-device packs of each pod's whole gradient. The
+    sub4 case with NVFP4 blocks in pod 0 only decodes them on every
+    rank; the (1, 2048) leaf is replicated within the pod."""
+    ranks, ref = worlds
+    key = f"podsum/{name}/"
+    split = C.POD_PSUM_CASES[name][1]
+    for r, rk in enumerate(ranks):
+        data = r % 2
+        for lane in C.POD_LANES:
+            got = rk[key + "gathered/" + lane]
+            want = np.stack([ref[key + lane][2 * q + data]
+                             for q in range(2)])
+            assert got.dtype == want.dtype, (lane, got.dtype, want.dtype)
+            np.testing.assert_array_equal(got, want, err_msg=f"{r} {lane}")
+        np.testing.assert_array_equal(rk[key + "sum"], ref[key + "sum"][r])
+    single = ref[key + "single_sum"]
+    for pod in range(2):
+        sums = [ranks[2 * pod + d][key + "sum"] for d in range(2)]
+        if split:
+            np.testing.assert_array_equal(np.concatenate(sums), single)
+        else:
+            for s in sums:
+                np.testing.assert_array_equal(s, single)
+    if name == "sub4_nvfp4_pod0":
+        from repro_torch.kernels.ref import TAG_NVFP4
+
+        tags = ref[key + "tags"]  # a device a row: pods 0, 0, 1, 1
+        assert (tags[:2] == TAG_NVFP4).any()
+        assert not (tags[2:] == TAG_NVFP4).any()
+
+
+def test_pod_psum_flat_path_matches_reference(worlds):
+    """The flat path (no policy: one per-tensor E4M3 payload and one f32
+    scale a pod, gathered and dequant-summed), each rank its pod's whole
+    gradient (tests/test_distributed.py's case on the 2 x 2 mesh): every
+    rank's sum bit for bit the reference device's."""
+    ranks, ref = worlds
+    for r, rk in enumerate(ranks):
+        np.testing.assert_array_equal(rk["podsum/flat/sum"],
+                                      ref["podsum/flat/sum"][r])
+
+
+@pytest.mark.parametrize("name", list(C.ELASTIC_MESHES) +
+                         list(C.ELASTIC_RESTORES))
+def test_elastic_restore_matches_reference_shards(worlds, name):
+    """The reference's checkpoint of reduced llama3-8b (d_ff 99) restored
+    on the port's ranks: on make_elastic_mesh(ranks, prefer_model=2)
+    through Checkpointer.restore(shardings=) and through reshard_tree,
+    and through elastic_restore (prefer_model 16). Each rank's leaves
+    are bit for bit the matching device's shard of the reference's
+    reshard_tree / elastic_restore, a dimension the mesh does not divide
+    replicated (mlp/wo's 99 rows on a 'model' axis of 2, wi's 198
+    columns on one of 4, every 'model' dimension but 99 and 198 on one
+    of 3); a rank outside the mesh gets None."""
+    ranks, ref = worlds
+    key = f"elastic/{name}"
+    shape = tuple(ref[key + "/shape"])
+    n = int(np.prod(shape))
+    leaves = {k[len(key) + 1:].rsplit("/", 1)[0] for k in ref
+              if k.startswith(key + "/") and not k.endswith("/shape")}
+    assert len(leaves) == 9, leaves
+    kinds = ["", "reshard/"] if name in C.ELASTIC_MESHES else [""]
+    for r, rk in enumerate(ranks):
+        if r >= n:
+            assert int(rk[key + "/outside"]) == 1
+            continue
+        assert tuple(rk[key + "/shape"]) == shape
+        for k in leaves:
+            want = ref[f"{key}/{k}/{r}"]
+            for kind in kinds:
+                got = rk[f"{key}/{kind}{k}"]
+                assert got.dtype == want.dtype, (k, got.dtype)
+                np.testing.assert_array_equal(got, want, err_msg=k)
+    # The demoted leaf: whole on every rank of the mesh.
+    leaf, dim, extent = C.ELASTIC_DEMOTED[name]
+    for r in range(n):
+        assert ranks[r][f"{key}/{leaf}"].shape[dim] == extent
+
+
+def test_production_mesh_raises_naming_rank_counts(worlds):
+    """make_production_mesh on the 4-rank world raises a ValueError that
+    names its 256 ranks and the world's 4."""
+    ranks, _ = worlds
+    for rk in ranks:
+        msg = str(rk["production_mesh"])
+        assert "256" in msg and "4" in msg, msg

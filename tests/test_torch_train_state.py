@@ -303,8 +303,15 @@ def test_compress_grads_matches_reference(mode):
         tcompress.compress_grads(to_t(g), "gzip")
     with pytest.raises(ValueError):
         tcompress.compress_grads(to_t(g), "mor_ef", ef_state=None)
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        tcompress.make_pod_compressed_psum()
+    # The single-pod compressed sum (the local pack / decode round trip;
+    # its four-rank mesh is tests/test_torch_sharded.py's) bit for bit.
+    pol = None if mode.startswith("fp8") else "sub3"
+    want = jit_ref(jcompress.make_pod_compressed_psum(
+        None, None if pol is None else jpol(pol)))(jnp.asarray(g["w"]))
+    got = tcompress.make_pod_compressed_psum(
+        None, None if pol is None else MoRPolicy(recipe=pol))(
+            torch.from_numpy(g["w"].copy()))
+    np.testing.assert_array_equal(bits(want), bits(got))
 
 
 # ---------------------------------------------------------------------------
